@@ -1,0 +1,245 @@
+"""DeviceReader — an engine reader view packed into tensors on the card.
+
+Counterpart of ``elasticsearch_tpu/index/device_reader.py``: the analog of
+acquiring an NRT searcher (IndexShard.acquireSearcher,
+core/index/shard/IndexShard.java:707) — an immutable point-in-time set of
+segments whose scoring columns are uploaded once per refresh generation;
+queries then run on the device until the final top-k docs come back for
+fetch.
+
+Text (forward impact), keyword, numeric and live columns become tensors on
+the reader's device. Position matrices, vector, geo, shape and nested
+columns stay host-side on the segment (``DeviceSegment.seg``): no query
+this port serves reads them yet.
+
+Also aggregates per-field corpus statistics across segments host-side
+(doc counts, Σ field length, per-term df on demand) — what Lucene exposes as
+CollectionStatistics/TermStatistics for query-time IDF.
+"""
+
+from __future__ import annotations
+
+import threading
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from elasticsearch_tpu_torch.common.device import resolve_device
+from elasticsearch_tpu_torch.index.engine import SearcherView
+from elasticsearch_tpu_torch.index.segment import Segment
+
+
+@dataclass
+class DeviceTextField:
+    uterms: torch.Tensor       # [Np, U] i32
+    utf: torch.Tensor          # [Np, U] f32
+    doc_len: torch.Tensor      # [Np] i32
+    column: Any                # host TextFieldColumn (term dict, df)
+    # every row holds its terms first and -1 pads after (checked at upload):
+    # lets the scoring kernel stop a row at its first pad
+    trailing_pad: bool = False
+
+
+@dataclass
+class DeviceKeywordField:
+    ords: torch.Tensor         # [Np, K] i32
+    column: Any                # host KeywordFieldColumn (vocab)
+
+
+@dataclass
+class DeviceNumericField:
+    """Numeric doc values as a double-double split: ``hi = f32(v)``,
+    ``lo = f32(v - hi)`` — lexicographic compare on (hi, lo) reproduces
+    exact f64 ordering, as in the JAX package."""
+    hi: torch.Tensor           # [Np] f32
+    lo: torch.Tensor           # [Np] f32
+    exists: torch.Tensor       # [Np] bool
+    column: Any
+
+
+def dd_split(v: np.ndarray | float) -> tuple[np.ndarray, np.ndarray]:
+    hi = np.float32(v)
+    with np.errstate(invalid="ignore"):
+        lo = np.float32(np.float64(v) - np.float64(hi))
+    # ±inf bounds: inf - inf = nan would poison comparisons; lo 0 keeps the
+    # (hi, lo) pair correctly ordered.
+    lo = np.where(np.isfinite(np.float64(v)), lo, np.float32(0.0)) \
+        if isinstance(v, np.ndarray) else \
+        (lo if np.isfinite(v) else np.float32(0.0))
+    return hi, lo
+
+
+@dataclass
+class DeviceSegment:
+    seg: Segment
+    live: torch.Tensor              # [Np] bool (padding & deletes False)
+    doc_base: int                   # global doc id of row 0 within the reader
+    text: dict[str, DeviceTextField]
+    keyword: dict[str, DeviceKeywordField]
+    numeric: dict[str, DeviceNumericField]
+
+    @property
+    def padded_docs(self) -> int:
+        return self.seg.padded_docs
+
+
+@dataclass
+class TextFieldStats:
+    doc_count: int          # docs in reader (incl. not-yet-merged deletes)
+    docs_with_field: int
+    total_tokens: int
+
+    @property
+    def avgdl(self) -> float:
+        return self.total_tokens / max(self.docs_with_field, 1)
+
+
+def pads_trail(uterms: torch.Tensor) -> bool:
+    """True when no row of a [N, U] term matrix has a term after a pad."""
+    if uterms.shape[0] == 0 or uterms.shape[1] < 2:
+        return True
+    real = uterms >= 0
+    return not bool((real[:, 1:] & ~real[:, :-1]).any())
+
+
+class DeviceReader:
+    def __init__(self, view: SearcherView, device=None):
+        """Pack every segment of ``view`` onto ``device`` (CUDA when None;
+        raises when no card is present)."""
+        self.device = resolve_device(device)
+        self.generation = view.generation
+        self.segments: list[DeviceSegment] = []
+        self._text_stats: dict[str, TextFieldStats] = {}
+        doc_base = 0
+        for seg, live in zip(view.segments, view.live_masks):
+            self.segments.append(self._pack_segment(seg, live, doc_base))
+            doc_base += seg.padded_docs
+        self.max_doc = doc_base
+        self._collect_stats(view)
+
+    # ---- packing ----------------------------------------------------------
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _pack_segment(self, seg: Segment, live: np.ndarray,
+                      doc_base: int) -> DeviceSegment:
+        put = self._put
+        text = {}
+        for name, c in seg.text_fields.items():
+            uterms = put(c.uterms)
+            text[name] = DeviceTextField(
+                uterms=uterms, utf=put(c.utf),
+                doc_len=put(c.doc_len), column=c,
+                trailing_pad=pads_trail(uterms))
+        keyword = {name: DeviceKeywordField(ords=put(c.ords), column=c)
+                   for name, c in seg.keyword_fields.items()}
+        numeric = {}
+        for name, c in seg.numeric_fields.items():
+            hi, lo = dd_split(c.values)
+            numeric[name] = DeviceNumericField(
+                hi=put(hi), lo=put(lo), exists=put(c.exists), column=c)
+        return DeviceSegment(seg=seg, live=put(live), doc_base=doc_base,
+                             text=text, keyword=keyword, numeric=numeric)
+
+    def device_bytes(self) -> int:
+        """Bytes of the tensors this reader placed on its device."""
+        total = 0
+        for s in self.segments:
+            tensors = [s.live]
+            for c in s.text.values():
+                tensors += [c.uterms, c.utf, c.doc_len]
+            tensors += [c.ords for c in s.keyword.values()]
+            for c in s.numeric.values():
+                tensors += [c.hi, c.lo, c.exists]
+            total += sum(t.numel() * t.element_size() for t in tensors)
+        return total
+
+    def _collect_stats(self, view: SearcherView) -> None:
+        for seg in view.segments:
+            self._collect_seg_stats(seg)
+
+    def _collect_seg_stats(self, seg: Segment) -> None:
+        for name, c in seg.text_fields.items():
+            st = self._text_stats.setdefault(name, TextFieldStats(0, 0, 0))
+            st.doc_count += seg.num_docs
+            st.docs_with_field += int((c.doc_len[:seg.num_docs] > 0).sum())
+            st.total_tokens += c.total_tokens
+        for blk in seg.nested_blocks.values():
+            # nested child fields get their own stats over CHILD rows (the
+            # reference's nested docs likewise contribute their own
+            # field statistics)
+            self._collect_seg_stats(blk.segment)
+
+    # ---- stats (CollectionStatistics / TermStatistics analog) -------------
+
+    @property
+    def num_docs(self) -> int:
+        return sum(s.seg.num_docs for s in self.segments)
+
+    def text_stats(self, field: str) -> TextFieldStats:
+        return self._text_stats.get(field, TextFieldStats(self.num_docs, 0, 0))
+
+    def df(self, field: str, term: str) -> int:
+        """Doc frequency aggregated across this reader's segments
+        (including nested child blocks — their fields are path-prefixed,
+        so names never collide with parent fields)."""
+        def seg_df(seg: Segment) -> int:
+            out = 0
+            col = seg.text_fields.get(field)
+            if col is not None:
+                tid = col.tid(term)
+                if tid >= 0:
+                    out += int(col.df[tid])
+            for blk in seg.nested_blocks.values():
+                out += seg_df(blk.segment)
+            return out
+        return sum(seg_df(s.seg) for s in self.segments)
+
+    # ---- doc id resolution -------------------------------------------------
+
+    def resolve(self, global_doc: int) -> tuple[DeviceSegment, int]:
+        """global doc id → (device segment, local row)."""
+        for s in self.segments:
+            if s.doc_base <= global_doc < s.doc_base + s.padded_docs:
+                return s, global_doc - s.doc_base
+        raise IndexError(f"doc {global_doc} out of range")
+
+    def doc_id(self, global_doc: int) -> str:
+        s, local = self.resolve(global_doc)
+        return s.seg.ids[local]
+
+    def source(self, global_doc: int) -> dict:
+        s, local = self.resolve(global_doc)
+        return s.seg.sources[local]
+
+
+def device_reader_for(engine, view: SearcherView | None = None,
+                      device=None) -> DeviceReader:
+    """Reader cache per refresh generation and device — columns upload once
+    per refresh, like Lucene's per-commit reader reuse. The cache lives ON
+    the engine object so its tensors are released with the engine."""
+    dev = resolve_device(device)
+    if view is None:
+        view = engine.acquire_searcher()
+    lock = engine.__dict__.setdefault("_device_reader_lock",
+                                      threading.Lock())
+    with lock:
+        cached = getattr(engine, "_device_reader_cache", None)
+        if cached is not None and cached.generation == view.generation \
+                and cached.device == dev:
+            return cached
+        cached = DeviceReader(view, device=dev)
+        engine._device_reader_cache = cached
+        return cached
+
+
+def release_device_reader(engine) -> None:
+    """Drop the engine's cached reader (called from Engine.close) so its
+    tensors are freed with the engine."""
+    lock = engine.__dict__.setdefault("_device_reader_lock",
+                                      threading.Lock())
+    with lock:
+        engine._device_reader_cache = None

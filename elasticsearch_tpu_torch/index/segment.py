@@ -1,0 +1,1040 @@
+"""The columnar segment — this framework's Lucene-equivalent index format.
+
+The reference's per-shard index is a set of immutable Lucene segments
+(postings lists + doc values + stored fields; written by IndexWriter, read
+via NRT readers — core/index/engine/InternalEngine.java). Pointer-chasing,
+variable-length postings don't map to XLA/TPU, so the segment here is a set
+of **dense, padded, fixed-shape matrices** designed for HBM residency and
+vectorized scoring (SURVEY.md §7 step 2, BM25S-style eager scoring,
+PAPERS.md):
+
+Per analyzed text field:
+  * ``tokens[N, L]`` int32 — **position-indexed**: slot ``p`` holds the term
+    id at token position ``p`` (-1 for holes left by stopword removal, array
+    gaps, and padding). Phrase matching with position gaps becomes a pure
+    shifted dense compare (ops/phrase.py), replacing Lucene's position
+    postings.
+  * ``uterms[N, U]`` int32 / ``utf[N, U]`` float32 — unique terms per doc and
+    their term frequencies: the *forward impact index*. BM25 scoring reads
+    these as dense vector ops (no scatter); equivalent of the term-frequency
+    postings + norms that Lucene's TermScorer/BM25Similarity consume.
+  * per-segment term dictionary + ``df`` counts (idf is computed at query
+    time from df aggregated across segments/shards, matching Lucene's
+    query-time IDF and enabling the DFS distributed-stats mode).
+
+Per keyword field: sorted vocab + ordinal matrix ``ords[N, K]`` (-1 pad) —
+the equivalent of SORTED_SET doc values (ordinal order == lexical order, so
+range/sort/terms-agg work on ordinals).
+
+Per numeric field: ``values[N]`` float64 + ``exists[N]`` — NUMERIC doc values.
+Per dense_vector field: ``vecs[N, D]`` float32 — row-major for MXU matmuls.
+
+All row counts are padded to tiling-friendly multiples; readers carry the
+true ``num_docs``. Segments are immutable after build; deletes live in the
+engine as per-segment live-bitmaps (Lucene's .liv files).
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field as dc_field
+from pathlib import Path
+from typing import Any, Iterable
+
+import numpy as np
+
+from elasticsearch_tpu_torch.common.versioning import CURRENT_VERSION
+from elasticsearch_tpu_torch.mapping.mapper import (
+    ParsedDocument, KIND_TEXT, KIND_KEYWORD, KIND_NUMERIC, KIND_VECTOR,
+    KIND_MVECTOR, KIND_GEO, KIND_SHAPE)
+
+# Process-unique block identities (itertools.count.__next__ is atomic under
+# CPython): every Segment object gets one at construction. seg_id alone is
+# NOT a stable identity — a recovered commit installs a DIFFERENT source
+# engine's segments under potentially colliding seg_ids — so device-resident
+# caches (the collective plane's per-segment block cache) key on block_uid,
+# which changes exactly when the backing column arrays change.
+import itertools as _itertools
+
+_block_uids = _itertools.count(1)
+
+# Position-slot cap per text field (docs longer than this are truncated at
+# index time; reference analog: index.mapping.depth/field limits). Padded to
+# a multiple of _ROW_PAD for TPU lane tiling.
+DEFAULT_MAX_TOKENS = 512
+_ROW_PAD = 8
+
+# index.store.type → on-disk layout (IndexStoreModule registry; plugins
+# extend it — store-smb adds the smb_* names). Layouts: "compressed"
+# (npz deflate), "uncompressed" (plain npz, faster open), "npy_dir"
+# (one .npy per column, OS-mmap'd on read so cold columns page lazily).
+STORE_TYPES: dict[str, str] = {
+    "fs": "compressed", "default": "compressed",
+    "niofs": "uncompressed", "simple_fs": "uncompressed",
+    "simplefs": "uncompressed",
+    "mmapfs": "npy_dir", "mmap_fs": "npy_dir",
+}
+
+
+def validate_store_type(store_type: str) -> str:
+    """→ layout name, raising the create-index-time error for unknown
+    types (IndexStoreModule resolution; indices/service validates at
+    creation so a typo can't produce an index that fails every flush)."""
+    layout = STORE_TYPES.get(str(store_type))
+    if layout is None:
+        from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
+        raise IllegalArgumentError(
+            f"unknown index.store.type [{store_type}] "
+            f"(registered: {sorted(STORE_TYPES)})")
+    return layout
+
+
+def _column_file(arrays_dir: Path, key: str) -> Path:
+    """One encoding for column-key → filename (shared by write + mmap
+    read; field names may contain characters unfit for filenames)."""
+    from urllib.parse import quote
+    return arrays_dir / (quote(key, safe=".") + ".npy")
+
+
+class _MmapArrays:
+    """Mapping view over a per-column .npy directory, each array opened
+    with ``mmap_mode="r"`` — reads page in on demand (the mmapfs
+    DirectoryService strategy)."""
+
+    def __init__(self, path: Path):
+        self._path = path
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        f = _column_file(self._path, key)
+        if not f.exists():
+            raise KeyError(key)
+        return np.load(f, mmap_mode="r")
+
+    def get(self, key: str, default=None):
+        try:
+            return self[key]
+        except KeyError:
+            return default
+
+
+def pad_to(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+# ---------------------------------------------------------------------------
+# Impact-ordered index: quantized eager impacts + per-block maxima
+# (BM25S-style impact precompute, PAPERS.md; GPUSparse's block-organized
+# dense layout keeps the block tables accelerator-friendly).
+# ---------------------------------------------------------------------------
+
+#: default quantization width. uint8 keeps the per-term score error at
+#: max_impact/510 (~0.2%) AND makes the df-drift requantization threshold
+#: (one quantization step) wide enough that steady-state refreshes on a
+#: large corpus do not requantize resident segments.
+IMPACT_BITS = 8
+#: rows per block-max block — MUST be a power of two so it divides the
+#: pow2 doc_count_bucket row padding exactly
+IMPACT_BLOCK_ROWS = 2048
+#: block_max is a dense [B, V] table (GPUSparse layout); segments whose
+#: table would exceed this many cells ship impacts without block maxima
+#: (the eager impact lane still runs; only pruning is declined)
+IMPACT_BLOCK_BUDGET = 1 << 26
+
+
+@dataclass
+class ImpactColumn:
+    """Quantized BM25 impacts for one text field of one segment.
+
+    ``qimp[Np, U]`` mirrors the ``uterms`` layout: slot ``(d, u)`` holds
+    ``round(impact / scale)`` where ``impact = idf·tf·(k1+1)/(tf+norm)``
+    — the full per-(term, doc) BM25 contribution precomputed at
+    build time (BM25S), so query-time scoring is a dense compare +
+    integer gather/sum with NO per-doc float math. ``block_max[B, V]``
+    carries, per fixed row block, the max quantized impact of every
+    term — the WAND/block-max upper-bound table — with an OCCUPANCY
+    floor: present-term cells store at least 1, so a zero cell means
+    the term does not occur in the block at all (the pruning lane keys
+    its skip on that). Quantization error is ≤ ``scale/2`` per matched
+    term (``bound_per_term``).
+
+    idf (and avgdl) are READER-global at build time; the snapshot
+    fields let later refreshes measure cross-segment df drift and
+    requantize only when the drift exceeds one quantization step
+    (``drift_bound`` vs ``step_rel``)."""
+    qimp: np.ndarray                 # [Np, U] uint8/uint16
+    block_max: np.ndarray | None     # [B, V] same dtype (None: over budget)
+    scale: float                     # dequant factor: score = Σq · scale
+    bits: int
+    block_rows: int
+    doc_count: int                   # idf snapshot: reader doc count
+    avgdl: float                     # idf snapshot: reader avgdl
+    k1: float
+    b: float
+    quant_gen: int = 0               # bumped on requantization
+
+    @property
+    def step_rel(self) -> float:
+        """One quantization step as a fraction of the max impact."""
+        return 1.0 / ((1 << self.bits) - 1)
+
+    @property
+    def bound_per_term(self) -> float:
+        """Score-units error bound per matched query term (quantization
+        half-step plus the tolerated idf drift of one full step)."""
+        return self.scale * 0.5 + \
+            self.scale * ((1 << self.bits) - 1) * self.step_rel
+
+    def drift_bound(self, doc_count: int, avgdl: float) -> float:
+        """Conservative SCORE-UNITS bound on the impact drift since the
+        snapshot: ``2·|ln(N/N₀)|`` bounds any term's idf movement (df
+        can drift by at most the added/removed docs), ``|ln(a/a₀)|``
+        the length-norm movement, and ``k1+1`` bounds tfNorm — the
+        product bounds how far a precomputed impact can sit from its
+        current-statistics value. Compared against one quantization
+        step (``scale``) by the requant policy: drift within a step is
+        inside the documented ``bound_per_term`` envelope."""
+        import math
+        n0 = max(self.doc_count, 1)
+        a0 = max(self.avgdl, 1e-9)
+        # |ln(N/N₀)| bounds idf movement at FIXED df (d idf/dN = 1/(N+1));
+        # a rare term whose df itself jumps inside the growth window can
+        # exceed this between requants — that residual is part of the
+        # documented bound_per_term envelope (see ROOFLINE.md), and the
+        # corpus-growth trigger caps how long it can accumulate.
+        rel = abs(math.log(max(doc_count, 1) / n0)) + \
+            abs(math.log(max(avgdl, 1e-9) / a0))
+        return (self.k1 + 1.0) * rel
+
+
+def build_impact_column(col: TextFieldColumn, *, df: np.ndarray,
+                        doc_count: int, avgdl: float,
+                        k1: float = 1.2, b: float = 0.75,
+                        bits: int = IMPACT_BITS,
+                        block_rows: int = IMPACT_BLOCK_ROWS,
+                        block_budget: int = IMPACT_BLOCK_BUDGET,
+                        quant_gen: int = 0) -> ImpactColumn:
+    """Precompute one segment's quantized impact column + block maxima.
+
+    ``df`` is the [V] READER-global doc frequency of this segment's
+    terms (positional by term id) — the idf snapshot baked into the
+    impacts; ``doc_count``/``avgdl`` are the matching reader-global
+    statistics. Pure numpy, O(N·U): cheap enough that the
+    incremental data plane pays it once per NEW segment per refresh."""
+    if bits not in (8, 16):
+        raise ValueError(f"impact bits must be 8 or 16, got {bits}")
+    if block_rows & (block_rows - 1):
+        raise ValueError("impact block_rows must be a power of two")
+    dtype = np.uint8 if bits == 8 else np.uint16
+    qmax = (1 << bits) - 1
+    np_docs, _u = col.uterms.shape
+    v = int(np.asarray(df).shape[0])
+    n0 = max(int(doc_count), 1)
+    dfv = np.asarray(df, np.float64)
+    idf = np.log1p((n0 - dfv + 0.5) / (dfv + 0.5))
+    idf = np.where(dfv > 0, np.maximum(idf, 0.0), 0.0)
+    norm = k1 * (1.0 - b + b * np.asarray(col.doc_len, np.float64)
+                 / max(float(avgdl), 1e-9))
+    utf = np.asarray(col.utf, np.float64)
+    valid = np.asarray(col.uterms) >= 0
+    tfn = np.divide(utf * (k1 + 1.0), utf + norm[:, None],
+                    out=np.zeros_like(utf), where=valid)
+    imp = np.where(valid, idf[np.maximum(col.uterms, 0)] * tfn, 0.0)
+    mx = float(imp.max()) if imp.size else 0.0
+    scale = (mx / qmax) if mx > 0 else 1.0
+    qimp = np.clip(np.rint(imp / scale), 0, qmax).astype(dtype)
+    r = min(block_rows, np_docs)
+    n_blocks = max(np_docs // max(r, 1), 1)
+    block_max: np.ndarray | None
+    if n_blocks * v > block_budget:
+        block_max = None
+    else:
+        block_max = np.zeros((n_blocks, max(v, 1)), dtype)
+        ut = np.asarray(col.uterms)
+        for bi in range(n_blocks):
+            sl = slice(bi * r, (bi + 1) * r)
+            rows_t = ut[sl][valid[sl]]
+            # occupancy floor: a PRESENT (block, term) cell stores
+            # max(q, 1) so zero means "term absent from block" — a
+            # low-idf term whose impacts all quantize to 0 must still
+            # keep its blocks sweepable (the eager lane counts such
+            # docs as hits at score 0; the pruned lane has to agree).
+            # Still a valid upper bound: 1 ≥ 0 and bounds only need ≥.
+            rows_q = np.maximum(qimp[sl][valid[sl]], 1)
+            np.maximum.at(block_max[bi], rows_t, rows_q)
+    return ImpactColumn(qimp=qimp, block_max=block_max, scale=scale,
+                        bits=bits, block_rows=r, doc_count=n0,
+                        avgdl=float(avgdl), k1=float(k1), b=float(b),
+                        quant_gen=quant_gen)
+
+
+def doc_count_bucket(n: int) -> int:
+    """Bucketized row padding: bounds the number of distinct compiled shapes
+    as segments grow (SURVEY.md §7 'Incrementality'). Geometric buckets:
+    128, 256, 512, ... so at most ~2x memory overhead and O(log N) shapes."""
+    b = 128
+    while b < n:
+        b *= 2
+    return b
+
+
+@dataclass
+class TextFieldColumn:
+    """Device-layout columns for one analyzed text field of one segment."""
+    terms: list[str]                 # tid → term (sorted; per-segment dict)
+    tokens: np.ndarray               # [Np, L] int32, -1 pad (positional view)
+    uterms: np.ndarray               # [Np, U] int32, -1 pad (scoring view)
+    utf: np.ndarray                  # [Np, U] float32
+    doc_len: np.ndarray              # [Np] int32 (token count incl. truncation)
+    df: np.ndarray                   # [V] int32 docs-containing-term
+    total_tokens: int                # Σ doc_len over real docs (for avgdl)
+    # False when positions were not indexed (the reference's
+    # index_options: freqs): tokens is a -1 stub and positional queries
+    # (match_phrase, span_near) refuse the field instead of silently
+    # matching nothing
+    has_positions: bool = True
+    term_index: dict[str, int] = dc_field(default_factory=dict)
+
+    def __post_init__(self):
+        if not self.term_index:
+            self.term_index = {t: i for i, t in enumerate(self.terms)}
+
+    def tid(self, term: str) -> int:
+        """Query-time term lookup; -1 = term absent from this segment."""
+        return self.term_index.get(term, -1)
+
+    def ctf(self, tid: int) -> float:
+        """Collection term frequency (Σ tf over docs) for one term id.
+        The per-term vector is built in ONE pass over the column on first
+        use and cached — per-term full-matrix reductions at DFS time cost
+        ~3 s/batch at 1M docs before this cache."""
+        vec = getattr(self, "_ctf_vec", None)
+        if vec is None:
+            vec = np.zeros(self.df.shape[0], np.float64)
+            valid = self.uterms >= 0
+            np.add.at(vec, self.uterms[valid], self.utf[valid])
+            object.__setattr__(self, "_ctf_vec", vec)
+        return float(vec[tid]) if 0 <= tid < vec.shape[0] else 0.0
+
+
+@dataclass
+class KeywordFieldColumn:
+    vocab: list[str]                 # sorted: ordinal order == lexical order
+    ords: np.ndarray                 # [Np, K] int32, -1 pad
+    index: dict[str, int] = dc_field(default_factory=dict)
+
+    def __post_init__(self):
+        if not self.index:
+            self.index = {v: i for i, v in enumerate(self.vocab)}
+
+    def ord(self, value: str) -> int:
+        return self.index.get(value, -1)
+
+
+@dataclass
+class NumericFieldColumn:
+    values: np.ndarray               # [Np] float64
+    exists: np.ndarray               # [Np] bool
+
+
+@dataclass
+class VectorFieldColumn:
+    vecs: np.ndarray                 # [Np, D] float32
+    exists: np.ndarray               # [Np] bool
+    dims: int
+
+
+@dataclass
+class MultiVectorFieldColumn:
+    """``rank_vectors`` doc values: per-doc [T, D] token matrices padded
+    to the column-wide pow2 token bucket (like the uterms layout), for
+    late-interaction MaxSim scoring (ops/maxsim.py). ``lens`` marks the
+    real token rows; padding rows are zero."""
+    vecs: np.ndarray                 # [Np, T, D] float32
+    lens: np.ndarray                 # [Np] int32 real token rows
+    exists: np.ndarray               # [Np] bool
+    dims: int
+
+
+@dataclass
+class QuantizedVectorColumn:
+    """int8 scalar quantization of one segment's vector column
+    (`index.knn.quantization: int8`): ``v ≈ q·scale + offset`` per
+    component, with the scale/offset SNAPSHOT taken over the segment's
+    own value range at quantization time — segments are immutable, so
+    unlike the impact columns (reader-global idf snapshots) the
+    snapshot never drifts and never requantizes. Per-component error is
+    ≤ ``scale/2``; a query's score error is bounded by
+    ``scale/2 · Σ|q_i|`` (the stamped quantization bound the recall
+    tests assert against)."""
+    qvecs: np.ndarray                # [Np, D] or [Np, T, D] int8
+    scale: float
+    offset: float
+    dims: int
+
+    def score_bound(self, qn: np.ndarray) -> float:
+        """Score-units error bound for one (normalized) query vector:
+        per-component quantization error ≤ scale/2, accumulated over
+        the |q|-weighted sum — for MaxSim, per QUERY TOKEN (the max
+        over doc tokens moves by at most the per-token bound)."""
+        q = np.abs(np.asarray(qn, np.float64))
+        if q.ndim == 1:
+            return float(self.scale * 0.5 * q.sum())
+        return float(self.scale * 0.5 * q.sum(axis=-1).sum())
+
+
+def quantize_vectors(vecs: np.ndarray, dims: int) -> QuantizedVectorColumn:
+    """Asymmetric int8 scalar quantization over one segment's (already
+    L2-normalized) vector values: offset centers the range, scale maps
+    it onto [-127, 127]. Pure numpy; paid once per NEW segment (the
+    host column caches on the immutable Segment)."""
+    v = np.asarray(vecs, np.float32)
+    if v.size:
+        mn, mx = float(v.min()), float(v.max())
+    else:
+        mn = mx = 0.0
+    offset = np.float32((mx + mn) / 2.0)
+    half = max(mx - float(offset), float(offset) - mn)
+    scale = np.float32(half / 127.0) if half > 0 else np.float32(1.0)
+    q = np.clip(np.rint((v - offset) / scale), -127, 127).astype(np.int8)
+    return QuantizedVectorColumn(qvecs=q, scale=float(scale),
+                                 offset=float(offset), dims=dims)
+
+
+@dataclass
+class GeoFieldColumn:
+    lat: np.ndarray                  # [Np] float64
+    lon: np.ndarray                  # [Np] float64
+    exists: np.ndarray               # [Np] bool
+
+
+@dataclass
+class ShapeFieldColumn:
+    """geo_shape doc values: each doc's shape as concatenated vertex
+    RINGS (built by utils/geoshape.parse_shape_rings — polygon outer +
+    hole rings, multipolygon members, line runs, degenerate point
+    rings), padded to the column-wide max. ``rid`` gates edges to
+    same-ring neighbours and ``area`` marks rings that enclose area
+    (even-odd parity ignores line runs). Relations run as dense
+    multi-ring tests on device (ops/geoshape.py) — the TPU-native
+    replacement for the reference's geohash prefix-tree index
+    (core/index/mapper/geo/GeoShapeFieldMapper.java)."""
+    lats: np.ndarray                 # [Np, V] float32
+    lons: np.ndarray                 # [Np, V] float32
+    nv: np.ndarray                   # [Np] int32 edge slots (verts - 1)
+    exists: np.ndarray               # [Np] bool
+    rid: np.ndarray | None = None    # [Np, V] int32 ring id (-1 pad)
+    area: np.ndarray | None = None   # [Np, V] bool
+
+    def __post_init__(self):
+        if self.rid is None:
+            # legacy single-ring columns: one ring over the nv window
+            self.rid = np.where(
+                np.arange(self.lats.shape[1])[None, :] <=
+                self.nv[:, None], 0, -1).astype(np.int32)
+            self.rid[~self.exists] = -1
+        if self.area is None:
+            self.area = self.rid >= 0
+
+
+@dataclass
+class NestedBlock:
+    """One nested path's child rows for a segment: a full child segment
+    (nested objects are docs of their own — ref: ObjectMapper Nested,
+    nested objects index as adjacent hidden Lucene docs) plus the
+    child-row → parent-row join column."""
+    segment: "Segment"
+    parent: np.ndarray               # [child padded] int32, -1 pad
+
+
+@dataclass
+class Segment:
+    seg_id: int
+    num_docs: int                    # true doc count (rows beyond are pad)
+    padded_docs: int
+    ids: list[str]                   # local doc → _id
+    sources: list[dict]              # stored fields (_source)
+    text_fields: dict[str, TextFieldColumn]
+    keyword_fields: dict[str, KeywordFieldColumn]
+    numeric_fields: dict[str, NumericFieldColumn]
+    vector_fields: dict[str, VectorFieldColumn]
+    geo_fields: dict[str, GeoFieldColumn]
+    version_id: int = CURRENT_VERSION.id
+    # False for bulk-ingested segments built without stored _source: their
+    # docs cannot be re-analyzed, so background/force merges must keep the
+    # segment as-is instead of re-parsing it (engine.force_merge honors
+    # this; Lucene's addIndexes'd segments merge at the codec level and
+    # have no such constraint — columnar re-analysis here does).
+    source_complete: bool = True
+    # nested path → child block (mapping "type": "nested")
+    nested_blocks: dict[str, NestedBlock] = dc_field(default_factory=dict)
+    # rank_vectors columns (multi-vector late interaction)
+    mvector_fields: dict[str, MultiVectorFieldColumn] = dc_field(
+        default_factory=dict)
+    # geo_shape columns (vertex rings, ShapeFieldColumn)
+    shape_fields: dict[str, ShapeFieldColumn] = dc_field(
+        default_factory=dict)
+    # stable block identity across reader swaps: a SearcherView snapshot
+    # holds the same Segment OBJECTS across refresh generations, so a
+    # device-block cache keyed on block_uid reuses resident columns while
+    # any newly built/merged/recovered segment (a new object) re-uploads
+    block_uid: int = dc_field(default_factory=lambda: next(_block_uids))
+
+    def memory_bytes(self) -> int:
+        total = 0
+        for col in self.text_fields.values():
+            total += col.tokens.nbytes
+            total += col.uterms.nbytes + col.utf.nbytes + col.doc_len.nbytes
+            total += col.df.nbytes
+        for col in self.keyword_fields.values():
+            total += col.ords.nbytes
+        for col in self.numeric_fields.values():
+            total += col.values.nbytes + col.exists.nbytes
+        for col in self.vector_fields.values():
+            total += col.vecs.nbytes
+        for col in self.mvector_fields.values():
+            total += col.vecs.nbytes + col.lens.nbytes
+        for col in self.geo_fields.values():
+            total += col.lat.nbytes + col.lon.nbytes
+        for col in self.shape_fields.values():
+            total += col.lats.nbytes + col.lons.nbytes + col.nv.nbytes \
+                + col.rid.nbytes + col.area.nbytes
+        for blk in self.nested_blocks.values():
+            total += blk.segment.memory_bytes() + blk.parent.nbytes
+        return total
+
+    # ---- bulk columnar ingest ---------------------------------------------
+
+    @staticmethod
+    def from_packed_text(seg_id: int, field: str, *, terms: list[str],
+                         tokens: np.ndarray | None, uterms: np.ndarray,
+                         utf: np.ndarray, doc_len: np.ndarray,
+                         df: np.ndarray, num_docs: int,
+                         total_tokens: int | None = None,
+                         ids: list[str] | None = None,
+                         sources: list[dict] | None = None) -> "Segment":
+        """Construct an immutable single-text-field segment directly from
+        pre-tokenized packed columns — the high-throughput bulk-load path,
+        the analog of Lucene's ``IndexWriter.addIndexes(CodecReader...)``
+        (segment-level ingest without re-analysis). Bulk loaders and the
+        benchmark corpus builder use this; the per-document path is
+        :class:`SegmentBuilder`.
+
+        Invariants (the SegmentBuilder contract): ``terms`` is SORTED and
+        term ids are ranks in it; ``tokens`` is position-indexed with -1
+        holes — or ``None`` to skip position indexing entirely (the
+        reference's ``index_options: freqs``: ~40% less memory, positional
+        queries rejected); rows at and beyond ``num_docs`` are padding.
+        """
+        np_docs = int(uterms.shape[0])
+        has_positions = tokens is not None
+        if tokens is None:
+            tokens = np.full((np_docs, 8), -1, np.int32)
+        if not (tokens.shape[0] == np_docs == doc_len.shape[0]
+                == utf.shape[0]):
+            raise ValueError("packed columns disagree on row count")
+        if num_docs > np_docs:
+            raise ValueError(f"num_docs {num_docs} > padded rows {np_docs}")
+        if total_tokens is None:
+            total_tokens = int(np.asarray(doc_len[:num_docs]).sum())
+        col = TextFieldColumn(
+            terms=list(terms),
+            tokens=np.ascontiguousarray(tokens, dtype=np.int32),
+            uterms=np.ascontiguousarray(uterms, dtype=np.int32),
+            utf=np.ascontiguousarray(utf, dtype=np.float32),
+            doc_len=np.ascontiguousarray(doc_len, dtype=np.int32),
+            df=np.ascontiguousarray(df, dtype=np.int32),
+            total_tokens=total_tokens, has_positions=has_positions)
+        if ids is None:
+            ids = [str(i) for i in range(num_docs)] + \
+                [""] * (np_docs - num_docs)
+        source_complete = sources is not None
+        if sources is None:
+            sources = [{}] * np_docs       # shared empty dict: read-only
+        return Segment(seg_id=seg_id, num_docs=num_docs, padded_docs=np_docs,
+                       ids=ids, sources=sources, text_fields={field: col},
+                       keyword_fields={}, numeric_fields={},
+                       vector_fields={}, geo_fields={},
+                       source_complete=source_complete)
+
+    # ---- persistence ------------------------------------------------------
+
+    def write(self, path: Path, store_type: str = "fs") -> None:
+        """Persist as npz + json (write-tmp-then-rename like the reference's
+        MetaDataStateFormat, core/gateway/MetaDataStateFormat.java).
+
+        ``store_type`` is the `index.store.type` seam (core/index/store/
+        IndexStoreModule — fs/niofs/mmapfs/default; plugins add more,
+        store-smb): "fs"/"default" = compressed npz; "niofs"/"simple_fs"
+        = uncompressed npz (faster open, eager read); "mmapfs"/
+        "mmap_fs" = one .npy per column, opened with OS mmap so cold
+        columns page in on demand (the FsDirectoryService mmap
+        strategy). Unknown types raise."""
+        layout = validate_store_type(store_type)
+        path.mkdir(parents=True, exist_ok=True)
+        arrays: dict[str, np.ndarray] = {}
+        meta: dict[str, Any] = {
+            "seg_id": self.seg_id, "num_docs": self.num_docs,
+            "padded_docs": self.padded_docs, "version_id": self.version_id,
+            "source_complete": self.source_complete,
+            "text_fields": {}, "keyword_fields": {}, "numeric_fields": [],
+            "vector_fields": {}, "geo_fields": [],
+        }
+        for name, c in self.text_fields.items():
+            meta["text_fields"][name] = {"terms": c.terms,
+                                         "total_tokens": c.total_tokens,
+                                         "has_positions": c.has_positions}
+            for a in ("tokens", "uterms", "utf", "doc_len", "df"):
+                arrays[f"t.{name}.{a}"] = getattr(c, a)
+        for name, c in self.keyword_fields.items():
+            meta["keyword_fields"][name] = {"vocab": c.vocab}
+            arrays[f"k.{name}.ords"] = c.ords
+        for name, c in self.numeric_fields.items():
+            meta["numeric_fields"].append(name)
+            arrays[f"n.{name}.values"] = c.values
+            arrays[f"n.{name}.exists"] = c.exists
+        for name, c in self.vector_fields.items():
+            meta["vector_fields"][name] = {"dims": c.dims}
+            arrays[f"v.{name}.vecs"] = c.vecs
+            arrays[f"v.{name}.exists"] = c.exists
+        meta["mvector_fields"] = {name: {"dims": c.dims}
+                                  for name, c in self.mvector_fields.items()}
+        for name, c in self.mvector_fields.items():
+            arrays[f"mv.{name}.vecs"] = c.vecs
+            arrays[f"mv.{name}.lens"] = c.lens
+            arrays[f"mv.{name}.exists"] = c.exists
+        for name, c in self.geo_fields.items():
+            meta["geo_fields"].append(name)
+            arrays[f"g.{name}.lat"] = c.lat
+            arrays[f"g.{name}.lon"] = c.lon
+            arrays[f"g.{name}.exists"] = c.exists
+        meta["shape_fields"] = sorted(self.shape_fields)
+        for name, c in self.shape_fields.items():
+            arrays[f"s.{name}.lats"] = c.lats
+            arrays[f"s.{name}.lons"] = c.lons
+            arrays[f"s.{name}.nv"] = c.nv
+            arrays[f"s.{name}.exists"] = c.exists
+            arrays[f"s.{name}.rid"] = c.rid
+            arrays[f"s.{name}.area"] = c.area
+
+        meta["nested"] = sorted(self.nested_blocks)
+        for p, blk in self.nested_blocks.items():
+            blk.segment.write(path / f"nested_{p}", store_type=store_type)
+            arrays[f"x.{p}.parent"] = blk.parent
+        meta["store"] = layout
+
+        import shutil
+        tmp_meta, tmp_src = (path / "meta.json.tmp",
+                             path / "source.jsonl.tmp")
+        if layout == "npy_dir":
+            tmp_dir = path / "arrays.tmp"
+            if tmp_dir.exists():
+                shutil.rmtree(tmp_dir)
+            tmp_dir.mkdir()
+            for key, arr in arrays.items():
+                np.save(_column_file(tmp_dir, key),
+                        np.ascontiguousarray(arr))
+            final_dir = path / "arrays"
+            if final_dir.exists():
+                shutil.rmtree(final_dir)
+            tmp_dir.rename(final_dir)
+            # a crash-interrupted earlier write under another store type
+            # may have left the other layout's artifact — remove it, or
+            # file_manifest() ships the dead file to replicas/snapshots
+            (path / "arrays.npz").unlink(missing_ok=True)
+        else:
+            tmp_npz = path / "arrays.npz.tmp"
+            with open(tmp_npz, "wb") as f:
+                if layout == "uncompressed":
+                    np.savez(f, **arrays)
+                else:
+                    np.savez_compressed(f, **arrays)
+            tmp_npz.rename(path / "arrays.npz")
+            if (path / "arrays").exists():
+                shutil.rmtree(path / "arrays")
+        tmp_meta.write_text(json.dumps(meta))
+        with open(tmp_src, "w") as f:
+            for doc_id, src in zip(self.ids, self.sources):
+                f.write(json.dumps({"_id": doc_id, "_source": src}) + "\n")
+        # meta.json is the "segment fully persisted" sentinel (Engine.flush
+        # checks it) — rename it LAST so a crash between renames can never
+        # produce a sentinel-present-but-incomplete segment.
+        tmp_src.rename(path / "source.jsonl")
+        tmp_meta.rename(path / "meta.json")
+
+    @staticmethod
+    def read(path: Path) -> "Segment":
+        meta = json.loads((path / "meta.json").read_text())
+        if meta.get("store") == "npy_dir":
+            arrays = _MmapArrays(path / "arrays")
+        else:
+            arrays = np.load(path / "arrays.npz")
+        ids, sources = [], []
+        with open(path / "source.jsonl") as f:
+            for line in f:
+                rec = json.loads(line)
+                ids.append(rec["_id"])
+                sources.append(rec["_source"])
+        text_fields = {
+            name: TextFieldColumn(
+                terms=info["terms"], total_tokens=info["total_tokens"],
+                has_positions=info.get("has_positions", True),
+                tokens=arrays[f"t.{name}.tokens"],
+                uterms=arrays[f"t.{name}.uterms"], utf=arrays[f"t.{name}.utf"],
+                doc_len=arrays[f"t.{name}.doc_len"], df=arrays[f"t.{name}.df"])
+            for name, info in meta["text_fields"].items()}
+        keyword_fields = {
+            name: KeywordFieldColumn(vocab=info["vocab"],
+                                     ords=arrays[f"k.{name}.ords"])
+            for name, info in meta["keyword_fields"].items()}
+        numeric_fields = {
+            name: NumericFieldColumn(values=arrays[f"n.{name}.values"],
+                                     exists=arrays[f"n.{name}.exists"])
+            for name in meta["numeric_fields"]}
+        vector_fields = {
+            name: VectorFieldColumn(vecs=arrays[f"v.{name}.vecs"],
+                                    exists=arrays[f"v.{name}.exists"],
+                                    dims=info["dims"])
+            for name, info in meta["vector_fields"].items()}
+        mvector_fields = {
+            name: MultiVectorFieldColumn(
+                vecs=arrays[f"mv.{name}.vecs"],
+                lens=arrays[f"mv.{name}.lens"],
+                exists=arrays[f"mv.{name}.exists"], dims=info["dims"])
+            for name, info in meta.get("mvector_fields", {}).items()}
+        geo_fields = {
+            name: GeoFieldColumn(lat=arrays[f"g.{name}.lat"],
+                                 lon=arrays[f"g.{name}.lon"],
+                                 exists=arrays[f"g.{name}.exists"])
+            for name in meta["geo_fields"]}
+        shape_fields = {
+            name: ShapeFieldColumn(
+                lats=arrays[f"s.{name}.lats"],
+                lons=arrays[f"s.{name}.lons"],
+                nv=arrays[f"s.{name}.nv"],
+                exists=arrays[f"s.{name}.exists"],
+                # older stores lack ring ids; __post_init__
+                # derives the legacy single-ring layout
+                rid=arrays.get(f"s.{name}.rid"),
+                area=arrays.get(f"s.{name}.area"))
+            for name in meta.get("shape_fields", [])}
+        nested_blocks = {
+            p: NestedBlock(segment=Segment.read(path / f"nested_{p}"),
+                           parent=arrays[f"x.{p}.parent"])
+            for p in meta.get("nested", [])}
+        return Segment(seg_id=meta["seg_id"], num_docs=meta["num_docs"],
+                       padded_docs=meta["padded_docs"], ids=ids, sources=sources,
+                       text_fields=text_fields, keyword_fields=keyword_fields,
+                       numeric_fields=numeric_fields, vector_fields=vector_fields,
+                       geo_fields=geo_fields, version_id=meta["version_id"],
+                       source_complete=meta.get("source_complete", True),
+                       nested_blocks=nested_blocks,
+                       shape_fields=shape_fields,
+                       mvector_fields=mvector_fields)
+
+
+class SegmentBuilder:
+    """Accumulates parsed documents, emits an immutable :class:`Segment`.
+
+    The in-memory analog of Lucene's DocumentsWriter per-thread buffers; a
+    refresh (core/index/engine/InternalEngine.java:558) turns the buffer into
+    a segment and swaps the reader.
+    """
+
+    def __init__(self, seg_id: int, max_tokens: int = DEFAULT_MAX_TOKENS):
+        self.seg_id = seg_id
+        self.max_tokens = max_tokens
+        self.docs: list[ParsedDocument] = []
+
+    def add(self, doc: ParsedDocument) -> int:
+        """→ local doc number."""
+        self.docs.append(doc)
+        return len(self.docs) - 1
+
+    def __len__(self) -> int:
+        return len(self.docs)
+
+    @property
+    def num_docs(self) -> int:
+        return len(self.docs)
+
+    def build(self) -> Segment:
+        n = len(self.docs)
+        np_docs = doc_count_bucket(max(n, 1))
+        field_kinds: dict[str, str] = {}
+        for d in self.docs:
+            for fname, pf in d.fields.items():
+                field_kinds.setdefault(fname, pf.kind)
+
+        text_fields: dict[str, TextFieldColumn] = {}
+        keyword_fields: dict[str, KeywordFieldColumn] = {}
+        numeric_fields: dict[str, NumericFieldColumn] = {}
+        vector_fields: dict[str, VectorFieldColumn] = {}
+        mvector_fields: dict[str, MultiVectorFieldColumn] = {}
+        geo_fields: dict[str, GeoFieldColumn] = {}
+        shape_fields: dict[str, ShapeFieldColumn] = {}
+
+        for fname, kind in field_kinds.items():
+            if kind == KIND_TEXT:
+                text_fields[fname] = self._build_text(fname, n, np_docs)
+            elif kind == KIND_KEYWORD:
+                keyword_fields[fname] = self._build_keyword(fname, n, np_docs)
+            elif kind == KIND_NUMERIC:
+                numeric_fields[fname] = self._build_numeric(fname, n, np_docs)
+            elif kind == KIND_VECTOR:
+                vector_fields[fname] = self._build_vector(fname, n, np_docs)
+            elif kind == KIND_MVECTOR:
+                mvector_fields[fname] = self._build_mvector(fname, n,
+                                                            np_docs)
+            elif kind == KIND_GEO:
+                geo_fields[fname] = self._build_geo(fname, n, np_docs)
+            elif kind == KIND_SHAPE:
+                shape_fields[fname] = self._build_shape(fname, n, np_docs)
+
+        return Segment(
+            seg_id=self.seg_id, num_docs=n, padded_docs=np_docs,
+            ids=[d.doc_id for d in self.docs],
+            sources=[d.source for d in self.docs],
+            text_fields=text_fields, keyword_fields=keyword_fields,
+            numeric_fields=numeric_fields, vector_fields=vector_fields,
+            geo_fields=geo_fields, shape_fields=shape_fields,
+            mvector_fields=mvector_fields,
+            nested_blocks=self._build_nested())
+
+    def _build_nested(self) -> dict[str, NestedBlock]:
+        """Each nested path's objects become rows of a CHILD segment built
+        through the ordinary per-kind builders, plus a parent join column."""
+        paths: set[str] = set()
+        for d in self.docs:
+            paths.update(d.nested)
+        blocks: dict[str, NestedBlock] = {}
+        for path in sorted(paths):
+            child = SegmentBuilder(seg_id=0, max_tokens=self.max_tokens)
+            parents: list[int] = []
+            for i, d in enumerate(self.docs):
+                for row in d.nested.get(path, []):
+                    child.docs.append(ParsedDocument(
+                        doc_id="", source={}, fields=row))
+                    parents.append(i)
+            child_seg = child.build()
+            parent = np.full(child_seg.padded_docs, -1, np.int32)
+            parent[:len(parents)] = parents
+            blocks[path] = NestedBlock(segment=child_seg, parent=parent)
+        return blocks
+
+    # ---- per-kind builders ------------------------------------------------
+
+    def _field(self, doc: ParsedDocument, fname: str):
+        return doc.fields.get(fname)
+
+    def _build_text(self, fname: str, n: int, np_docs: int) -> TextFieldColumn:
+        # First pass: vocabulary over the segment. Token positions beyond
+        # max_tokens are truncated (position-indexed layout: slot == position).
+        vocab: dict[str, int] = {}
+        doc_tokens: list[list[tuple[int, int]]] = []  # per doc: (tid, position)
+        max_pos = 0
+        max_unique = 0
+        total_tokens = 0
+        for d in self.docs:
+            pf = self._field(d, fname)
+            pairs = []
+            if pf is not None:
+                for t in pf.tokens:
+                    if t.position >= self.max_tokens:
+                        break
+                    tid = vocab.setdefault(t.term, len(vocab))
+                    pairs.append((tid, t.position))
+            doc_tokens.append(pairs)
+            if pairs:
+                max_pos = max(max_pos, pairs[-1][1] + 1)
+            max_unique = max(max_unique, len({tid for tid, _ in pairs}))
+            total_tokens += len(pairs)
+
+        terms = sorted(vocab)  # sorted dictionary; remap ids to sorted order
+        remap = np.empty(max(len(vocab), 1), dtype=np.int32)
+        for new_id, term in enumerate(terms):
+            remap[vocab[term]] = new_id
+
+        L = pad_to(max(max_pos, 1), _ROW_PAD)
+        U = pad_to(max(max_unique, 1), _ROW_PAD)
+        tokens = np.full((np_docs, L), -1, dtype=np.int32)
+        uterms = np.full((np_docs, U), -1, dtype=np.int32)
+        utf = np.zeros((np_docs, U), dtype=np.float32)
+        doc_len = np.zeros(np_docs, dtype=np.int32)
+        df = np.zeros(max(len(vocab), 1), dtype=np.int32)
+
+        for i, pairs in enumerate(doc_tokens):
+            counts: dict[int, int] = {}
+            for tid, pos in pairs:
+                tid = int(remap[tid])
+                if tokens[i, pos] == -1:
+                    # slot == position; first token wins when an analyzer
+                    # emits several terms at one position (shingles/synonyms)
+                    # — those extra terms still score via uterms/utf, they
+                    # just don't participate in positional (phrase) matching
+                    tokens[i, pos] = tid
+                counts[tid] = counts.get(tid, 0) + 1
+            for u, (tid, tf) in enumerate(sorted(counts.items())):
+                uterms[i, u] = tid
+                utf[i, u] = tf
+                df[tid] += 1
+            doc_len[i] = len(pairs)
+
+        return TextFieldColumn(terms=terms, tokens=tokens,
+                               uterms=uterms, utf=utf, doc_len=doc_len, df=df,
+                               total_tokens=total_tokens)
+
+    def _build_keyword(self, fname: str, n: int, np_docs: int) -> KeywordFieldColumn:
+        values: set[str] = set()
+        per_doc: list[list[str]] = []
+        kmax = 1
+        for d in self.docs:
+            pf = self._field(d, fname)
+            kws = pf.keywords if pf else []
+            per_doc.append(kws)
+            values.update(kws)
+            kmax = max(kmax, len(kws))
+        vocab = sorted(values)
+        index = {v: i for i, v in enumerate(vocab)}
+        ords = np.full((np_docs, kmax), -1, dtype=np.int32)
+        for i, kws in enumerate(per_doc):
+            for j, v in enumerate(kws):
+                ords[i, j] = index[v]
+        return KeywordFieldColumn(vocab=vocab, ords=ords, index=index)
+
+    def _build_numeric(self, fname: str, n: int, np_docs: int) -> NumericFieldColumn:
+        values = np.zeros(np_docs, dtype=np.float64)
+        exists = np.zeros(np_docs, dtype=bool)
+        for i, d in enumerate(self.docs):
+            pf = self._field(d, fname)
+            if pf and pf.numerics:
+                values[i] = pf.numerics[0]
+                exists[i] = True
+        return NumericFieldColumn(values=values, exists=exists)
+
+    def _build_vector(self, fname: str, n: int, np_docs: int) -> VectorFieldColumn:
+        dims = 0
+        for d in self.docs:
+            pf = self._field(d, fname)
+            if pf is not None and pf.vector is not None:
+                dims = int(pf.vector.shape[0])
+                break
+        vecs = np.zeros((np_docs, max(dims, 1)), dtype=np.float32)
+        exists = np.zeros(np_docs, dtype=bool)
+        for i, d in enumerate(self.docs):
+            pf = self._field(d, fname)
+            if pf is not None and pf.vector is not None:
+                vecs[i] = pf.vector
+                exists[i] = True
+        return VectorFieldColumn(vecs=vecs, exists=exists, dims=dims)
+
+    def _build_mvector(self, fname: str, n: int,
+                       np_docs: int) -> MultiVectorFieldColumn:
+        dims = 0
+        tmax = 1
+        for d in self.docs:
+            pf = self._field(d, fname)
+            if pf is not None and pf.mvector is not None:
+                dims = int(pf.mvector.shape[1])
+                tmax = max(tmax, int(pf.mvector.shape[0]))
+        # pow2 token bucket (like uterms' _ROW_PAD padding) so segments
+        # with similar token counts share compiled MaxSim shapes
+        t_pad = 1
+        while t_pad < tmax:
+            t_pad *= 2
+        vecs = np.zeros((np_docs, t_pad, max(dims, 1)), np.float32)
+        lens = np.zeros(np_docs, np.int32)
+        exists = np.zeros(np_docs, bool)
+        for i, d in enumerate(self.docs):
+            pf = self._field(d, fname)
+            if pf is not None and pf.mvector is not None:
+                t = pf.mvector.shape[0]
+                vecs[i, :t] = pf.mvector
+                lens[i] = t
+                exists[i] = True
+        return MultiVectorFieldColumn(vecs=vecs, lens=lens, exists=exists,
+                                      dims=dims)
+
+    def _build_geo(self, fname: str, n: int, np_docs: int) -> GeoFieldColumn:
+        lat = np.zeros(np_docs, dtype=np.float64)
+        lon = np.zeros(np_docs, dtype=np.float64)
+        exists = np.zeros(np_docs, dtype=bool)
+        for i, d in enumerate(self.docs):
+            pf = self._field(d, fname)
+            if pf is not None and pf.geo is not None:
+                lat[i], lon[i] = pf.geo
+                exists[i] = True
+        return GeoFieldColumn(lat=lat, lon=lon, exists=exists)
+
+    def _build_shape(self, fname: str, n: int,
+                     np_docs: int) -> ShapeFieldColumn:
+        rings = []
+        vmax = 2
+        for d in self.docs:
+            pf = self._field(d, fname)
+            ring = pf.shape if pf is not None else None
+            rings.append(ring)
+            if ring is not None:
+                vmax = max(vmax, len(ring[0]))
+        lats = np.zeros((np_docs, vmax), np.float32)
+        lons = np.zeros((np_docs, vmax), np.float32)
+        rid = np.full((np_docs, vmax), -1, np.int32)
+        area = np.zeros((np_docs, vmax), bool)
+        nv = np.zeros(np_docs, np.int32)
+        exists = np.zeros(np_docs, bool)
+        for i, ring in enumerate(rings):
+            if ring is None:
+                continue
+            rl, ro, rr, ra = ring
+            lats[i, :len(rl)] = rl
+            lons[i, :len(ro)] = ro
+            rid[i, :len(rr)] = rr
+            area[i, :len(ra)] = ra
+            nv[i] = len(rl) - 1
+            exists[i] = True
+        return ShapeFieldColumn(lats=lats, lons=lons, nv=nv,
+                                exists=exists, rid=rid, area=area)
+
+
+def row_meta(seg: "Segment", local: int) -> dict:
+    """Metadata-field values of one row out of a segment's reserved
+    columns (_type/_parent/_routing keyword, _timestamp/_ttl/_version
+    numeric) — what the internal field mappers materialized at index
+    time."""
+    out: dict = {}
+    for key in ("_type", "_parent", "_routing"):
+        col = seg.keyword_fields.get(key)
+        if col is not None and local < col.ords.shape[0]:
+            o = int(col.ords[local, 0])
+            if o >= 0:
+                out[key] = col.vocab[o]
+    for key in ("_timestamp", "_ttl", "_version"):
+        col = seg.numeric_fields.get(key)
+        if col is not None and local < col.values.shape[0] \
+                and bool(col.exists[local]):
+            out[key] = int(col.values[local])
+    return out
+
+
+def merge_segments(seg_id: int, segments: Iterable[Segment],
+                   live_masks: Iterable[np.ndarray] | None = None,
+                   mapper=None,
+                   max_tokens: int = DEFAULT_MAX_TOKENS) -> "SegmentBuilder":
+    """Background-merge equivalent (ElasticsearchConcurrentMergeScheduler):
+    re-parse surviving docs into a fresh builder. Requires the mapper to
+    re-analyze; engine calls this with its DocumentMapper. Each row's
+    metadata columns ride through the merge (Lucene merges carry every
+    stored field) — dropping them would silently break _type filters,
+    parent/child joins, routed fetches, TTL sweeps and point-in-time
+    _version reads for merged docs."""
+    builder = SegmentBuilder(seg_id, max_tokens=max_tokens)
+    masks = list(live_masks) if live_masks is not None else None
+    for si, seg in enumerate(segments):
+        for local in range(seg.num_docs):
+            if masks is not None and not masks[si][local]:
+                continue
+            meta = row_meta(seg, local)
+            doc = mapper.parse(seg.ids[local], seg.sources[local],
+                               routing=meta.get("_routing"),
+                               meta=meta or None)
+            builder.add(doc)
+    return builder

@@ -1,0 +1,422 @@
+"""Query phase and fetch phase (per shard).
+
+Counterpart of ``elasticsearch_tpu/search/phase.py``. Reference split:
+SearchService.executeQueryPhase/executeFetchPhase
+(core/search/SearchService.java:293,385-504) with QueryPhase building the
+collector stack and FetchPhase materializing `_source`
+(core/search/query/QueryPhase.java:99-314, core/search/fetch/FetchPhase.java:98).
+
+The query phase walks the segments of the shard's DeviceReader on the card:
+per-segment scoring and top-k, then a merge of every segment's candidates
+into the shard's top-k — only k (score, doc) pairs per request leave the
+device. The fetch phase resolves winning global doc ids to _id/_source and
+filters the source.
+
+This slice serves score-ordered requests (``sort`` absent or ``_score``
+desc), batched through :meth:`ShardSearcher.query_phase_batch` and one at a
+time through :meth:`ShardSearcher.query_phase` (which also takes
+``post_filter``, ``min_score`` and ``search_after``). Aggregations, field
+sort, rescore, knn, suggest, terminate_after, timeout, highlight and script
+fields are refused with :class:`NotPortedError`.
+"""
+
+from __future__ import annotations
+
+import fnmatch
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+
+from elasticsearch_tpu_torch.common.errors import NotPortedError
+from elasticsearch_tpu_torch.index.device_reader import DeviceReader
+from elasticsearch_tpu_torch.ops import topk as topk_ops
+from elasticsearch_tpu_torch.search import query_dsl as q, segment_exec
+from elasticsearch_tpu_torch.search.execute import ExecutionContext
+from elasticsearch_tpu_torch.search.query_dsl import parse_query
+
+
+@dataclass
+class ParsedSearchRequest:
+    query: q.Query
+    from_: int = 0
+    size: int = 10
+    sort: list = field(default_factory=list)       # [{"field": {"order": ...}}...]
+    post_filter: q.Query | None = None
+    min_score: float | None = None
+    source_filter: Any = True                      # True | False | includes spec
+    highlight: dict | None = None
+    search_after: list | None = None
+    track_total_hits: bool = True
+    explain: bool = False
+    script_fields: dict = field(default_factory=dict)
+    stored_fields: list = field(default_factory=list)
+    docvalue_fields: list = field(default_factory=list)
+    version: bool = False                          # render _version per hit
+    terminate_after: int | None = None             # per-shard collected cap
+    timeout_ms: float | None = None                # per-shard time budget
+
+
+def parse_search_request(body: dict | None) -> ParsedSearchRequest:
+    body = body or {}
+    req = ParsedSearchRequest(query=parse_query(body.get("query")))
+    req.from_ = int(body.get("from", 0))
+    req.size = int(body.get("size", 10))
+    raw_sort = body.get("sort", [])
+    if isinstance(raw_sort, (str, dict)):
+        raw_sort = [raw_sort]
+    for s in raw_sort:
+        if isinstance(s, str):
+            req.sort.append({s: {"order": "desc" if s == "_score" else "asc"}})
+        else:
+            req.sort.append({k: ({"order": v} if isinstance(v, str) else v)
+                             for k, v in s.items()})
+    for key in ("aggs", "aggregations", "suggest", "rescore", "knn"):
+        if body.get(key):
+            raise NotPortedError(f"[{key}] is not ported yet")
+    if "post_filter" in body:
+        req.post_filter = parse_query(body["post_filter"])
+    if body.get("min_score") is not None:
+        req.min_score = float(body["min_score"])
+    req.source_filter = body.get("_source", True)
+    req.highlight = body.get("highlight")
+    req.search_after = body.get("search_after")
+    req.explain = bool(body.get("explain", False))
+    req.version = bool(body.get("version", False))
+    req.script_fields = body.get("script_fields", {})
+    raw_dvf = body.get("fielddata_fields", body.get("docvalue_fields", []))
+    req.docvalue_fields = [raw_dvf] if isinstance(raw_dvf, str) \
+        else list(raw_dvf)
+    req.stored_fields = body.get("stored_fields", body.get("fields", []))
+    if isinstance(req.stored_fields, str):
+        req.stored_fields = [req.stored_fields]
+    if req.stored_fields and "_source" not in body:
+        # `fields` without an explicit _source suppresses the source
+        # (FetchSourceContext.DO_NOT_FETCH_SOURCE unless "_source" listed)
+        if "_source" in req.stored_fields:
+            req.stored_fields = [f for f in req.stored_fields
+                                 if f != "_source"]
+        else:
+            req.source_filter = False
+    if body.get("terminate_after"):
+        req.terminate_after = int(body["terminate_after"])
+    tth = body.get("track_total_hits")
+    if tth is not None and str(tth).lower() in ("false", "0"):
+        req.track_total_hits = False
+    if body.get("timeout") is not None:
+        from elasticsearch_tpu_torch.common.settings import parse_time_value
+        req.timeout_ms = parse_time_value(body["timeout"], "timeout") * 1000.0
+    return req
+
+
+def _is_score_order(sort: list) -> bool:
+    """True iff results follow the default (_score desc) order: no sort, or
+    exactly [{"_score": {"order": "desc"}}]."""
+    if not sort:
+        return True
+    if len(sort) != 1 or "_score" not in sort[0]:
+        return False
+    return sort[0]["_score"].get("order", "desc") == "desc"
+
+
+def _not_ported_features(req: ParsedSearchRequest) -> list[str]:
+    """Request features the port's query phase does not serve yet."""
+    return [label for cond, label in (
+        (not _is_score_order(req.sort), "sort"),
+        (req.terminate_after is not None, "terminate_after"),
+        (req.timeout_ms is not None, "timeout"),
+    ) if cond]
+
+
+def _top_k_window(reqs: list[ParsedSearchRequest]) -> int:
+    """Hits a shard collects for the batch: the largest from + size."""
+    k = max(max(req.from_ + req.size, 1) for req in reqs)
+    if k > topk_ops.MAX_K:
+        raise NotPortedError(
+            f"from + size [{k}] is above the port's top-k limit "
+            f"[{topk_ops.MAX_K}]")
+    return k
+
+
+@dataclass
+class ShardQueryResult:
+    shard_id: int
+    total: int
+    max_score: float | None
+    # top hits as host arrays
+    doc_ids: np.ndarray            # global (reader-local) doc ids
+    scores: np.ndarray             # f32 scores
+    sort_values: list[list] | None  # per hit, when sort-by-field
+    agg_partials: dict
+    reader: DeviceReader
+    terminated_early: bool = False
+    timed_out: bool = False
+
+
+class ShardSearcher:
+    """Per-shard query execution over a DeviceReader."""
+
+    def __init__(self, shard_id: int, reader: DeviceReader, mapper_service,
+                 dfs_stats: dict | None = None, version_fn=None):
+        self.shard_id = shard_id
+        self.reader = reader
+        self.mapper_service = mapper_service
+        # doc_id → live version (engine.doc_version) for version:true hits
+        self.version_fn = version_fn
+        self.ctx = ExecutionContext(reader=reader,
+                                    mapper_service=mapper_service,
+                                    dfs_stats=dfs_stats)
+
+    # -- query phase ---------------------------------------------------------
+
+    def query_phase(self, req: ParsedSearchRequest) -> ShardQueryResult:
+        """One score-ordered request: the batched path with B = 1 when the
+        request is eligible, else one pass per segment (post_filter,
+        min_score, search_after) and a merge of their candidates."""
+        bad = _not_ported_features(req)
+        if bad:
+            raise NotPortedError(f"the query phase of {bad} is not ported "
+                                 f"yet")
+        fast = self.query_phase_batch([req])
+        if fast is not None:
+            return fast[0]
+        k = _top_k_window([req])
+        outs = [(seg, segment_exec.run_segment(
+            seg, self.ctx, req.query, post_filter=req.post_filter,
+            min_score=req.min_score,
+            search_after=None if req.sort else req.search_after, k=k))
+            for seg in self.reader.segments]
+        total = int(sum(int(o["count"]) for _, o in outs))
+        return self._finish_score_order(
+            k, total, [o["top_scores"] for _, o in outs],
+            [o["top_docs"] for _, o in outs],
+            [seg.doc_base for seg, _ in outs])
+
+    def query_phase_batch(self, reqs: list[ParsedSearchRequest]
+                          ) -> list[ShardQueryResult] | None:
+        """Batched query phase: execute B score-ordered requests as one
+        scoring launch and one top-k launch per segment plus one batched
+        cross-segment merge. Returns None when the batch is ineligible
+        (post_filter / min_score / search_after, or a feature not ported)
+        or the queries don't share one plan signature — the caller then
+        falls back to per-request :meth:`query_phase`.
+
+        Implemented as launch + drain, as in the JAX package."""
+        handle = self.query_phase_batch_launch(reqs)
+        if handle is None:
+            return None
+        return self.query_phase_batch_drain(handle)
+
+    def query_phase_batch_launch(self, reqs: list[ParsedSearchRequest]):
+        """Phase 1: eligibility screen and the device work, without waiting
+        for it. → an opaque handle for :meth:`query_phase_batch_drain`, or
+        None when the batch is ineligible. (The JAX package's planner picks
+        among several arms here; this port has the exact arm only.)"""
+        if not reqs:
+            return ("empty", [])
+        return self._exact_batch_launch(reqs)
+
+    def _exact_batch_launch(self, reqs: list):
+        """The exact batched arm: eligibility screen + one reader batch."""
+        for req in reqs:
+            if _not_ported_features(req) or req.post_filter is not None \
+                    or req.min_score is not None \
+                    or req.search_after is not None:
+                return None
+        k = _top_k_window(reqs)
+        if not self.reader.segments:
+            return ("empty", reqs)
+        # doc ids and counts survive the packed f32 layout exactly only
+        # below 2^24
+        pack = self.reader.max_doc < (1 << 24)
+        out = segment_exec.run_reader_batch(
+            self.reader.segments, self.ctx, [req.query for req in reqs],
+            k=k, pack=pack)
+        if out is None:                   # mixed plan signatures
+            return None
+        return ("device", reqs, k, pack, out)
+
+    def query_phase_batch_drain(self, handle) -> list[ShardQueryResult]:
+        """Phase 2: wait for the launched batch's results on the host (one
+        device→host copy when packed) and build per-request results."""
+        tag, reqs = handle[0], handle[1]
+        if tag == "empty":
+            return [ShardQueryResult(self.shard_id, 0, None,
+                                     np.zeros(0, np.int32),
+                                     np.zeros(0, np.float32), None, {},
+                                     self.reader) for _ in reqs]
+        _, _, k, pack, out = handle
+        if pack:
+            ms, md, totals = topk_ops.unpack_batch_result(
+                out.cpu().numpy(), k)
+        else:
+            ms = out["top_scores"].cpu().numpy()
+            md = out["top_docs"].cpu().numpy()
+            totals = out["count"].cpu().numpy()
+        results = []
+        for bi, req in enumerate(reqs):
+            kq = max(req.from_ + req.size, 1)
+            valid = md[bi] >= 0
+            s_, d_ = ms[bi][valid][:kq], md[bi][valid][:kq]
+            results.append(ShardQueryResult(
+                self.shard_id, int(totals[bi]),
+                float(s_[0]) if s_.size else None,
+                d_.astype(np.int32), s_.astype(np.float32), None, {},
+                self.reader))
+        return results
+
+    def _finish_score_order(self, k: int, total: int, seg_scores: list,
+                            seg_docs: list, bases: list) -> ShardQueryResult:
+        """Device merge of per-segment top-k → shard result."""
+        if seg_scores:
+            ms, md = topk_ops.merge_top_k_batch_body(
+                [s[None] for s in seg_scores], [d[None] for d in seg_docs],
+                k, bases)
+            ms, md = ms[0].cpu().numpy(), md[0].cpu().numpy()
+            valid = md >= 0
+            ms, md = ms[valid], md[valid]
+        else:
+            ms, md = np.zeros(0, np.float32), np.zeros(0, np.int32)
+        max_sc = float(ms[0]) if ms.size else None
+        return ShardQueryResult(self.shard_id, total, max_sc, md, ms, None,
+                                {}, self.reader)
+
+    # -- fetch phase ---------------------------------------------------------
+
+    def fetch_phase(self, req: ParsedSearchRequest, result: ShardQueryResult,
+                    index_name: str, positions: list[int]) -> list[dict]:
+        from elasticsearch_tpu_torch.index.engine import _segment_meta
+        if req.highlight or req.script_fields:
+            raise NotPortedError(
+                "highlight and script_fields are not ported yet")
+        meta_wanted = [f for f in req.stored_fields
+                       if f in ("_routing", "_parent", "_timestamp", "_ttl")]
+        hits = []
+        for pos in positions:
+            gid = int(result.doc_ids[pos])
+            seg, local = self.reader.resolve(gid)
+            src = seg.seg.sources[local]
+            meta = _segment_meta(seg.seg, local) or {}
+            emit_score = result.sort_values is None or any(
+                "_score" in spec for spec in req.sort)
+            hit = {
+                "_index": index_name,
+                "_type": meta.get("_type", "_doc"),
+                "_id": seg.seg.ids[local],
+                "_score": (float(result.scores[pos]) if emit_score else None),
+            }
+            if req.version:
+                # point-in-time version from the segment's _version column;
+                # the live map is only a fallback
+                v = meta.get("_version")
+                if v is None and self.version_fn is not None:
+                    v = self.version_fn(hit["_id"])
+                if v is not None:
+                    hit["_version"] = v
+            for f in meta_wanted:
+                if meta.get(f) is not None:
+                    hit[f] = meta[f]
+            if result.sort_values is not None:
+                hit["sort"] = result.sort_values[pos]
+            filtered = _filter_source(src, req.source_filter)
+            if filtered is not None:
+                hit["_source"] = filtered
+            if req.stored_fields or req.docvalue_fields:
+                fields = {}
+                for f in list(req.stored_fields) + list(
+                        req.docvalue_fields):
+                    v = src.get(f)
+                    if v is None and "." in f:   # dotted path into objects
+                        node = src
+                        for part in f.split("."):
+                            node = node.get(part) \
+                                if isinstance(node, dict) else None
+                            if node is None:
+                                break
+                        v = node
+                    if v is not None and not isinstance(v, dict):
+                        fields[f] = v if isinstance(v, list) else [v]
+                if fields:
+                    hit["fields"] = fields
+            hits.append(hit)
+        return hits
+
+
+def _filter_source(src: dict, spec) -> dict | None:
+    """_source filtering with DOTTED-PATH globs (ref:
+    FetchSourceContext/XContentMapValues.filter): an include pattern
+    matching an object path keeps the whole subtree; patterns reach into
+    nested objects ("obj.inner.field", "obj.*")."""
+    if spec is True:
+        return src
+    if spec is False:
+        return None
+    if isinstance(spec, str):
+        spec = [spec]
+    if isinstance(spec, list):
+        includes, excludes = spec, []
+    else:
+        includes = spec.get("includes", spec.get("include", []))
+        excludes = spec.get("excludes", spec.get("exclude", []))
+        if isinstance(includes, str):
+            includes = [includes]
+        if isinstance(excludes, str):
+            excludes = [excludes]
+    if not includes and not excludes:
+        return src
+
+    def prefixes(path: str) -> list[str]:
+        parts = path.split(".")
+        return [".".join(parts[:i + 1]) for i in range(len(parts))]
+
+    def included(path: str) -> bool:
+        if not includes:
+            return True
+        return any(fnmatch.fnmatch(p, pat)
+                   for pat in includes for p in prefixes(path))
+
+    def deeper_include(path: str) -> bool:
+        """An include pattern may target something BELOW this object."""
+        return any(pat.startswith(path + ".") or
+                   fnmatch.fnmatch(path, ".".join(
+                       pat.split(".")[:len(path.split("."))]))
+                   for pat in includes)
+
+    def excluded(path: str) -> bool:
+        return any(fnmatch.fnmatch(p, pat)
+                   for pat in excludes for p in prefixes(path))
+
+    def filter_value(v, path: str):
+        """→ (keep, filtered value) for one field value at `path` —
+        arrays of objects filter element-wise."""
+        if isinstance(v, dict):
+            if included(path):
+                return True, (walk(v, path) if excludes else v)
+            if includes and deeper_include(path):
+                sub = walk(v, path)
+                return bool(sub), sub
+            return False, None
+        if isinstance(v, list) and any(isinstance(el, dict) for el in v):
+            out = []
+            for el in v:
+                if isinstance(el, dict):
+                    keep, sub = filter_value(el, path)
+                    if keep:
+                        out.append(sub)
+                elif included(path):
+                    out.append(el)
+            return bool(out), out
+        return included(path), v
+
+    def walk(obj: dict, prefix: str) -> dict:
+        out = {}
+        for k, v in obj.items():
+            path = f"{prefix}.{k}" if prefix else k
+            if excluded(path):
+                continue
+            keep, sub = filter_value(v, path)
+            if keep:
+                out[k] = sub
+        return out
+
+    return walk(src, "")

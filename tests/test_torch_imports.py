@@ -1,0 +1,81 @@
+"""The port stands alone: serving a search through it loads neither JAX nor
+the JAX package, and its entry points never fall back to the CPU on their
+own."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+SERVE_ONE_SEARCH = r"""
+import json, sys, tempfile
+from pathlib import Path
+from elasticsearch_tpu_torch.index.device_reader import (
+    DeviceReader, device_reader_for)
+from elasticsearch_tpu_torch.index.engine import Engine
+from elasticsearch_tpu_torch.mapping import MapperService
+from elasticsearch_tpu_torch.search.phase import (
+    ShardSearcher, parse_search_request)
+
+ms = MapperService()
+ms.merge("_doc", {"properties": {"body": {"type": "text"}}})
+eng = Engine(Path(tempfile.mkdtemp()), ms)
+for i, text in enumerate(["quick brown fox", "lazy dog", "quick dog"]):
+    eng.index(str(i), {"body": text})
+eng.refresh()
+searcher = ShardSearcher(0, device_reader_for(eng, device="cpu"), ms)
+req = parse_search_request({"query": {"match": {"body": "quick dog"}}})
+res = searcher.query_phase_batch([req])[0]
+hits = searcher.fetch_phase(req, res, "idx", list(range(len(res.doc_ids))))
+try:
+    DeviceReader(eng.acquire_searcher())
+    refused = False
+except RuntimeError:
+    refused = True
+print(json.dumps({
+    "ids": [h["_id"] for h in hits],
+    "leaked": sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib",
+                                            "elasticsearch_tpu")),
+    "no_card_refused": refused,
+}))
+"""
+
+
+def test_port_serves_without_jax_or_the_jax_package(tmp_path):
+    # hide any card, so "no device given" must mean a refusal here
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", SERVE_ONE_SEARCH], env=env,
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["ids"] == ["2", "1", "0"]
+    assert got["leaked"] == []
+    assert got["no_card_refused"]
+
+
+def test_no_port_source_imports_jax_or_the_jax_package():
+    """Every ``import`` line of the port and of chip_smoke.py names neither
+    ``jax`` nor the top-level ``elasticsearch_tpu`` (``elasticsearch_tpu_torch``
+    shares its prefix, so the match is on the exact top-level name)."""
+    import ast
+    files = sorted((REPO / "elasticsearch_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib",
+                                          "elasticsearch_tpu"):
+                    bad.append(f"{path.relative_to(REPO)}: {name}")
+    assert bad == []
