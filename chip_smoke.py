@@ -229,9 +229,13 @@ def phase_build():
             if "registers" in line or "spill" in line or "entry function" \
                     in line:
                 log(f"build:   {line.strip()}")
-    log("build: dynamic shared memory per block: bm25_scan 8*T B (32 B at "
-        "T = 4); topk max(16 KiB, 8*next_pow2(min(k, M)) B) (16 KiB at "
-        "k = 1000, 128 KiB at k = 10000)")
+    log("build: dynamic shared memory per block: bm25_scan the batch's "
+        "term table, a stamp and a value per table slot and an 8-row "
+        "output run per warp (42.25 KiB at B = 64, T = 4 without nmatch, "
+        "60.25 KiB with); topk stage 1 80 KiB per 16384-entry chunk (a "
+        "single-chunk row 4*M B + 32 KiB + 8*next_pow2(min(k, M)) B), "
+        "stage 2 the 227 KiB a block may take, its boundary-bin list "
+        "getting what the histogram and the sort buffer leave")
 
 
 def phase_data(args):
@@ -290,6 +294,66 @@ def phase_data(args):
             "reader": reader, "searcher": searcher}
 
 
+def smi_sample() -> str:
+    """The card's SM clock (now / max), power draw and temperature."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0].strip() \
+        if out.returncode == 0 and out.stdout.strip() else "not read"
+
+
+def timed(torch, name: str, fn, reps: int, warmup: int = 1) -> float:
+    """time_ms with nvidia-smi sampled just before and after the loop."""
+    before = smi_sample()
+    ms = time_ms(torch, fn, reps, warmup)
+    log(f"timing {name}: {ms:.4f} ms | nvidia-smi clocks.sm, clocks.max.sm, "
+        f"power.draw, temperature before [{before}] after [{smi_sample()}]")
+    return ms
+
+
+def k1_work(torch, uterms, doc_len, tids, avgdl, hits: int):
+    """K1's least work for this run's data, outputs aside: each row read up
+    to its first pad, utf only where a queried term sits, doc_len and the
+    query constants once → (bytes read, flops: 4 per (query, doc) for the
+    length norm and 5 per hit)."""
+    n, u = uterms.shape
+    cells_read = int(torch.clamp((uterms >= 0).sum(dim=1) + 1, max=u).sum())
+    utf_read = int(torch.isin(uterms, tids.unique()).sum())
+    read = (cells_read * 4 + utf_read * 4 + nbytes(doc_len)
+            + 3 * nbytes(tids) + nbytes(avgdl))
+    return read, 4 * tids.shape[0] * n + 5 * hits
+
+
+def check_k1(torch, lexical, args, trailing_pad, what):
+    """K1 against its plain version, with and without nmatch."""
+    got_s, got_n = lexical.bm25_match_batch(*args, trailing_pad=trailing_pad)
+    want_s, want_n = lexical.bm25_match_batch_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got_n, want_n), f"K1 nmatch differs from its plain "
+          f"version ({what})")
+    check(torch.equal(got_s.view(torch.int32), want_s.view(torch.int32)),
+          f"K1 scores are not bit-identical to its plain version ({what})")
+    only_s, only_n = lexical.bm25_match_batch(
+        *args, trailing_pad=trailing_pad, want_nmatch=False)
+    torch.cuda.synchronize()
+    check(only_n is None and torch.equal(only_s.view(torch.int32),
+                                         want_s.view(torch.int32)),
+          f"K1 without nmatch is not bit-identical to its plain version "
+          f"({what})")
+    return got_s, got_n, float((got_s - want_s).nan_to_num(0.0).abs().max())
+
+
+def check_k2(torch, topk, scores, k, what, mask=None, ids=None):
+    res = topk.select_top_k(scores, k, mask=mask, ids=ids)
+    ref = topk.select_top_k_plain(scores, k, mask=mask, ids=ids)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, c) for a, c in zip(res, ref)),
+          f"K2 differs from its plain version on {what}")
+    return res, float((res[0] - ref[0]).nan_to_num(0.0).abs().max())
+
+
 def phase_kernels(torch, args, data) -> list[dict]:
     from elasticsearch_tpu_torch.ops import lexical, topk
     from elasticsearch_tpu_torch.search import query_dsl
@@ -308,65 +372,82 @@ def phase_kernels(torch, args, data) -> list[dict]:
     p = searcher.ctx.bm25
     k1_args = (col.uterms, col.utf, col.doc_len, tids, idfs, ones, p.k1,
                p.b, avgdl)
-
-    # ---- K1 -------------------------------------------------------------
-    got_s, got_n = lexical.bm25_match_batch(
-        *k1_args, trailing_pad=col.trailing_pad)
-    want_s, want_n = lexical.bm25_match_batch_plain(*k1_args)
-    torch.cuda.synchronize()
-    check(torch.equal(got_n, want_n), "K1 nmatch differs from its plain "
-          "version")
-    check(torch.equal(got_s.view(torch.int32), want_s.view(torch.int32)),
-          "K1 scores are not bit-identical to its plain version")
-    k1_err = float((got_s - want_s).abs().max())
-    k1_ms = time_ms(torch, lambda: lexical.bm25_match_batch(
-        *k1_args, trailing_pad=col.trailing_pad), reps=10)
-    k1_plain_ms = time_ms(torch, lambda: lexical.bm25_match_batch_plain(
-        *k1_args), reps=2, warmup=0)
     n, u = col.uterms.shape
     bsz, t = tids.shape
-    real = col.uterms >= 0
-    # this run's data: the scan reads each row up to its first pad, utf
-    # only where a queried term sits
-    cells_read = int(torch.clamp(real.sum(dim=1) + 1, max=u).sum())
-    utf_read = int(torch.isin(col.uterms, tids.unique()).sum())
-    hits = int(got_n.sum())
-    k1_bytes = (cells_read * 4 + utf_read * 4 + nbytes(col.doc_len)
-                + 3 * nbytes(tids) + nbytes(avgdl)
-                + nbytes(got_s) + nbytes(got_n))
-    k1_flops = 4 * bsz * n + 5 * hits
-    k1_bound, k1_by = bound(k1_bytes, k1_flops)
+
+    # ---- K1 at the main path's shape, with and without nmatch ----------
+    got_s, got_n, k1_err = check_k1(torch, lexical, k1_args,
+                                    col.trailing_pad, "main path's shape")
+    k1_ms = timed(torch, "K1 without nmatch", lambda: lexical.bm25_match_batch(
+        *k1_args, trailing_pad=col.trailing_pad, want_nmatch=False), reps=20)
+    k1_n_ms = timed(torch, "K1 with nmatch", lambda: lexical.bm25_match_batch(
+        *k1_args, trailing_pad=col.trailing_pad), reps=20)
+    k1_plain_ms = timed(
+        torch, "K1 plain", lambda: lexical.bm25_match_batch_plain(
+            *k1_args, want_nmatch=False), reps=2, warmup=0)
+    k1_read, k1_flops = k1_work(torch, col.uterms, col.doc_len, tids,
+                                avgdl, int(got_n.sum()))
+    # the main path writes [B, N] scores; with nmatch [B, N] counts as well
+    k1_bytes = k1_read + nbytes(got_s)
+    k1n_bytes = k1_bytes + nbytes(got_n)
+    k1_b, k1_by = bound(k1_bytes, k1_flops)
+    k1n_b, _ = bound(k1n_bytes, k1_flops)
     log(f"K1 bm25_scan [B={bsz}, N={n}, U={u}, T={t}]: bit-identical to "
-        f"plain; kernel_ms={k1_ms:.4f} plain_ms={k1_plain_ms:.4f} "
-        f"bound_ms={k1_bound:.4f} ({k1_by}: {k1_bytes} B, {k1_flops} "
-        f"flop) library_ms=null")
+        f"plain with and without nmatch; kernel_ms={k1_ms:.4f} (with nmatch "
+        f"{k1_n_ms:.4f}) plain_ms={k1_plain_ms:.4f} bound_ms={k1_b:.4f} "
+        f"({k1_by}: {k1_bytes} B, {k1_flops} flop; with nmatch "
+        f"{k1n_b:.4f}, {k1n_bytes} B) library_ms=null")
+
+    # ---- K1 at an odd shape: B = 65, T = 40, N off the tile --------------
+    rng = np.random.default_rng(args.seed + 1)
+    n_odd = min(n, 100_003)
+    o_tids = torch.from_numpy(make_queries(rng, 65, 40, data["df"])).to(
+        tids.device)
+    o_tids[0, -1] = o_tids[0, 0]
+    o_tids[1, 3] = -1
+    o_idf = torch.from_numpy(rng.uniform(0.1, 9.0, (65, 40)).astype(
+        np.float32)).to(tids.device)
+    o_args = (col.uterms[:n_odd], col.utf[:n_odd], col.doc_len[:n_odd],
+              o_tids, o_idf, torch.ones_like(o_idf), p.k1, p.b,
+              avgdl[:1].expand(65).contiguous())
+    check_k1(torch, lexical, o_args, col.trailing_pad,
+             f"odd shape B=65, N={n_odd}, T=40")
+    log(f"K1 bm25_scan [B=65, N={n_odd}, U={u}, T=40]: bit-identical to "
+        f"plain with and without nmatch")
 
     # ---- K2, one segment's top-k -----------------------------------------
     mask = (got_s > 0) & seg.live[None, :]
-    res = topk.select_top_k(got_s, k, mask=mask)
-    ref = topk.select_top_k_plain(got_s, k, mask=mask)
-    check(all(torch.equal(a, c) for a, c in zip(res, ref)),
-          "K2 differs from its plain version on the segment top-k")
+    res, err_a = check_k2(torch, topk, got_s, k, "the segment top-k",
+                          mask=mask)
     ties = torch.round(got_s * 2) / 2
-    res_t = topk.select_top_k(ties, k, mask=mask)
-    ref_t = topk.select_top_k_plain(ties, k, mask=mask)
-    check(all(torch.equal(a, c) for a, c in zip(res_t, ref_t)),
-          "K2 differs from its plain version on tie-heavy scores")
+    res_t, err_b = check_k2(torch, topk, ties, k, "tie-heavy scores",
+                            mask=mask)
     n_tied = int(mask.sum()) - int(torch.unique(ties[mask]).numel())
-    k2_err = max(float((res[0] - ref[0]).nan_to_num(0.0).abs().max()),
-                 float((res_t[0] - ref_t[0]).nan_to_num(0.0).abs().max()))
+    # odd shape: rows off the chunk size, one tied run across a chunk
+    # boundary, a wholly masked chunk
+    c = topk.CHUNK
+    m_odd = 3 * c + 5
+    odd = got_s[:3, :m_odd].clone()
+    odd[:, c - 700:c + 1500] = odd.max()
+    odd_mask = mask[:3, :m_odd].clone()
+    odd_mask[:, 2 * c:3 * c] = False
+    _, err_c = check_k2(torch, topk, odd, k, "a tied run across a chunk "
+                        "boundary", mask=odd_mask)
+    k2_err = max(err_a, err_b, err_c)
     masked = torch.where(mask, got_s, float("-inf"))
-    k2_ms = time_ms(torch, lambda: topk.select_top_k(got_s, k, mask=mask),
-                    reps=10)
-    k2_plain_ms = time_ms(torch, lambda: topk.select_top_k_plain(
-        got_s, k, mask=mask), reps=3)
-    k2_lib_ms = time_ms(torch, lambda: torch.topk(masked, k, dim=1),
-                        reps=10)
+    k2_ms = timed(torch, "K2 segment", lambda: topk.select_top_k(
+        got_s, k, mask=mask), reps=20)
+    k2_plain_ms = timed(
+        torch, "K2 segment plain", lambda: topk.select_top_k_plain(
+            got_s, k, mask=mask), reps=3)
+    k2_lib_ms = timed(torch, "K2 segment torch.topk", lambda: torch.topk(
+        masked, k, dim=1), reps=20)
     k2_bytes = nbytes(got_s) + nbytes(mask) + nbytes(res[0]) + \
         nbytes(res[1]) + nbytes(res[2])
     k2_bound, k2_by = bound(k2_bytes, got_s.numel())
     log(f"K2 stable_topk segment [R={bsz}, M={n}, k={k}]: equal to plain "
-        f"(also on tie-heavy scores, {n_tied} tied entries); "
+        f"(also on tie-heavy scores, {n_tied} tied entries, and on [3, "
+        f"{m_odd}] with a tied run across a chunk boundary); "
         f"kernel_ms={k2_ms:.4f} plain_ms={k2_plain_ms:.4f} "
         f"library_ms={k2_lib_ms:.4f} (torch.topk, tie order undefined) "
         f"bound_ms={k2_bound:.4f} ({k2_by}: {k2_bytes} B)")
@@ -380,7 +461,7 @@ def phase_kernels(torch, args, data) -> list[dict]:
         s2, _ = lexical.bm25_match_batch(
             c2.uterms, c2.utf, c2.doc_len, plan2["consts"][0],
             plan2["consts"][1], ones, p.k1, p.b, plan2["consts"][2],
-            trailing_pad=c2.trailing_pad)
+            trailing_pad=c2.trailing_pad, want_nmatch=False)
         r2 = topk.select_top_k(s2, k, mask=(s2 > 0) & seg2.live[None, :])
         cand_s.append(r2[0])
         cand_d.append(torch.where(r2[1] >= 0, r2[1] + seg2.doc_base, -1))
@@ -389,21 +470,18 @@ def phase_kernels(torch, args, data) -> list[dict]:
         cand_d.append(res_t[1])
     m_scores = torch.cat(cand_s, dim=1).contiguous()
     m_ids = torch.cat(cand_d, dim=1).to(torch.int32).contiguous()
-    mres = topk.select_top_k(m_scores, k, ids=m_ids)
-    mref = topk.select_top_k_plain(m_scores, k, ids=m_ids)
-    check(all(torch.equal(a, c) for a, c in zip(mres, mref)),
-          "K2 differs from its plain version on the merge")
+    mres, m_err = check_k2(torch, topk, m_scores, k, "the merge", ids=m_ids)
     m_masked = torch.where(m_ids >= 0, m_scores, float("-inf"))
     merge = {
         "shape": list(m_scores.shape),
-        "ms": time_ms(torch, lambda: topk.select_top_k(
-            m_scores, k, ids=m_ids), reps=20),
-        "plain_ms": time_ms(torch, lambda: topk.select_top_k_plain(
-            m_scores, k, ids=m_ids), reps=20),
-        "library_ms": time_ms(torch, lambda: torch.topk(
-            m_masked, k, dim=1), reps=20),
-        "max_abs_err": float((mres[0] - mref[0]).nan_to_num(0.0)
-                             .abs().max()),
+        "ms": timed(torch, "K2 merge", lambda: topk.select_top_k(
+            m_scores, k, ids=m_ids), reps=50),
+        "plain_ms": timed(
+            torch, "K2 merge plain", lambda: topk.select_top_k_plain(
+                m_scores, k, ids=m_ids), reps=20),
+        "library_ms": timed(torch, "K2 merge torch.topk", lambda: torch.topk(
+            m_masked, k, dim=1), reps=50),
+        "max_abs_err": m_err,
     }
     m_bytes = nbytes(m_scores) + nbytes(m_ids) + nbytes(mres[0]) + \
         nbytes(mres[1]) + nbytes(mres[2])
@@ -416,9 +494,10 @@ def phase_kernels(torch, args, data) -> list[dict]:
     return [
         {"name": "bm25_scan", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": 0, "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_b,
          "bound_by": k1_by, "library_ms": None,
-         "shape": {"B": bsz, "N": n, "U": u, "T": t}},
+         "shape": {"B": bsz, "N": n, "U": u, "T": t, "nmatch": False},
+         "with_nmatch": {"ms": k1_n_ms, "bound_ms": k1n_b}},
         {"name": "stable_topk", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": 0, "max_abs_err": k2_err,
          "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,

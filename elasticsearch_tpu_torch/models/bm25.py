@@ -87,7 +87,7 @@ def bm25_topk_batch(uterms, utf, doc_len, live, qtids, qidf, avgdl,
         torch.ones(qtids.shape, dtype=torch.float32, device=dev), k1, b,
         torch.full((n_queries,), float(np.float32(avgdl)),
                    dtype=torch.float32, device=dev),
-        trailing_pad=trailing_pad)
+        trailing_pad=trailing_pad, want_nmatch=False)
     return topk_ops.top_k(scores, live[None, :] & (scores > 0), k)
 
 

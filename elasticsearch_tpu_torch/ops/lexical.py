@@ -35,7 +35,8 @@ def bm25_constants(k1: float, b: float) -> tuple:
 
 
 def bm25_match_batch(uterms, utf, doc_len, qtids, qidf, qweight, k1, b,
-                     avgdl, *, trailing_pad: bool = False):
+                     avgdl, *, trailing_pad: bool = False,
+                     want_nmatch: bool = True):
     """Score a batch of (multi-term, OR-semantics) match queries against one
     segment: the batched form of the JAX package's ``bm25_match`` under
     ``jax.vmap``.
@@ -52,16 +53,20 @@ def bm25_match_batch(uterms, utf, doc_len, qtids, qidf, qweight, k1, b,
       trailing_pad: every row holds its terms first and -1 pads after (the
                segment builder's layout); lets K1 stop a row at its first
                pad. Results are the same either way.
+      want_nmatch: False when the caller does not read ``nmatch`` (the OR
+               plan's mask is ``scores > 0``): it is then neither computed
+               nor written, and None stands in its place.
 
     Returns:
       scores: [B, N] f32  Σ_t idf_t · w_t · tfNorm(tf_t,d)
-      nmatch: [B, N] i32  number of query terms hitting each doc
+      nmatch: [B, N] i32  number of query terms hitting each doc, or None
     """
     if uterms.device.type == "cpu":
         return bm25_match_batch_plain(uterms, utf, doc_len, qtids, qidf,
-                                      qweight, k1, b, avgdl)
+                                      qweight, k1, b, avgdl,
+                                      want_nmatch=want_nmatch)
     return _bm25_scan_cuda(uterms, utf, doc_len, qtids, qidf, qweight, k1, b,
-                           avgdl, trailing_pad)
+                           avgdl, trailing_pad, want_nmatch)
 
 
 def bm25_match(uterms, utf, doc_len, qtids, qidf, qweight, k1, b, avgdl):
@@ -75,10 +80,10 @@ def bm25_match(uterms, utf, doc_len, qtids, qidf, qweight, k1, b, avgdl):
 
 
 def bm25_match_batch_plain(uterms, utf, doc_len, qtids, qidf, qweight, k1, b,
-                           avgdl):
+                           avgdl, *, want_nmatch: bool = True):
     """K1's plain PyTorch version: the JAX body's operations in its order,
     one query at a time (a [B, N, U] intermediate would not fit at real
-    sizes)."""
+    sizes). ``nmatch`` is None unless ``want_nmatch``."""
     dev = uterms.device
     k1_, k1p1, omb, b_ = (torch.tensor(c, device=dev)
                           for c in bm25_constants(k1, b))
@@ -86,7 +91,8 @@ def bm25_match_batch_plain(uterms, utf, doc_len, qtids, qidf, qweight, k1, b,
     n_queries, n_terms = qtids.shape
     dl = doc_len.to(torch.float32)
     out_scores = torch.empty((n_queries, n), dtype=torch.float32, device=dev)
-    out_nmatch = torch.empty((n_queries, n), dtype=torch.int32, device=dev)
+    out_nmatch = torch.empty((n_queries, n), dtype=torch.int32, device=dev) \
+        if want_nmatch else None
     for q in range(n_queries):
         norm = k1_ * (omb + b_ * dl / avgdl[q])                       # [N]
         tf_norm = utf * k1p1 / (utf + norm[:, None])                 # [N, U]
@@ -102,12 +108,13 @@ def bm25_match_batch_plain(uterms, utf, doc_len, qtids, qidf, qweight, k1, b,
                 any_hit, torch.where(hit, tf_norm, 0.0).sum(dim=1), 0.0)
             nmatch = nmatch + any_hit.to(torch.int32)
         out_scores[q] = scores
-        out_nmatch[q] = nmatch
+        if want_nmatch:
+            out_nmatch[q] = nmatch
     return out_scores, out_nmatch
 
 
 def _bm25_scan_cuda(uterms, utf, doc_len, qtids, qidf, qweight, k1, b, avgdl,
-                    trailing_pad: bool):
+                    trailing_pad: bool, want_nmatch: bool):
     dev = uterms.device
     n, u = uterms.shape
     n_queries, n_terms = qtids.shape
@@ -132,9 +139,13 @@ def _bm25_scan_cuda(uterms, utf, doc_len, qtids, qidf, qweight, k1, b, avgdl,
                           doc_len=doc_len, qtids=qtids, qidf=qidf,
                           qweight=qweight, avgdl=avgdl)
     scores = torch.empty((n_queries, n), dtype=torch.float32, device=dev)
-    nmatch = torch.empty((n_queries, n), dtype=torch.int32, device=dev)
+    nmatch = torch.empty((n_queries, n), dtype=torch.int32, device=dev) \
+        if want_nmatch else None
     if n == 0 or n_queries == 0:
         return scores, nmatch
+    if n_terms == 0 or u == 0:          # no term can hit: nothing to scan
+        scores.zero_()
+        return scores, None if nmatch is None else nmatch.zero_()
     k1_, k1p1, omb, b_ = bm25_constants(k1, b)
     p = cuda_build.ptr
     BM25_SCAN.launch(dev, p(uterms), p(utf), p(doc_len), n, u, p(qtids),

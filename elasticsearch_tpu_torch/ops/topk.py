@@ -7,6 +7,9 @@ the (score desc, doc asc) order. The JAX package gets it from the stability
 of ``lax.top_k``; ``torch.topk`` promises no order for ties on CUDA, so the
 port selects with its own stable kernel K2 (``csrc/topk.cu``) on CUDA
 tensors and with :func:`select_top_k_plain` (a stable sort) on CPU tensors.
+K2 cuts a row longer than :data:`CHUNK` entries over many blocks, each
+sending on its chunk's top-k candidates, and one block per row then selects
+among them; a row of at most :data:`CHUNK` entries takes one block.
 Within a segment position order is doc order; across segments concatenated
 in segment order it is TopDocs.merge's order.
 """
@@ -23,15 +26,25 @@ from elasticsearch_tpu_torch.ops import cuda_build
 NEG_INF = float("-inf")
 
 #: largest k K2 takes: its sort buffer of next_pow2(k) 64-bit keys must fit
-#: one block's shared memory (16384 × 8 B = 128 KB of the H100's 227 KB).
+#: one block's shared memory (16384 × 8 B = 128 KB of the H100's 227 KB,
+#: beside a single-chunk row's 64 KB of staged scores).
 #: Elasticsearch's default index.max_result_window is 10000.
 MAX_K = 16384
+
+#: entries per K2 block. A block stages its chunk in shared memory as 4-byte
+#: words (64 KiB, beside a 16 KiB histogram: two blocks per SM), so a row of
+#: 2^20 docs is read once by 64 blocks and a batch of 64 such rows fills the
+#: card's 132 SMs many times over. A row of at most CHUNK entries (the
+#: cross-segment merge, [B, segments x k]) is one chunk: its single block
+#: selects, sorts and writes, with no candidate buffer and no second launch.
+CHUNK = 16384
 
 TOPK = cuda_build.CudaKernel(
     "stable_topk", "topk.cu", "topk_launch",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p])
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p])
 
 
 def select_top_k(scores, k: int, mask=None, ids=None):
@@ -106,10 +119,20 @@ def _topk_cuda(scores, k: int, mask, ids):
         return top_scores, top_ids, count
     if m == 0:
         return top_scores.fill_(NEG_INF), top_ids.fill_(-1), count.zero_()
-    kpad = 1 << (min(k, m) - 1).bit_length()
+    # the sort buffer: a power of two, at least a warp's 32 keys
+    kpad = max(32, 1 << (min(k, m) - 1).bit_length())
+    chunks = -(-m // CHUNK)
+    cand = state = None
+    if chunks > 1:
+        # each chunk's candidates (its top-k and the rest of its k-th key's
+        # radix bin: at most 2k keys), and per row the keys used and the
+        # histogram of the keys' top 12 bits — on the caller's stream
+        cand = torch.empty((rows, chunks * min(2 * k, CHUNK)),
+                           dtype=torch.int64, device=dev)
+        state = torch.zeros((rows, 4 + 4096), dtype=torch.int32, device=dev)
     p = cuda_build.ptr
-    TOPK.launch(dev, p(scores), p(mask), p(ids), rows, m, k, kpad,
-                p(top_scores), p(top_ids), p(count))
+    TOPK.launch(dev, p(scores), p(mask), p(ids), rows, m, k, kpad, CHUNK,
+                p(cand), p(state), p(top_scores), p(top_ids), p(count))
     return top_scores, top_ids, count
 
 

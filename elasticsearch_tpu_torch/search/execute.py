@@ -301,11 +301,14 @@ class SegmentResolver:
         def emit(em):
             col = em.seg.text[field]
             qtids = em.get(r_tids)
+            # OR semantics reads no nmatch: the kernel then writes none, as
+            # XLA drops the reference's unused output
             scores, nmatch = lexical.bm25_match_batch(
                 col.uterms, col.utf, col.doc_len, qtids, em.get(r_idfs),
                 torch.ones(qtids.shape, dtype=torch.float32,
                            device=em.device),
-                p.k1, p.b, em.get(r_avgdl), trailing_pad=col.trailing_pad)
+                p.k1, p.b, em.get(r_avgdl), trailing_pad=col.trailing_pad,
+                want_nmatch=not msm1)
             boost = em.get(r_boost)[:, None]
             if msm1:
                 # OR semantics: the bm25 sum is already 0 on non-matching

@@ -93,3 +93,22 @@ def test_bm25_constants_round_once_from_double():
     k1, k1p1, omb, b = lexical.bm25_constants(1.2, 0.75)
     assert k1p1 == np.float32(2.2) and omb == np.float32(0.25)
     assert k1.dtype == np.float32 and b == np.float32(0.75)
+
+
+@pytest.mark.parametrize("seed,k1,b", [(5, 1.2, 0.75), (6, 0.9, 1.0)])
+def test_scores_without_nmatch_match_jax_vmap(seed, k1, b):
+    """``want_nmatch=False`` (the OR plan) returns no counts and the same
+    scores as the JAX ``bm25_match`` under ``vmap``."""
+    rng = np.random.default_rng(seed)
+    uterms, utf, doc_len = _segment(rng)
+    qtids, qidf, qweight, avgdl = _queries(rng)
+    want_s, _ = jax.jit(jax.vmap(
+        lambda qt, qi, qw, a: jax_lexical.bm25_match(
+            jnp.asarray(uterms), jnp.asarray(utf), jnp.asarray(doc_len),
+            qt, qi, qw, k1, b, a)))(qtids, qidf, qweight, avgdl)
+    got_s, got_n = lexical.bm25_match_batch(
+        _t(uterms), _t(utf), _t(doc_len), _t(qtids), _t(qidf), _t(qweight),
+        k1, b, _t(avgdl), trailing_pad=True, want_nmatch=False)
+    assert got_n is None
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                               rtol=RTOL, atol=0)
