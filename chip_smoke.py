@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's paths once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py [--docs N] [--batches 8] [--batch 64] [--k 1000]
 
@@ -8,24 +8,40 @@ no result line:
 
 1. card   — nvidia-smi's name and power limit, torch's device name/count;
             no CUDA device → exit 2.
-2. build  — nvcc builds every kernel of the path from ``csrc/`` (all at once)
-            and reports registers and shared memory per kernel.
+2. build  — nvcc builds every kernel of the paths from ``csrc/`` (all at
+            once) and reports registers and shared memory per kernel.
 3. data   — an MS-MARCO-shaped corpus (log-normal lengths, median 50, Zipf
-            1.07 over a 500k vocabulary, up to 224 unique terms a doc; the
-            generator of bench.py, seed 1234), installed as 2^20-row
-            segments in the port's Engine and packed onto the card.
-4. kernels — each kernel against its plain PyTorch version at the shapes the
-            main path gives it (K1 bit for bit; K2 ids and scores equal,
-            also on tie-heavy scores), timed with CUDA events beside its
-            plain version, a library call where one exists, and its bound.
-5. main path — launch counters set to 0, then batches of ``match`` requests
-            through ShardSearcher.query_phase_batch and a fetch_phase; the
-            first batch held against an independent float64 CPU scoring
-            (exact hit counts, scores, tie-tolerant recall 1.0); each kernel
-            of the path must have launched.
-6. profile — one more batch under torch.profiler: device time by kernel,
-            the device's busy share of the batch, and the host planning
-            time of the batch on its own.
+            1.07 over a 500k vocabulary, up to 224 unique terms a doc, its
+            position matrix; the generator of bench.py, seed 1234) with a
+            ``double`` column ``rank`` uniform in [0, 100), installed as
+            2^20-row segments in the port's Engine and packed onto the card
+            (the position matrix stays on the host until a phrase needs it).
+4. kernels — K1 and K2 against their plain PyTorch versions at the shapes
+            the main path gives them (K1 bit for bit; K2 ids and scores
+            equal, also on tie-heavy scores), timed with CUDA events beside
+            the plain version, a library call where one exists, and the
+            bound.
+5. config 1 — BASELINE config 1, the main path: launch counters set to 0,
+            batches of ``match`` requests through
+            ShardSearcher.query_phase_batch and a fetch_phase; the first
+            batch held against an independent float64 CPU scoring (exact
+            hit counts, scores, tie-tolerant recall 1.0); K1 and K2 must
+            have launched, and no position matrix was uploaded.
+6. phrase kernel — the first phrase plan puts the position matrices on the
+            card; K3 against its plain version bit for bit at the shape
+            config 2 gives it and at odd shapes, timed like K1 and K2.
+7. config 2 — bool (must: match) + should: match_phrase of a real adjacent
+            pair, batches through query_phase_batch; K1, K2 and K3 must have
+            launched; the first queries against a float64 CPU scoring with
+            a numpy phrase count.
+8. config 3 — function_score field_value_factor (log1p) over the match, and
+            one batch adding a gauss decay under score_mode multiply;
+            checked the same way.
+9. profile — one batch of each config under torch.profiler (after one
+            unrecorded warm-up run of it): device time by kernel, the
+            device's busy share of the batch, the host planning time of the
+            batch on its own; and the element-wise bool and function_score
+            ops timed alone at the batch's shape.
 
 The last lines are one JSON object of per-kernel numbers, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -34,6 +50,7 @@ line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -48,11 +65,15 @@ import numpy as np
 # the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# queries of configs 2 and 3 held against the float64 CPU scoring
+CHECK_QUERIES = 8
 
 K1_SOURCE = "elasticsearch_tpu_torch/csrc/bm25_scan.cu"
 K2_SOURCE = "elasticsearch_tpu_torch/csrc/topk.cu"
+K3_SOURCE = "elasticsearch_tpu_torch/csrc/phrase_scan.cu"
 K1_REPLACES = "elasticsearch_tpu/ops/lexical.py:16"
 K2_REPLACES = "elasticsearch_tpu/ops/topk.py:27"
+K3_REPLACES = "elasticsearch_tpu/ops/phrase.py:59"
 
 
 def log(msg: str) -> None:
@@ -68,9 +89,39 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+class GcPauses:
+    """Wall time of the interpreter's full (generation 2) garbage
+    collections: with millions of host objects (segment ids and sources)
+    one pass takes a visible share of a batch, in whatever phase allocates
+    when it comes due."""
+
+    def __init__(self):
+        self.count, self.ms, self._t0 = 0, 0.0, None
+        gc.callbacks.append(self._callback)
+
+    def _callback(self, phase, info):
+        if info.get("generation") != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.count += 1
+            self.ms += (time.perf_counter() - self._t0) * 1e3
+            self._t0 = None
+
+    def take(self) -> str:
+        """The passes since the last call, as text, and start counting
+        anew."""
+        out = f"{self.count} full GC pass(es), {self.ms:.1f} ms"
+        self.count, self.ms = 0, 0.0
+        return out
+
+
+GC = GcPauses()
+
+
 # --------------------------------------------------------------------------
-# corpus: bench.py's generator (make_corpus realistic=True, make_queries),
-# without the position matrix, which this path does not read
+# corpus: bench.py's generator (make_corpus realistic=True, make_queries)
 # --------------------------------------------------------------------------
 
 def make_corpus(rng, n_docs: int, vocab: int, max_unique: int,
@@ -79,6 +130,7 @@ def make_corpus(rng, n_docs: int, vocab: int, max_unique: int,
                    10, 224).astype(np.int32)
     L = int(lens.max())
     U = max_unique
+    tokens = np.empty((n_docs, L), np.int32)
     uterms = np.full((n_docs, U), -1, np.int32)
     utf = np.zeros((n_docs, U), np.float32)
     df = np.zeros(vocab, np.int64)
@@ -89,6 +141,7 @@ def make_corpus(rng, n_docs: int, vocab: int, max_unique: int,
         n = hi - lo
         tk = (np.searchsorted(cdf, rng.random((n, L))) + 1).astype(np.int32)
         tk = np.where(np.arange(L)[None, :] < lens[lo:hi, None], tk, -1)
+        tokens[lo:hi] = tk
         order = np.argsort(tk, axis=1, kind="stable")
         st = np.take_along_axis(tk, order, axis=1)
         del tk, order
@@ -105,7 +158,7 @@ def make_corpus(rng, n_docs: int, vocab: int, max_unique: int,
     used = int(np.argmax((uterms >= 0).any(axis=0)[::-1]))
     u_eff = U - used if (uterms >= 0).any() else 1
     return (np.ascontiguousarray(uterms[:, :u_eff]),
-            np.ascontiguousarray(utf[:, :u_eff]), lens, df)
+            np.ascontiguousarray(utf[:, :u_eff]), lens, df, tokens)
 
 
 def make_queries(rng, n_queries: int, terms: int, df):
@@ -119,13 +172,10 @@ def make_queries(rng, n_queries: int, terms: int, df):
 # independent CPU scoring (float64, straight from the BM25 formula)
 # --------------------------------------------------------------------------
 
-def cpu_scores(uterms, utf, lens, df, qtids, k1=1.2, b=0.75):
-    """float64 BM25 of every doc for each query row of ``qtids``, from
-    postings gathered for the queried terms only."""
-    n_docs = uterms.shape[0]
-    avgdl = float(lens.sum()) / n_docs
-    norm = k1 * (1.0 - b + b * lens.astype(np.float64) / avgdl)
-    wanted = np.unique(qtids)
+def postings(uterms, utf, wanted):
+    """{term: (rows, tf)} for each term of ``wanted``, gathered in one pass
+    over the forward columns."""
+    wanted = np.unique(wanted)
     queried = np.zeros(int(uterms.max()) + 2, bool)   # index -1: pads
     queried[wanted] = True
     rows, cols = np.nonzero(queried[uterms])
@@ -135,28 +185,67 @@ def cpu_scores(uterms, utf, lens, df, qtids, k1=1.2, b=0.75):
     t, rows, tf = t[order], rows[order], tf[order]
     starts = np.searchsorted(t, wanted)
     ends = np.searchsorted(t, wanted, side="right")
-    post = {int(w): (rows[s:e], tf[s:e])
+    return {int(w): (rows[s:e], tf[s:e])
             for w, s, e in zip(wanted, starts, ends)}
+
+
+def cpu_idf(df, term, n_docs):
+    return np.log1p((n_docs - df[term] + 0.5) / (df[term] + 0.5))
+
+
+def cpu_scores(uterms, utf, lens, df, qtids, k1=1.2, b=0.75):
+    """float64 BM25 of every doc for each query row of ``qtids``, from
+    postings gathered for the queried terms only."""
+    n_docs = uterms.shape[0]
+    avgdl = float(lens.sum()) / n_docs
+    norm = k1 * (1.0 - b + b * lens.astype(np.float64) / avgdl)
+    post = postings(uterms, utf, qtids)
     out = []
     for q in qtids:
         s = np.zeros(n_docs, np.float64)
         for term in q:
             d, f = post[int(term)]
-            idf = np.log1p((n_docs - df[term] + 0.5) / (df[term] + 0.5))
-            s[d] += idf * f * (k1 + 1.0) / (f + norm[d])
+            s[d] += cpu_idf(df, term, n_docs) * f * (k1 + 1.0) / (f + norm[d])
         out.append(s)
     return out
 
 
-def tie_tolerant_recall(cpu, engine_ids, k, tol=1e-4) -> float:
-    """Recall@k of the engine's ids against the CPU top-k; an engine hit
-    outside the CPU top-k counts when its CPU score equals the CPU k-th
-    score within ``tol`` (equal scores are interchangeable at the cut)."""
-    n_match = int((cpu > 0).sum())
+def cpu_phrase_scores(tokens, uterms, utf, lens, df, pairs, k1=1.2, b=0.75):
+    """float64 BM25 of the exact two-term phrase (a, b) for each pair: the
+    phrase frequency counted with numpy on the position rows of the docs
+    that hold both terms (overlapping occurrences each count), tf = that
+    frequency, idf = idf(a) + idf(b)."""
+    n_docs = tokens.shape[0]
+    avgdl = float(lens.sum()) / n_docs
+    post = postings(uterms, utf, np.asarray(pairs).reshape(-1))
+    out = []
+    for a, b_ in pairs:
+        rows = np.intersect1d(post[int(a)][0], post[int(b_)][0])
+        t = tokens[rows]
+        freq = ((t[:, :-1] == a) & (t[:, 1:] == b_)).sum(axis=1).astype(
+            np.float64)
+        norm = k1 * (1.0 - b + b * lens[rows].astype(np.float64) / avgdl)
+        s = np.zeros(n_docs, np.float64)
+        s[rows] = np.where(freq > 0, (cpu_idf(df, a, n_docs) +
+                                      cpu_idf(df, b_, n_docs)) * freq *
+                           (k1 + 1.0) / (freq + norm), 0.0)
+        out.append(s)
+    return out
+
+
+def tie_tolerant_recall(cpu, engine_ids, k, tol=1e-4, matched=None) -> float:
+    """Recall@k of the engine's ids against the CPU top-k of the matching
+    docs (``matched``, default: score > 0); an engine hit outside the CPU
+    top-k counts when its CPU score equals the CPU k-th score within
+    ``tol`` (equal scores are interchangeable at the cut)."""
+    if matched is None:
+        matched = cpu > 0
+    n_match = int(matched.sum())
     kk = min(k, n_match)
     if kk == 0:
         return 1.0 if len(engine_ids) == 0 else 0.0
-    top = np.lexsort((np.arange(len(cpu)), -cpu))[:kk]
+    ranked = np.where(matched, cpu, -np.inf)
+    top = np.lexsort((np.arange(len(cpu)), -ranked))[:kk]
     kth = cpu[top[-1]]
     top_set = set(top.tolist())
     hits = sum(1 for d in engine_ids
@@ -216,7 +305,8 @@ def phase_card(torch):
 
 def phase_build():
     from elasticsearch_tpu_torch.ops import cuda_build
-    sources = [Path(K1_SOURCE).name, Path(K2_SOURCE).name]
+    sources = [Path(K1_SOURCE).name, Path(K2_SOURCE).name,
+               Path(K3_SOURCE).name]
     t0 = time.perf_counter()
     built = cuda_build.build_libraries(sources)
     log(f"build: {len(sources)} sources in "
@@ -235,26 +325,50 @@ def phase_build():
         "60.25 KiB with); topk stage 1 80 KiB per 16384-entry chunk (a "
         "single-chunk row 4*M B + 32 KiB + 8*next_pow2(min(k, M)) B), "
         "stage 2 the 227 KiB a block may take, its boundary-bin list "
-        "getting what the histogram and the sort buffer leave")
+        "getting what the histogram and the sort buffer leave; phrase_scan "
+        "the first-term table and the batch's terms, and per warp the first "
+        "96 positions of each row of its 8-row run and a count per (query, "
+        "row) (44.375 KiB at B = 64, T = 2)")
+
+
+def phrase_pairs(rng, tokens, lens, n):
+    """bench.py's config-2 phrases: a real adjacent pair of terms from a
+    random doc, ``n`` times."""
+    pairs = np.empty((n, 2), np.int32)
+    for i in range(n):
+        d = int(rng.integers(0, tokens.shape[0]))
+        pos = int(rng.integers(0, max(int(lens[d]) - 1, 1)))
+        a, b = int(tokens[d, pos]), int(tokens[d, pos + 1])
+        if a < 0 or b < 0:
+            a, b = int(tokens[d, 0]), int(tokens[d, 1])
+        pairs[i] = a, b
+    return pairs
 
 
 def phase_data(args):
     from elasticsearch_tpu_torch.index.device_reader import device_reader_for
     from elasticsearch_tpu_torch.index.engine import Engine
     from elasticsearch_tpu_torch.index.segment import (
-        Segment, doc_count_bucket)
+        NumericFieldColumn, Segment, doc_count_bucket)
     from elasticsearch_tpu_torch.mapping import MapperService
     from elasticsearch_tpu_torch.search.phase import ShardSearcher
     import tempfile
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
-    uterms, utf, lens, df = make_corpus(rng, args.docs, args.vocab, 224)
+    uterms, utf, lens, df, tokens = make_corpus(rng, args.docs, args.vocab,
+                                                224)
     n_queries = args.batches * args.batch
     qtids = make_queries(rng, n_queries, args.terms, df)
-    log(f"data: {args.docs} docs, U={uterms.shape[1]}, "
+    # configs 2 and 3 draw from CHILD generators: a draw from the seeded
+    # stream would move config 1's corpus and queries
+    rank = np.random.default_rng([args.seed, 1]).random(args.docs) * 100.0
+    n_cfg = args.cfg_batches * args.batch
+    pairs = phrase_pairs(np.random.default_rng([args.seed, 2]), tokens, lens,
+                         n_cfg)
+    log(f"data: {args.docs} docs, U={uterms.shape[1]}, L={tokens.shape[1]}, "
         f"avgdl={lens.mean():.3f}, mean unique terms "
         f"{(uterms >= 0).sum(axis=1).mean():.3f}, {n_queries} queries x "
-        f"{args.terms} terms, built on the host in "
+        f"{args.terms} terms, {n_cfg} phrase pairs, built on the host in "
         f"{time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -262,7 +376,8 @@ def phase_data(args):
     term_names = [f"t{i:0{w}d}" for i in range(args.vocab)]
     ms = MapperService()
     ms.merge("_doc", {"properties": {
-        "body": {"type": "text", "analyzer": "whitespace"}}})
+        "body": {"type": "text", "analyzer": "whitespace"},
+        "rank": {"type": "double"}}})
     eng = Engine(Path(tempfile.mkdtemp(prefix="chip_smoke_")), ms)
     seg_rows = 1 << 20
     for lo in range(0, args.docs, seg_rows):
@@ -277,21 +392,40 @@ def phase_data(args):
         seg_df = np.zeros(args.vocab, np.int64)
         seg_ut = uterms[lo:hi]
         np.add.at(seg_df, seg_ut[seg_ut >= 0], 1)
-        eng.install_segment(Segment.from_packed_text(
-            0, "body", terms=term_names, tokens=None,
+        seg = Segment.from_packed_text(
+            0, "body", terms=term_names, tokens=padrows(tokens, -1),
             uterms=padrows(uterms, -1), utf=padrows(utf, 0.0),
             doc_len=padrows(lens, 0), df=seg_df, num_docs=rows,
             ids=[str(lo + i) for i in range(rows)] +
-            [""] * (np_rows - rows)), track_versions=False)
+            [""] * (np_rows - rows))
+        seg.numeric_fields["rank"] = NumericFieldColumn(
+            values=padrows(rank, 0.0),
+            exists=padrows(np.ones(args.docs, bool), False))
+        eng.install_segment(seg, track_versions=False)
     reader = device_reader_for(eng)
     searcher = ShardSearcher(0, reader, ms)
     log(f"data: {len(reader.segments)} segment(s) installed and packed on "
-        f"{reader.device} in {time.perf_counter() - t0:.1f} s; reader "
-        f"device bytes {reader.device_bytes()}")
+        f"{reader.device} in {time.perf_counter() - t0:.1f} s; "
+        f"{reader_bytes(reader)}")
     texts = [" ".join(term_names[t] for t in row) for row in qtids]
     return {"uterms": uterms, "utf": utf, "lens": lens, "df": df,
-            "qtids": qtids, "texts": texts, "engine": eng,
-            "reader": reader, "searcher": searcher}
+            "tokens": tokens, "rank": rank, "pairs": pairs,
+            "qtids": qtids, "texts": texts, "term_names": term_names,
+            "engine": eng, "reader": reader, "searcher": searcher}
+
+
+def reader_bytes(reader) -> str:
+    """The reader's device bytes, split into the text and live columns
+    (what config 1 reads), the rank column and the position matrices."""
+    total = reader.device_bytes()
+    rank = sum(nbytes(c.hi) + nbytes(c.lo) + nbytes(c.exists)
+               for s in reader.segments for c in s.numeric.values())
+    tokens = sum(nbytes(c.tokens) + nbytes(c.tok_extent)
+                 for s in reader.segments for c in s.text.values()
+                 if c.tokens is not None)
+    return (f"reader device bytes {total} (text and live columns "
+            f"{total - rank - tokens}, rank column {rank}, position "
+            f"matrices {tokens})")
 
 
 def smi_sample() -> str:
@@ -506,56 +640,113 @@ def phase_kernels(torch, args, data) -> list[dict]:
     ]
 
 
-def phase_main_path(torch, args, data, kernels, name, smi_line):
-    from elasticsearch_tpu_torch.ops import lexical, topk
-    from elasticsearch_tpu_torch.search.phase import parse_search_request
-    searcher, reader = data["searcher"], data["reader"]
-    reqs = [parse_search_request({"query": {"match": {"body": t}},
-                                  "size": args.k}) for t in data["texts"]]
-    batches = [reqs[i * args.batch:(i + 1) * args.batch]
-               for i in range(args.batches)]
+def path_kernels():
+    """The launch counter of every hand kernel, by the name the kernels JSON
+    line gives it."""
+    from elasticsearch_tpu_torch.ops import lexical, phrase, topk
+    return {"bm25_scan": lexical.BM25_SCAN, "stable_topk": topk.TOPK,
+            "phrase_scan": phrase.PHRASE_SCAN}
+
+
+def drive(torch, searcher, batches):
+    """Every launch counter set to 0, the batches through
+    ShardSearcher.query_phase_batch, the counters read just after. → (results,
+    per-batch ms, wall s, launches, peak device bytes)."""
+    counters = path_kernels()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    lexical.BM25_SCAN.launches = 0
-    topk.TOPK.launches = 0
+    GC.take()
+    for kern in counters.values():
+        kern.launches = 0
     results, per_batch = [], []
     t_all = time.perf_counter()
     for batch in batches:
         t0 = time.perf_counter()
         out = searcher.query_phase_batch(batch)
         per_batch.append((time.perf_counter() - t0) * 1e3)
-        check(out is not None, "query_phase_batch declined the batch")
+        check(out is not None, "query_phase_batch declined a batch (it "
+              "would fall back to one request at a time)")
         results.append(out)
     wall = time.perf_counter() - t_all
-    launches = {"bm25_scan": lexical.BM25_SCAN.launches,
-                "stable_topk": topk.TOPK.launches}
-    peak = torch.cuda.max_memory_allocated()
+    launches = {name: kern.launches for name, kern in counters.items()}
+    return results, per_batch, wall, launches, torch.cuda.max_memory_allocated()
+
+
+def report(label, args, data, batches, per_batch, wall, launches, peak,
+           name, smi_line, needed) -> dict:
+    for kname in needed:
+        check(launches[kname] > 0,
+              f"{label}: kernel {kname} was not launched on its path")
+    n = sum(len(b) for b in batches)
+    qps = n / wall
+    p50 = statistics.median(per_batch)
+    log(f"{label}: launches {launches} over {len(batches)} batches of "
+        f"{args.batch} on {len(data['reader'].segments)} segment(s)")
+    log(f"{label}: {qps:.2f} queries/s, p50 {p50:.3f} ms per batch of "
+        f"{args.batch} (batches: {', '.join(f'{x:.3f}' for x in per_batch)} "
+        f"ms), peak device memory {peak} B, {reader_bytes(data['reader'])}; "
+        f"{GC.take()} in the batches — on {name} ({smi_line})")
+    return {"qps": qps, "p50_ms": p50, "peak_bytes": peak,
+            "launches": launches}
+
+
+def gid_to_orig(reader) -> np.ndarray:
+    """Reader-global doc id → the corpus row it was made from."""
+    out = np.full(reader.max_doc, -1, np.int64)
+    for dseg in reader.segments:
+        nr = dseg.seg.num_docs
+        first = int(dseg.seg.ids[0])
+        out[dseg.doc_base:dseg.doc_base + nr] = np.arange(first, first + nr)
+    return out
+
+
+def check_vs_cpu(label, args, results, cpu, matched, orig_of) -> float:
+    """Each result against its float64 CPU scoring: totals exact, the hit
+    count, scores within 1e-5, tie-tolerant recall@k = 1.0."""
+    recalls = []
+    for qi, (res, s64, m64) in enumerate(zip(results, cpu, matched)):
+        n_match = int(m64.sum())
+        check(res.total == n_match,
+              f"{label} query {qi}: total {res.total} != CPU matches "
+              f"{n_match}")
+        orig = orig_of[np.asarray(res.doc_ids, np.int64)]
+        check(len(orig) == min(args.k, n_match) and (orig >= 0).all(),
+              f"{label} query {qi}: {len(orig)} hits for {n_match} matches")
+        check(bool(m64[orig].all()),
+              f"{label} query {qi}: a hit the CPU scoring does not match")
+        check(np.allclose(res.scores, s64[orig], rtol=1e-5, atol=1e-5),
+              f"{label} query {qi}: scores disagree with the CPU scoring")
+        recalls.append(tie_tolerant_recall(s64, orig, args.k, matched=m64))
+    recall = float(np.mean(recalls))
+    check(recall == 1.0, f"{label}: recall {recall} != 1.0")
+    return recall
+
+
+def phase_main_path(torch, args, data, kernels, name, smi_line) -> dict:
+    from elasticsearch_tpu_torch.search.phase import parse_search_request
+    searcher, reader = data["searcher"], data["reader"]
+    reqs = [parse_search_request({"query": {"match": {"body": t}},
+                                  "size": args.k}) for t in data["texts"]]
+    batches = [reqs[i * args.batch:(i + 1) * args.batch]
+               for i in range(args.batches)]
+    results, per_batch, wall, launches, peak = drive(torch, searcher,
+                                                     batches)
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
-    log(f"main path: launches {launches} over {args.batches} batches of "
-        f"{args.batch} on {len(reader.segments)} segment(s)")
-    for kern in kernels:
-        check(kern["launches"] > 0,
-              f"kernel {kern['name']} was not launched on the main path")
-    qps = args.batches * args.batch / wall
-    log(f"main path: {qps:.2f} queries/s, p50 "
-        f"{statistics.median(per_batch):.3f} ms per batch of {args.batch} "
-        f"(batches: {', '.join(f'{x:.3f}' for x in per_batch)} ms), peak "
-        f"device memory {peak} B, reader device bytes "
-        f"{reader.device_bytes()} B — on {name} ({smi_line})")
+    stats = report("config 1 (match)", args, data, batches, per_batch, wall,
+                   launches, peak, name, smi_line,
+                   ("bm25_scan", "stable_topk"))
+    check(launches["phrase_scan"] == 0 and all(
+        c.tokens is None for s in reader.segments for c in s.text.values()),
+        "config 1 put a position matrix on the card")
 
     # fetch the top 10 hits of one request
     r0 = results[0][0]
     hits = searcher.fetch_phase(batches[0][0], r0, "msmarco",
                                 list(range(min(10, len(r0.doc_ids)))))
-    gid_to_orig = np.full(reader.max_doc, -1, np.int64)
-    for dseg in reader.segments:
-        nr = dseg.seg.num_docs
-        first = int(dseg.seg.ids[0])
-        gid_to_orig[dseg.doc_base:dseg.doc_base + nr] = np.arange(
-            first, first + nr)
+    orig_of = gid_to_orig(reader)
     for pos, hit in enumerate(hits):
-        check(hit["_id"] == str(gid_to_orig[r0.doc_ids[pos]]),
+        check(hit["_id"] == str(orig_of[r0.doc_ids[pos]]),
               f"fetch_phase hit {pos} has _id {hit['_id']}")
         check(hit["_score"] == float(r0.scores[pos]),
               f"fetch_phase hit {pos} score differs from the query phase")
@@ -566,52 +757,261 @@ def phase_main_path(torch, args, data, kernels, name, smi_line):
     t0 = time.perf_counter()
     cpu = cpu_scores(data["uterms"], data["utf"], data["lens"], data["df"],
                      data["qtids"][:args.batch])
-    recalls = []
-    for qi, (res, s64) in enumerate(zip(results[0], cpu)):
-        n_match = int((s64 > 0).sum())
-        check(res.total == n_match,
-              f"query {qi}: total {res.total} != CPU matches {n_match}")
-        orig = gid_to_orig[np.asarray(res.doc_ids, np.int64)]
-        check(len(orig) == min(args.k, n_match) and (orig >= 0).all(),
-              f"query {qi}: {len(orig)} hits for {n_match} matches")
-        check(np.allclose(res.scores, s64[orig], rtol=1e-5, atol=1e-5),
-              f"query {qi}: scores disagree with the CPU scoring")
-        recalls.append(tie_tolerant_recall(s64, orig, args.k))
-    recall = float(np.mean(recalls))
-    log(f"main path: first batch vs independent float64 CPU scoring "
+    recall = check_vs_cpu("config 1", args, results[0], cpu,
+                          [s > 0 for s in cpu], orig_of)
+    log(f"config 1: first batch vs independent float64 CPU scoring "
         f"({time.perf_counter() - t0:.1f} s): totals exact, scores within "
         f"1e-5, tie-tolerant recall@{args.k} = {recall}")
-    check(recall == 1.0, f"recall {recall} != 1.0")
+    return stats
 
 
-def phase_profile(torch, args, data) -> None:
+def phase_phrase_kernel(torch, args, data) -> dict:
+    """The first phrase plan uploads the position matrices; then K3 against
+    its plain version at the shape config 2 gives it and at odd shapes."""
+    from elasticsearch_tpu_torch.ops import phrase
+    from elasticsearch_tpu_torch.search import query_dsl
+    from elasticsearch_tpu_torch.search.segment_exec import (
+        _plan_segment_batch)
+    searcher, reader = data["searcher"], data["reader"]
+    tn = data["term_names"]
+    queries = [query_dsl.parse_query({"match_phrase": {
+        "body": f"{tn[a]} {tn[b]}"}}) for a, b in data["pairs"][:args.batch]]
+    before = reader_bytes(reader)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plans = [_plan_segment_batch(seg, searcher.ctx, queries, args.k)
+             for seg in reader.segments]
+    torch.cuda.synchronize()
+    log(f"phrase kernel: the first phrase plans put the position matrices "
+        f"on the card in {time.perf_counter() - t0:.2f} s; before: {before}; "
+        f"after: {reader_bytes(reader)}")
+    seg, plan = reader.segments[0], plans[0]
+    col = seg.text["body"]
+    tids, sum_idf, avgdl, _boost = plan["consts"]
+    p = searcher.ctx.bm25
+    deltas = (0, 1)
+    k3_args = (col.tokens, col.doc_len, tids, deltas, sum_idf, p.k1, p.b,
+               avgdl)
+    n, length = col.tokens.shape
+    bsz, t = tids.shape
+
+    def check_k3(args_, extent, what):
+        got_s, got_m = phrase.phrase_score_batch(*args_, extent=extent)
+        want_s, want_m = phrase.phrase_score_batch_plain(*args_)
+        torch.cuda.synchronize()
+        check(torch.equal(got_m, want_m),
+              f"K3 mask differs from its plain version ({what})")
+        check(torch.equal(got_s.view(torch.int32), want_s.view(torch.int32)),
+              f"K3 scores are not bit-identical to its plain version "
+              f"({what})")
+        check(bool(got_m.any()), f"K3 found no phrase at all ({what})")
+        return got_s, got_m
+
+    got_s, got_m = check_k3(k3_args, col.tok_extent, "config 2's shape")
+    k3_ms = timed(torch, "K3", lambda: phrase.phrase_score_batch(
+        *k3_args, extent=col.tok_extent), reps=20)
+    k3_plain_ms = timed(torch, "K3 plain", lambda:
+                        phrase.phrase_score_batch_plain(*k3_args), reps=2,
+                        warmup=0)
+    # least work for this run's data: each row up to its extent, the
+    # extents, lengths and query constants once, [B, N] scores and mask
+    # written; 8 flops per (query, doc) with a phrase, a probe per position
+    ext_sum = int(col.tok_extent.sum())
+    hits = int(got_m.sum())
+    k3_bytes = (4 * ext_sum + nbytes(col.tok_extent) + nbytes(col.doc_len)
+                + nbytes(tids) + nbytes(sum_idf) + nbytes(avgdl)
+                + nbytes(got_s) + nbytes(got_m))
+    k3_ops = 8 * hits + ext_sum
+    k3_b, k3_by = bound(k3_bytes, k3_ops)
+    log(f"K3 phrase_scan [B={bsz}, N={n}, L={length}, T={t}, deltas "
+        f"{deltas}]: bit-identical to plain ({hits} (query, doc) pairs with "
+        f"a phrase); kernel_ms={k3_ms:.4f} plain_ms={k3_plain_ms:.4f} "
+        f"bound_ms={k3_b:.4f} ({k3_by}: {k3_bytes} B, {k3_ops} ops; rows "
+        f"read to their extent, mean {ext_sum / n:.3f} positions) "
+        f"library_ms=null")
+
+    # ---- odd shapes: B = 3, N off the 8-row run, holes inside rows -------
+    rng = np.random.default_rng([args.seed, 3])
+    n_odd = min(n, 100_003)
+    tok = col.tokens[:n_odd].clone()
+    lens = col.doc_len[:n_odd]
+    holes = torch.arange(0, n_odd, 5, device=tok.device)
+    tok[holes, (lens[holes] // 2).long()] = -1
+    ext = phrase.token_extent(tok)
+    host = tok[:64].cpu().numpy()
+    # a row without a hole holding at least 12 positions
+    r = next(i for i in range(64)
+             if i % 5 and int((host[i] >= 0).sum()) >= 12)
+    row = host[r]
+    ln = int((row >= 0).sum())
+    cases = {
+        (0,): np.array([[row[3]], [-1], [row[0]]], np.int32),
+        (0, 1, 3, 4, 6): np.array([
+            [row[d] for d in (0, 1, 3, 4, 6)],                   # a real one
+            [row[2]] * 5,                                        # repeated
+            [row[min(ln - 4 + d, ln - 1)] for d in (0, 1, 3, 4, 6)],  # past
+        ], np.int32),
+    }
+    for odd_deltas, odd_tids in cases.items():
+        qt = torch.from_numpy(odd_tids).to(tok.device)
+        si = torch.from_numpy(rng.uniform(0.5, 9.0, 3).astype(
+            np.float32)).to(tok.device)
+        av = avgdl[:3].clone()
+        check_k3((tok, lens, qt, odd_deltas, si, p.k1, p.b, av), ext,
+                 f"odd shape B=3, N={n_odd}, T={len(odd_deltas)}")
+        log(f"K3 phrase_scan [B=3, N={n_odd}, L={length}, T="
+            f"{len(odd_deltas)}, deltas {odd_deltas}, holes in every fifth "
+            f"row, an absent, a repeated and a past-the-end phrase]: "
+            f"bit-identical to plain")
+    err = float((got_s - phrase.phrase_score_batch_plain(*k3_args)[0])
+                .abs().max())
+    return {"name": "phrase_scan", "route": "cuda", "source": K3_SOURCE,
+            "replaces": K3_REPLACES, "launches": 0, "max_abs_err": err,
+            "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_b,
+            "bound_by": k3_by, "library_ms": None,
+            "shape": {"B": bsz, "N": n, "L": length, "T": t,
+                      "deltas": list(deltas)}}
+
+
+def config2_bodies(args, data) -> list[dict]:
+    """bench.py's config 2: must = a match on the query's first two terms,
+    should = a match_phrase of a real adjacent pair."""
+    tn = data["term_names"]
+    n_cfg = args.cfg_batches * args.batch
+    return [{"query": {"bool": {
+        "must": [{"match": {"body": f"{tn[m[0]]} {tn[m[1]]}"}}],
+        "should": [{"match_phrase": {"body": f"{tn[a]} {tn[b]}"}}]}},
+        "size": args.k}
+        for m, (a, b) in zip(data["qtids"][:n_cfg, :2], data["pairs"])]
+
+
+def config3_bodies(args, data, decay: bool = False) -> list[dict]:
+    """bench.py's config 3: function_score field_value_factor on rank
+    (log1p, factor 1, boost_mode multiply) over the 4-term match; with
+    ``decay`` a gauss decay on rank joins it under score_mode multiply."""
+    functions = [{"field_value_factor": {"field": "rank",
+                                         "modifier": "log1p",
+                                         "factor": 1.0}}]
+    if decay:
+        functions.append({"gauss": {"rank": {"origin": 50, "scale": 20}}})
+    return [{"query": {"function_score": {
+        "query": {"match": {"body": t}}, "functions": functions,
+        "score_mode": "multiply", "boost_mode": "multiply"}},
+        "size": args.k}
+        for t in data["texts"][:args.cfg_batches * args.batch]]
+
+
+def batches_of(args, bodies):
+    from elasticsearch_tpu_torch.search.phase import parse_search_request
+    reqs = [parse_search_request(b) for b in bodies]
+    return [reqs[i:i + args.batch] for i in range(0, len(reqs), args.batch)]
+
+
+def phase_config2(torch, args, data, name, smi_line) -> dict:
+    batches = batches_of(args, config2_bodies(args, data))
+    results, per_batch, wall, launches, peak = drive(
+        torch, data["searcher"], batches)
+    stats = report("config 2 (bool + match_phrase)", args, data, batches,
+                   per_batch, wall, launches, peak, name, smi_line,
+                   ("bm25_scan", "stable_topk", "phrase_scan"))
+    nq = CHECK_QUERIES
+    t0 = time.perf_counter()
+    must = cpu_scores(data["uterms"], data["utf"], data["lens"], data["df"],
+                      data["qtids"][:nq, :2])
+    phr = cpu_phrase_scores(data["tokens"], data["uterms"], data["utf"],
+                            data["lens"], data["df"], data["pairs"][:nq])
+    matched = [m > 0 for m in must]
+    cpu = [np.where(m, s + ph, 0.0) for m, s, ph in zip(matched, must, phr)]
+    recall = check_vs_cpu("config 2", args, results[0][:nq], cpu, matched,
+                          gid_to_orig(data["reader"]))
+    n_phrase = [int(((ph > 0) & m).sum()) for ph, m in zip(phr, matched)]
+    check(sum(n_phrase) > 0, "config 2: no checked query has a matched doc "
+          "that holds its phrase, so the check does not cover K3")
+    log(f"config 2: first {nq} queries vs independent float64 CPU scoring "
+        f"with a numpy phrase count ({time.perf_counter() - t0:.1f} s; "
+        f"matched docs with the phrase: {n_phrase}): totals exact, scores "
+        f"within 1e-5, tie-tolerant recall@{args.k} = {recall}")
+    return stats
+
+
+def phase_config3(torch, args, data, name, smi_line) -> dict:
+    batches = batches_of(args, config3_bodies(args, data))
+    results, per_batch, wall, launches, peak = drive(
+        torch, data["searcher"], batches)
+    stats = report("config 3 (function_score)", args, data, batches,
+                   per_batch, wall, launches, peak, name, smi_line,
+                   ("bm25_scan", "stable_topk"))
+    nq = CHECK_QUERIES
+    t0 = time.perf_counter()
+    bm25 = cpu_scores(data["uterms"], data["utf"], data["lens"], data["df"],
+                      data["qtids"][:nq])
+    rank = data["rank"]
+    fvf = np.log10(rank + 1.0)
+    matched = [s > 0 for s in bm25]
+    orig_of = gid_to_orig(data["reader"])
+    recall = check_vs_cpu("config 3", args, results[0][:nq],
+                          [s * fvf for s in bm25], matched, orig_of)
+    # one untimed batch with a second function: gauss decay on rank
+    decay_batch = batches_of(args, config3_bodies(args, data, decay=True))[0]
+    res_g = data["searcher"].query_phase_batch(decay_batch)
+    check(res_g is not None, "config 3 with gauss decay fell back")
+    sigma2 = -(20.0 ** 2) / (2.0 * np.log(0.5))
+    gauss = np.exp(-np.maximum(np.abs(rank - 50.0), 0.0) ** 2 /
+                   (2.0 * sigma2))
+    recall_g = check_vs_cpu("config 3 + gauss", args, res_g[:nq],
+                            [s * fvf * gauss for s in bm25], matched,
+                            orig_of)
+    log(f"config 3: first {nq} queries vs independent float64 CPU scoring "
+        f"({time.perf_counter() - t0:.1f} s): totals exact, scores within "
+        f"1e-5, tie-tolerant recall@{args.k} = {recall}; with a gauss "
+        f"decay under score_mode multiply (one untimed batch): the same, "
+        f"recall {recall_g}")
+    return stats
+
+
+def phase_profile(torch, args, data, label, bodies) -> dict:
+    """One batch under torch.profiler (after an unrecorded warm-up run of
+    it): device time by kernel, the busy share of the batch, and the host
+    planning of the batch alone."""
     from torch.profiler import ProfilerActivity, profile
     from elasticsearch_tpu_torch.search import query_dsl, segment_exec
-    from elasticsearch_tpu_torch.search.phase import parse_search_request
     searcher, reader = data["searcher"], data["reader"]
-    texts = data["texts"][:args.batch]
-    batch = [parse_search_request({"query": {"match": {"body": t}},
-                                   "size": args.k}) for t in texts]
+    batch = batches_of(args, bodies[:args.batch])[0]
     # host-only planning of the batch (resolve every query on every
     # segment), no device work
-    queries = [query_dsl.parse_query({"match": {"body": t}}) for t in texts]
+    queries = [query_dsl.parse_query(b["query"]) for b in bodies[:args.batch]]
     flags = {"min_score": False, "search_after": False}
+    GC.take()
     t0 = time.perf_counter()
     for seg in reader.segments:
         for query in queries:
             segment_exec._plan(seg, searcher.ctx, query, None, flags)
     plan_ms = (time.perf_counter() - t0) * 1e3
+    plan_gc = GC.take()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        check(searcher.query_phase_batch(batch) is not None,
-              "query_phase_batch declined the profiled batch")
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the batch twice: a warm-up step the profiler does not record (its own
+    # start-up cost lands there), then the recorded step
+    recorded = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                  active=1),
+                 on_trace_ready=lambda p: recorded.append(
+                     p.key_averages())) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            check(searcher.query_phase_batch(batch) is not None,
+                  f"query_phase_batch declined the profiled {label} batch")
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            batch_gc = GC.take()
+            prof.step()
+    check(len(recorded) == 1, f"the profiler recorded {len(recorded)} "
+          f"steps of the {label} batch, not 1")
     rows = []
-    for ev in prof.key_averages():
-        # device-side rows only: an aten op's row repeats its kernels' time
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+    for ev in recorded[0]:
+        # device-side rows only: an aten op's row repeats its kernels' time,
+        # and the step's own annotation spans them all
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA") or \
+                ev.key.startswith("ProfilerStep"):
             continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -621,28 +1021,74 @@ def phase_profile(torch, args, data) -> None:
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     if busy_ms == 0:
-        log(f"profile: torch.profiler reported no device time (batch wall "
-            f"{wall_ms:.3f} ms, host planning alone {plan_ms:.3f} ms); the "
-            f"busy share is not measured")
-        return
-    log(f"profile: one batch of {args.batch}: wall {wall_ms:.3f} ms, device "
-        f"busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), host "
-        f"planning alone {plan_ms:.3f} ms")
+        log(f"profile {label}: torch.profiler reported no device time (batch "
+            f"wall {wall_ms:.3f} ms, host planning alone {plan_ms:.3f} ms); "
+            f"the busy share is not measured; GC: planning {plan_gc}, "
+            f"batch {batch_gc}")
+        return {"wall_ms": wall_ms, "plan_ms": plan_ms, "busy_ms": None}
+    by_kernel = {"K1": ("bm25_scan_kernel",),
+                 "K2": ("chunk_topk_kernel", "merge_candidates_kernel"),
+                 "K3": ("phrase_scan_kernel",)}
+    parts = {}
+    for kname, keys in by_kernel.items():
+        sel = [r for r in rows if any(k in r[2] for k in keys)]
+        parts[kname] = (sum(r[0] for r in sel), sum(r[1] for r in sel))
+    other = busy_ms - sum(v[0] for v in parts.values())
+    log(f"profile {label}: one batch of {args.batch}: wall {wall_ms:.3f} ms, "
+        f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+        f"host planning alone {plan_ms:.3f} ms; "
+        + ", ".join(f"{k} {v[0]:.3f} ms ({v[1]} kernels)"
+                    for k, v in parts.items())
+        + f", element-wise and copies {other:.3f} ms; GC: planning "
+        f"{plan_gc}, recorded batch {batch_gc}")
     for dev_ms, count, key in rows[:8]:
         log(f"profile:   {dev_ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    return {"wall_ms": wall_ms, "plan_ms": plan_ms, "busy_ms": busy_ms}
+
+
+def phase_elementwise(torch, args, data) -> None:
+    """The element-wise bodies of configs 2 and 3 timed alone at the batch's
+    shape on one segment: combine_bool (one must, one should) and the
+    function_score ops (field_value_factor log1p, apply_boost_mode)."""
+    from elasticsearch_tpu_torch.ops import boolean, functionscore
+    seg = data["reader"].segments[0]
+    n = seg.padded_docs
+    dev = seg.live.device
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    s1, s2 = (torch.rand((args.batch, n), generator=gen, device=dev)
+              for _ in range(2))
+    m1, m2 = s1 > 0.5, s2 > 0.99
+    msm = torch.zeros(args.batch, dtype=torch.int32, device=dev)
+    col = seg.numeric["rank"]
+    ones = torch.ones(args.batch, device=dev)
+    bool_ms = timed(torch, "combine_bool", lambda: boolean.combine_bool(
+        (args.batch, n), [(s1, m1)], [(s2, m2)], [], [], msm, device=dev),
+        reps=10)
+    fs_ms = timed(torch, "field_value_factor + apply_boost_mode", lambda:
+                  functionscore.apply_boost_mode(
+                      s1, functionscore.field_value_factor(
+                          col.hi, col.exists, ones, "log1p"), "multiply"),
+                  reps=10)
+    log(f"element-wise [B={args.batch}, N={n}]: combine_bool (1 must, 1 "
+        f"should) {bool_ms:.4f} ms; field_value_factor log1p + "
+        f"apply_boost_mode multiply {fs_ms:.4f} ms (per segment)")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1 << 21,
                     help="corpus size; MS-MARCO has 8,841,823 passages")
-    ap.add_argument("--batches", type=int, default=8)
+    ap.add_argument("--batches", type=int, default=8,
+                    help="batches of config 1")
+    ap.add_argument("--cfg-batches", type=int, default=4,
+                    help="batches of configs 2 and 3 each")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--k", type=int, default=1000)
     ap.add_argument("--terms", type=int, default=4)
     ap.add_argument("--vocab", type=int, default=500_000)
     ap.add_argument("--seed", type=int, default=1234)
     args = ap.parse_args(argv)
+    args.cfg_batches = min(args.cfg_batches, args.batches)
 
     import torch
     try:
@@ -652,7 +1098,24 @@ def main(argv=None) -> int:
         data = phase_data(args)
         kernels = phase_kernels(torch, args, data)
         phase_main_path(torch, args, data, kernels, name, smi_line)
-        phase_profile(torch, args, data)
+        k3 = phase_phrase_kernel(torch, args, data)
+        kernels.append(k3)
+        k3["launches_by_config"] = {}
+        stats2 = phase_config2(torch, args, data, name, smi_line)
+        stats3 = phase_config3(torch, args, data, name, smi_line)
+        k3["launches"] = stats2["launches"]["phrase_scan"]
+        for kern in kernels:
+            kern["launches_by_config"] = {
+                "2": stats2["launches"][kern["name"]],
+                "3": stats3["launches"][kern["name"]]}
+        phase_profile(torch, args, data, "config 1", [
+            {"query": {"match": {"body": t}}, "size": args.k}
+            for t in data["texts"][:args.batch]])
+        phase_profile(torch, args, data, "config 2",
+                      config2_bodies(args, data))
+        phase_profile(torch, args, data, "config 3",
+                      config3_bodies(args, data))
+        phase_elementwise(torch, args, data)
     except Exception as e:                  # noqa: BLE001 — report, then fail
         traceback.print_exc()
         print(f"[chip_smoke] FAILED: {type(e).__name__}: {e}",

@@ -1,9 +1,10 @@
 """Carry one index's state from the JAX package into this port.
 
 A segment of either package is plain host data: sorted term dictionary,
-forward impact columns, doc-frequency table, ids, sources, and the reader's
-live mask beside it. :func:`segment_from_arrays` rebuilds the port's
-:class:`Segment` from those arrays — numpy and lists only, nothing of the
+forward impact columns, position matrix, doc-frequency table, keyword
+ordinals with their sorted vocabulary, numeric doc values, ids, sources,
+and the reader's live mask beside it. :func:`segment_from_arrays` rebuilds
+the port's :class:`Segment` from those arrays — numpy and lists only, nothing of the
 JAX package — so both packages can score the very same index.
 """
 
@@ -11,7 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from elasticsearch_tpu_torch.index.segment import Segment
+from elasticsearch_tpu_torch.index.segment import (
+    KeywordFieldColumn, NumericFieldColumn, Segment)
 
 
 def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
@@ -20,6 +22,8 @@ def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
                         live: np.ndarray, num_docs: int,
                         total_tokens: int | None = None,
                         tokens: np.ndarray | None = None,
+                        keyword: dict | None = None,
+                        numeric: dict | None = None,
                         seg_id: int = 0) -> tuple[Segment, np.ndarray]:
     """→ (single-text-field Segment, its [padded] bool live mask).
 
@@ -27,7 +31,9 @@ def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
     ``uterms``/``utf`` are [padded, U]; ``doc_len`` is [padded]; rows at and
     beyond ``num_docs`` are padding; ``ids`` and ``sources`` cover at least
     the real rows; ``tokens`` (position matrix) may be None, which indexes
-    without positions."""
+    without positions. ``keyword`` maps a field to ``(sorted vocab, [padded,
+    K] int32 ords)`` and ``numeric`` a field to ``([padded] float64 values,
+    [padded] bool exists)``."""
     padded = int(uterms.shape[0])
     live = np.asarray(live, dtype=bool)
     if live.shape != (padded,) or not \
@@ -40,5 +46,20 @@ def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
         uterms=np.asarray(uterms), utf=np.asarray(utf),
         doc_len=np.asarray(doc_len), df=np.asarray(df), num_docs=num_docs,
         total_tokens=total_tokens, ids=list(ids), sources=list(sources))
+    for name, (vocab, ords) in (keyword or {}).items():
+        seg.keyword_fields[name] = KeywordFieldColumn(
+            vocab=list(vocab), ords=_rows(ords, np.int32, padded, name))
+    for name, (values, exists) in (numeric or {}).items():
+        seg.numeric_fields[name] = NumericFieldColumn(
+            values=_rows(values, np.float64, padded, name),
+            exists=_rows(exists, bool, padded, name))
     return seg, live.copy()
+
+
+def _rows(a, dtype, padded: int, name: str) -> np.ndarray:
+    a = np.ascontiguousarray(a, dtype=dtype)
+    if a.shape[0] != padded:
+        raise ValueError(f"carried column [{name}] has {a.shape[0]} rows, "
+                         f"the segment {padded}")
+    return a
 

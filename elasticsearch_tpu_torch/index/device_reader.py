@@ -8,9 +8,14 @@ queries then run on the device until the final top-k docs come back for
 fetch.
 
 Text (forward impact), keyword, numeric and live columns become tensors on
-the reader's device. Position matrices, vector, geo, shape and nested
-columns stay host-side on the segment (``DeviceSegment.seg``): no query
-this port serves reads them yet.
+the reader's device when the reader is made. A text field's position matrix
+(``tokens``, what phrase queries read) goes to the device LAZILY, the first
+time a plan names the field in ``positions_needed``
+(:meth:`DeviceReader.fetch_tokens`), and stays cached on the reader, as the
+JAX package does (``jit_exec._fetch``): a BM25 ``match`` never reads it, so
+a reader that serves only those never holds it. Vector, geo, shape and
+nested columns stay host-side on the segment (``DeviceSegment.seg``): no
+query this port serves reads them yet.
 
 Also aggregates per-field corpus statistics across segments host-side
 (doc counts, Σ field length, per-term df on demand) — what Lucene exposes as
@@ -29,6 +34,7 @@ import torch
 from elasticsearch_tpu_torch.common.device import resolve_device
 from elasticsearch_tpu_torch.index.engine import SearcherView
 from elasticsearch_tpu_torch.index.segment import Segment
+from elasticsearch_tpu_torch.ops.phrase import token_extent
 
 
 @dataclass
@@ -40,6 +46,12 @@ class DeviceTextField:
     # every row holds its terms first and -1 pads after (checked at upload):
     # lets the scoring kernel stop a row at its first pad
     trailing_pad: bool = False
+    # the position matrix, uploaded on first use (DeviceReader.fetch_tokens):
+    tokens: torch.Tensor | None = None      # [Np, L] i32, -1 holes
+    # each row's last position holding a term, plus 1 (ops/phrase.
+    # token_extent): the phrase kernel reads a row only that far, and a -1
+    # hole inside the row stays a position
+    tok_extent: torch.Tensor | None = None  # [Np] i32
 
 
 @dataclass
@@ -112,6 +124,7 @@ class DeviceReader:
         self.generation = view.generation
         self.segments: list[DeviceSegment] = []
         self._text_stats: dict[str, TextFieldStats] = {}
+        self._tokens_lock = threading.Lock()
         doc_base = 0
         for seg, live in zip(view.segments, view.live_masks):
             self.segments.append(self._pack_segment(seg, live, doc_base))
@@ -144,6 +157,19 @@ class DeviceReader:
         return DeviceSegment(seg=seg, live=put(live), doc_base=doc_base,
                              text=text, keyword=keyword, numeric=numeric)
 
+    def fetch_tokens(self, seg: DeviceSegment, field: str) -> None:
+        """Put ``field``'s position matrix of ``seg`` (and each row's
+        extent) on the device, once per reader; a later call finds it
+        cached. A field the segment lacks is left alone."""
+        col = seg.text.get(field)
+        if col is None or col.tokens is not None:
+            return
+        with self._tokens_lock:
+            if col.tokens is None:
+                tokens = self._put(col.column.tokens)
+                col.tok_extent = token_extent(tokens)
+                col.tokens = tokens
+
     def device_bytes(self) -> int:
         """Bytes of the tensors this reader placed on its device."""
         total = 0
@@ -151,6 +177,8 @@ class DeviceReader:
             tensors = [s.live]
             for c in s.text.values():
                 tensors += [c.uterms, c.utf, c.doc_len]
+                if c.tokens is not None:
+                    tensors += [c.tokens, c.tok_extent]
             tensors += [c.ords for c in s.keyword.values()]
             for c in s.numeric.values():
                 tensors += [c.hi, c.lo, c.exists]

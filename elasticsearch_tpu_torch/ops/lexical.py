@@ -79,6 +79,20 @@ def bm25_match(uterms, utf, doc_len, qtids, qidf, qweight, k1, b, avgdl):
     return scores[0], nmatch[0]
 
 
+def term_filter(uterms, qtid):
+    """Pure term-presence mask (filter context: no scoring).
+
+    uterms: [N, U] int32; qtid: [B] (or scalar) int32, -1 = absent → all
+    False. → [B, N] (or [N]) bool, one [N, U] compare per query: a
+    [B, N, U] intermediate would not fit at real sizes."""
+    q = torch.as_tensor(qtid, device=uterms.device)
+    if q.dim() == 0:
+        return ((uterms == q) & (q >= 0)).any(dim=1)
+    return torch.stack([term_filter(uterms, t) for t in q]) if len(q) else \
+        torch.zeros((0, uterms.shape[0]), dtype=torch.bool,
+                    device=uterms.device)
+
+
 def bm25_match_batch_plain(uterms, utf, doc_len, qtids, qidf, qweight, k1, b,
                            avgdl, *, want_nmatch: bool = True):
     """K1's plain PyTorch version: the JAX body's operations in its order,

@@ -9,7 +9,10 @@ axis:
 
 1. **plan** — host resolve of every query against every segment
    (execute.SegmentResolver) into a ConstTable and emit closures; queries of
-   one batch must share one plan signature.
+   one batch must share one plan signature. The text fields whose position
+   matrix the plan reads (``ConstTable.positions_needed``: phrase queries)
+   are put on the device now, once per reader (as the JAX package's
+   ``seg_flatten`` fetches its lazy columns); no other plan uploads them.
 2. **stack** — the batch's constants go to the device stacked ``[B, ...]``,
    one host→device copy per dtype (execute.stack_consts).
 3. **run** — per segment, ONE scoring launch for the whole batch (kernel K1
@@ -46,6 +49,14 @@ def _plan(seg: DeviceSegment, ctx: ExecutionContext, query, post_filter,
         refs["sa_doc"] = ct.add(flags["_sa_doc"], np.int32)
         refs["doc_base"] = ct.add(flags["_doc_base"], np.int32)
     return ct, emit_q, emit_pf, refs
+
+
+def _fetch_positions(seg: DeviceSegment, ctx: ExecutionContext,
+                     ct: ConstTable) -> None:
+    """Put the position matrices the plan reads on the device (a no-op once
+    the reader holds them)."""
+    for field in sorted(ct.positions_needed):
+        ctx.reader.fetch_tokens(seg, field)
 
 
 def _build(view: DeviceSegment, consts, emit_q, emit_pf, refs, k: int,
@@ -93,6 +104,7 @@ def run_segment(seg: DeviceSegment, ctx: ExecutionContext, query,
         "_doc_base": seg.doc_base,
     }
     ct, emit_q, emit_pf, refs = _plan(seg, ctx, query, post_filter, flags)
+    _fetch_positions(seg, ctx, ct)
     consts = stack_consts([ct.values], ctx.reader.device) \
         if ct.values else []
     outs = _build(seg, consts, emit_q, emit_pf, refs, int(k), 1)
@@ -108,12 +120,12 @@ def _plan_segment_batch(seg: DeviceSegment, ctx: ExecutionContext,
     if not queries:
         return None
     flags = {"min_score": False, "search_after": False}
-    sig0 = emit0 = refs0 = None
+    sig0 = emit0 = refs0 = ct0 = None
     consts_rows: list[list[np.ndarray]] = []
     for query in queries:
         ct, emit_q, _, refs = _plan(seg, ctx, query, None, flags)
         if sig0 is None:
-            sig0, emit0, refs0 = ct.signature(), emit_q, refs
+            sig0, emit0, refs0, ct0 = ct.signature(), emit_q, refs, ct
         elif ct.signature() != sig0:
             return None
         consts_rows.append(ct.values)
@@ -121,6 +133,7 @@ def _plan_segment_batch(seg: DeviceSegment, ctx: ExecutionContext,
         # const-free plans (match_none / absent-field zeros): the per-query
         # path serves these (rare) shapes
         return None
+    _fetch_positions(seg, ctx, ct0)
     return {"seg": seg, "emit": emit0, "refs": refs0, "k": int(k),
             "consts": stack_consts(consts_rows, ctx.reader.device)}
 

@@ -1,4 +1,4 @@
-"""MurmurHash3 x64_128 (h1 only), seed 0.
+"""MurmurHash3: x64_128 (h1 only, seed 0) and x86_32.
 
 The mapper-murmur3 plugin indexes ``MurmurHash3.hash128(utf8 bytes).h1``
 as a long doc-value (plugins/mapper-murmur3/.../Murmur3FieldMapper.java:137)
@@ -71,3 +71,50 @@ def hash128_x64_h1(data: bytes, seed: int = 0) -> int:
     h2 = _fmix(h2)
     h1 = (h1 + h2) & _M
     return h1 - (1 << 64) if h1 >= (1 << 63) else h1
+
+
+def _rotl32(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & 0xFFFFFFFF
+
+
+def _fmix32(h: int) -> int:
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & 0xFFFFFFFF
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & 0xFFFFFFFF
+    h ^= h >> 16
+    return h
+
+
+def murmur3_hash32(data: bytes | str, seed: int = 0) -> int:
+    """MurmurHash3 x86_32 as a signed 32-bit int (Java semantics): the
+    reference's doc-routing hash (Murmur3HashFunction.java), which the
+    random_score function also seeds from."""
+    if isinstance(data, str):
+        data = data.encode("utf-8")
+    c1, c2 = 0xCC9E2D51, 0x1B873593
+    h1 = seed & 0xFFFFFFFF
+    nblocks = len(data) // 4
+    for i in range(nblocks):
+        k1 = int.from_bytes(data[i * 4:i * 4 + 4], "little")
+        k1 = (k1 * c1) & 0xFFFFFFFF
+        k1 = _rotl32(k1, 15)
+        k1 = (k1 * c2) & 0xFFFFFFFF
+        h1 ^= k1
+        h1 = _rotl32(h1, 13)
+        h1 = (h1 * 5 + 0xE6546B64) & 0xFFFFFFFF
+    tail = data[nblocks * 4:]
+    k1 = 0
+    if len(tail) >= 3:
+        k1 ^= tail[2] << 16
+    if len(tail) >= 2:
+        k1 ^= tail[1] << 8
+    if len(tail) >= 1:
+        k1 ^= tail[0]
+        k1 = (k1 * c1) & 0xFFFFFFFF
+        k1 = _rotl32(k1, 15)
+        k1 = (k1 * c2) & 0xFFFFFFFF
+        h1 ^= k1
+    h1 ^= len(data)
+    h1 = _fmix32(h1)
+    return h1 - 0x100000000 if h1 >= 0x80000000 else h1

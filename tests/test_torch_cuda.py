@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-K1 (BM25 scan) must be bit-identical to its plain version; K2 (stable
-top-k) must return the same ids and scores, ties included. These tests need
+K1 (BM25 scan) and K3 (exact-phrase scan) must be bit-identical to their
+plain versions; K2 (stable top-k) must return the same ids and scores, ties
+included. These tests need
 an NVIDIA GPU and nvcc (the kernels have no CPU mode) and skip elsewhere.
 On a machine with a card, run them without the JAX test bootstrap:
 
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from elasticsearch_tpu_torch.ops import lexical, topk
+from elasticsearch_tpu_torch.ops import lexical, phrase, topk
 
 pytestmark = pytest.mark.cuda
 
@@ -298,3 +299,135 @@ def test_main_path_counting_plan_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert g.total == w.total
         np.testing.assert_array_equal(g.doc_ids, w.doc_ids)
         np.testing.assert_array_equal(g.scores, w.scores)
+
+
+def _phrase_inputs(rng, n, length, n_queries, deltas, vocab=7):
+    """Positions over a small vocabulary (phrases recur and overlap), ragged
+    rows, -1 holes inside rows, empty rows, full rows; a batch with a
+    repeated term, an absent term, and a phrase that runs past row ends."""
+    lens = rng.integers(0, length + 1, size=n)
+    lens[:2] = 0
+    lens[2:5] = length
+    tokens = np.full((n, length), -1, np.int32)
+    for i, ln in enumerate(lens):
+        tokens[i, :ln] = rng.integers(0, vocab, size=ln)
+        if ln > 4 and i % 3 == 0:
+            tokens[i, rng.integers(1, ln - 1)] = -1
+    tokens[5, :6] = [1, 1, 1, 1, 0, 1]
+    doc_len = (tokens >= 0).sum(axis=1).astype(np.int32)
+    doc_len[7] = 0
+    t = len(deltas)
+    qtids = rng.integers(0, vocab, size=(n_queries, t)).astype(np.int32)
+    qtids[0, :] = 1
+    qtids[1, -1] = -1
+    qtids[2, :] = tokens[3, length - t:length] if t <= length else 1
+    sum_idf = rng.uniform(0.5, 8.0, size=n_queries).astype(np.float32)
+    avgdl = rng.uniform(1.0, 30.0, size=n_queries).astype(np.float32)
+    avgdl[1] = avgdl[0]
+    return tokens, doc_len, qtids, sum_idf, avgdl
+
+
+@pytest.mark.parametrize("n,length,n_queries,deltas,b", [
+    (1001, 24, 3, (0,), 0.75),
+    (1001, 24, 3, (0, 1, 3, 4, 6), 0.75),
+    (4099, 40, 64, (0, 1), 1.0),
+    (333, 20, 70, (0, 2), 0.3),             # two query groups
+    (517, 300, 9, (0, 1), 0.75),            # rows past the staged window
+    (64, 8, 5, (0, 9), 0.75),               # a gap wider than every row
+])
+def test_phrase_scan_bit_identical_to_plain(cuda, n, length, n_queries,
+                                            deltas, b):
+    rng = np.random.default_rng(n + len(deltas))
+    tokens, doc_len, qtids, sum_idf, avgdl = _phrase_inputs(
+        rng, n, length, n_queries, deltas)
+    tk, dl, qt, si, av = (torch.from_numpy(a).to(cuda) for a in (
+        tokens, doc_len, qtids, sum_idf, avgdl))
+    extent = phrase.token_extent(tk)
+    before = phrase.PHRASE_SCAN.launches
+    got_s, got_m = phrase.phrase_score_batch(tk, dl, qt, deltas, si, 1.2, b,
+                                             av, extent=extent)
+    torch.cuda.synchronize()
+    assert phrase.PHRASE_SCAN.launches == before + 1
+    want_s, want_m = phrase.phrase_score_batch_plain(tk, dl, qt, list(deltas),
+                                                     si, 1.2, b, av)
+    assert torch.equal(got_m, want_m)
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+    assert bool(want_m.any()) == (max(deltas) < length)
+
+
+def test_phrase_scan_refuses_what_it_does_not_take(cuda):
+    tk = torch.zeros((16, 8), dtype=torch.int32, device=cuda)
+    dl = torch.ones(16, dtype=torch.int32, device=cuda)
+    one = torch.ones(1, device=cuda)
+    qt = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    ext = phrase.token_extent(tk)
+    with pytest.raises(ValueError):          # a negative delta
+        phrase.phrase_score_batch(tk, dl, qt, (0, -1), one, 1.2, 0.75, one,
+                                  extent=ext)
+    with pytest.raises(TypeError):
+        phrase.phrase_score_batch(tk.long(), dl, qt, (0, 1), one, 1.2, 0.75,
+                                  one, extent=ext)
+    with pytest.raises(ValueError):
+        phrase.phrase_score_batch(tk[:, ::2], dl, qt, (0, 1), one, 1.2, 0.75,
+                                  one, extent=ext)
+    with pytest.raises(ValueError):          # an extent of another shape
+        phrase.phrase_score_batch(tk, dl, qt, (0, 1), one, 1.2, 0.75, one,
+                                  extent=ext[:8])
+
+
+def test_configs_2_and_3_on_the_card_match_the_cpu(cuda, tmp_path):
+    """bool + match_phrase (K1, K3, K2) and function_score (K1, K2) through
+    query_phase_batch on the card return what the plain versions return on
+    the CPU."""
+    from elasticsearch_tpu_torch.index.device_reader import DeviceReader
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.search.phase import (
+        ShardSearcher, parse_search_request)
+    rng = np.random.default_rng(12)
+    words = [f"w{i}" for i in range(12)]
+    ms = MapperService()
+    ms.merge("_doc", {"properties": {"body": {"type": "text"},
+                                     "rank": {"type": "double"}}})
+    eng = Engine(tmp_path / "e", ms)
+    for i in range(400):
+        eng.index(str(i), {"body": " ".join(
+            rng.choice(words, size=int(rng.integers(1, 20)))),
+            "rank": float(rng.uniform(0, 100))})
+        if i == 200:
+            eng.refresh()
+    eng.refresh()
+    phrase_reqs = [parse_search_request({"query": {"bool": {
+        "must": [{"match": {"body": " ".join(rng.choice(words, size=2))}}],
+        "should": [{"match_phrase": {
+            "body": " ".join(rng.choice(words, size=2))}}]}}, "size": 50})
+        for _ in range(16)]
+    fs_reqs = [parse_search_request({"query": {"function_score": {
+        "query": {"match": {"body": " ".join(rng.choice(words, size=4))}},
+        "functions": [{"field_value_factor": {
+            "field": "rank", "modifier": "log1p", "factor": 1.0}},
+            {"gauss": {"rank": {"origin": 50, "scale": 20}}}],
+        "score_mode": "multiply", "boost_mode": "multiply"}}, "size": 50})
+        for _ in range(16)]
+    view = eng.acquire_searcher()
+    on_cpu = ShardSearcher(0, DeviceReader(view, device="cpu"), ms)
+    on_card = ShardSearcher(0, DeviceReader(view, device=cuda), ms)
+    want_phrase = on_cpu.query_phase_batch(phrase_reqs)
+    want_fs = on_cpu.query_phase_batch(fs_reqs)
+    k1, k3 = lexical.BM25_SCAN.launches, phrase.PHRASE_SCAN.launches
+    got = on_card.query_phase_batch(phrase_reqs)
+    assert lexical.BM25_SCAN.launches == k1 + 2
+    assert phrase.PHRASE_SCAN.launches == k3 + 2
+    assert any(w.total for w in want_phrase)
+    for g, w in zip(got, want_phrase):
+        assert g.total == w.total
+        np.testing.assert_array_equal(g.doc_ids, w.doc_ids)
+        np.testing.assert_array_equal(g.scores, w.scores)
+    got = on_card.query_phase_batch(fs_reqs)
+    assert lexical.BM25_SCAN.launches == k1 + 4
+    assert phrase.PHRASE_SCAN.launches == k3 + 2
+    for g, w in zip(got, want_fs):
+        # log10 and exp on the card and on the CPU may differ by an ulp
+        assert g.total == w.total
+        np.testing.assert_allclose(g.scores, w.scores, rtol=1e-6, atol=0)
+        assert set(g.doc_ids[:40].tolist()) <= set(w.doc_ids.tolist())

@@ -1,5 +1,5 @@
-"""The port stands alone: serving a search through it loads neither JAX nor
-the JAX package, and its entry points never fall back to the CPU on their
+"""The port stands alone: serving searches through it (a match, a bool with a
+match_phrase, a function_score) loads neither JAX nor the JAX package, and its entry points never fall back to the CPU on their
 own."""
 
 import json
@@ -21,22 +21,38 @@ from elasticsearch_tpu_torch.search.phase import (
     ShardSearcher, parse_search_request)
 
 ms = MapperService()
-ms.merge("_doc", {"properties": {"body": {"type": "text"}}})
+ms.merge("_doc", {"properties": {"body": {"type": "text"},
+                                 "rank": {"type": "double"}}})
 eng = Engine(Path(tempfile.mkdtemp()), ms)
 for i, text in enumerate(["quick brown fox", "lazy dog", "quick dog"]):
-    eng.index(str(i), {"body": text})
+    eng.index(str(i), {"body": text, "rank": 10.0 * (3 - i)})
 eng.refresh()
 searcher = ShardSearcher(0, device_reader_for(eng, device="cpu"), ms)
-req = parse_search_request({"query": {"match": {"body": "quick dog"}}})
-res = searcher.query_phase_batch([req])[0]
-hits = searcher.fetch_phase(req, res, "idx", list(range(len(res.doc_ids))))
+
+
+def ids_of(body):
+    req = parse_search_request(body)
+    res = searcher.query_phase_batch([req])[0]
+    return [h["_id"] for h in searcher.fetch_phase(
+        req, res, "idx", list(range(len(res.doc_ids))))]
+
+
+match_ids = ids_of({"query": {"match": {"body": "quick dog"}}})
+phrase_ids = ids_of({"query": {"bool": {
+    "must": [{"match": {"body": "dog"}}],
+    "should": [{"match_phrase": {"body": "quick dog"}}]}}})
+fs_ids = ids_of({"query": {"function_score": {
+    "query": {"match": {"body": "dog fox"}},
+    "functions": [{"field_value_factor": {"field": "rank",
+                                          "modifier": "log1p"}}],
+    "boost_mode": "multiply"}}})
 try:
     DeviceReader(eng.acquire_searcher())
     refused = False
 except RuntimeError:
     refused = True
 print(json.dumps({
-    "ids": [h["_id"] for h in hits],
+    "ids": [match_ids, phrase_ids, fs_ids],
     "leaked": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "elasticsearch_tpu")),
@@ -53,7 +69,7 @@ def test_port_serves_without_jax_or_the_jax_package(tmp_path):
                          timeout=120)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got["ids"] == ["2", "1", "0"]
+    assert got["ids"] == [["2", "1", "0"], ["2", "1"], ["0", "1", "2"]]
     assert got["leaked"] == []
     assert got["no_card_refused"]
 
