@@ -42,6 +42,26 @@ no result line:
             device's busy share of the batch, the host planning time of the
             batch on its own; and the element-wise bool and function_score
             ops timed alone at the batch's shape.
+10. int8 kernel — K4 against its plain version on the int8 column of a
+            segment (the config-4 corpus, 768-d) and at an odd shape, timed
+            beside the plain version, torch.matmul on a float copy of the
+            column, and the bound.
+11. config 4 — BASELINE config 4: top-level knn over the 768-d unit
+            vectors (f32: torch.matmul + K2), then the same reader through a
+            searcher of an index set to ``index.knn.quantization: int8``
+            (K4 + K2); the first queries against float64 cosines (int8:
+            float64 dots with the dequantized rows, and each hit within the
+            quantization bound of its cosine).
+12. hybrid — the rag request shape: the 4-term match plus the knn section
+            fused by RRF (and one untimed batch of the weighted sum), held
+            against a numpy fusion of float64 legs.
+13. MaxSim — a rank_vectors index (262,144 docs in two segments, 128-d,
+            32 tokens a doc at most, 32-token queries): K5 against its plain
+            version (f32 and int8 tokens, the main and odd shapes), then
+            batches through query_phase_batch in f32 and int8, against a
+            float64 MaxSim.
+14. profile — one batch of config 4 (f32, int8), hybrid and MaxSim under
+            torch.profiler: cuBLAS, K2, K4, K5, other element-wise ops.
 
 The last lines are one JSON object of per-kernel numbers, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -71,9 +91,25 @@ CHECK_QUERIES = 8
 K1_SOURCE = "elasticsearch_tpu_torch/csrc/bm25_scan.cu"
 K2_SOURCE = "elasticsearch_tpu_torch/csrc/topk.cu"
 K3_SOURCE = "elasticsearch_tpu_torch/csrc/phrase_scan.cu"
+K4_SOURCE = "elasticsearch_tpu_torch/csrc/int8_cosine.cu"
+K5_SOURCE = "elasticsearch_tpu_torch/csrc/maxsim.cu"
 K1_REPLACES = "elasticsearch_tpu/ops/lexical.py:16"
 K2_REPLACES = "elasticsearch_tpu/ops/topk.py:27"
 K3_REPLACES = "elasticsearch_tpu/ops/phrase.py:59"
+K4_REPLACES = "elasticsearch_tpu/ops/vector.py:52"
+K5_REPLACES = "elasticsearch_tpu/ops/maxsim.py:67"
+K5_INT8_REPLACES = "elasticsearch_tpu/ops/maxsim.py:136"
+# config 4 (bench.py:703-717): 768-d unit vectors, k = num_candidates = 100
+VEC_DIMS = 768
+KNN_K = 100
+# the rank_vectors index: ColBERT-shaped (128-d tokens, the mapping's
+# default max_tokens 32), two 2^17-row segments so the merge runs
+MAXSIM_DIMS = 128
+MAXSIM_TOKENS = 32
+MAXSIM_CHECK_QUERIES = 4
+# index names whose knn-lane settings the smoke registers
+INT8_INDEX = "smoke_knn_int8"
+WEIGHTED_INDEX = "smoke_knn_weighted"
 
 
 def log(msg: str) -> None:
@@ -305,8 +341,8 @@ def phase_card(torch):
 
 def phase_build():
     from elasticsearch_tpu_torch.ops import cuda_build
-    sources = [Path(K1_SOURCE).name, Path(K2_SOURCE).name,
-               Path(K3_SOURCE).name]
+    sources = [Path(src).name for src in (K1_SOURCE, K2_SOURCE, K3_SOURCE,
+                                          K4_SOURCE, K5_SOURCE)]
     t0 = time.perf_counter()
     built = cuda_build.build_libraries(sources)
     log(f"build: {len(sources)} sources in "
@@ -328,7 +364,11 @@ def phase_build():
         "getting what the histogram and the sort buffer leave; phrase_scan "
         "the first-term table and the batch's terms, and per warp the first "
         "96 positions of each row of its 8-row run and a count per (query, "
-        "row) (44.375 KiB at B = 64, T = 2)")
+        "row) (44.375 KiB at B = 64, T = 2); int8_cosine 24 KiB static (a "
+        "32-deep step of 64 queries and 128 docs as floats); maxsim "
+        "83.5 KiB (a 16-deep step of 128 query-token rows and 128 "
+        "doc-token columns, the 128 x 132 tile of dots, running max, sums "
+        "and token counts)")
 
 
 def phrase_pairs(rng, tokens, lens, n):
@@ -349,7 +389,7 @@ def phase_data(args):
     from elasticsearch_tpu_torch.index.device_reader import device_reader_for
     from elasticsearch_tpu_torch.index.engine import Engine
     from elasticsearch_tpu_torch.index.segment import (
-        NumericFieldColumn, Segment, doc_count_bucket)
+        NumericFieldColumn, Segment, VectorFieldColumn, doc_count_bucket)
     from elasticsearch_tpu_torch.mapping import MapperService
     from elasticsearch_tpu_torch.search.phase import ShardSearcher
     import tempfile
@@ -365,6 +405,11 @@ def phase_data(args):
     n_cfg = args.cfg_batches * args.batch
     pairs = phrase_pairs(np.random.default_rng([args.seed, 2]), tokens, lens,
                          n_cfg)
+    # config 4 and the hybrid leg: 768-d unit vectors (bench.py's), drawn
+    # from child generators as well
+    vgen = np.random.default_rng([args.seed, 4])
+    qv4 = unit_rows(np.random.default_rng([args.seed, 5]), (n_cfg, VEC_DIMS))
+    qvh = unit_rows(np.random.default_rng([args.seed, 6]), (n_cfg, VEC_DIMS))
     log(f"data: {args.docs} docs, U={uterms.shape[1]}, L={tokens.shape[1]}, "
         f"avgdl={lens.mean():.3f}, mean unique terms "
         f"{(uterms >= 0).sum(axis=1).mean():.3f}, {n_queries} queries x "
@@ -377,7 +422,8 @@ def phase_data(args):
     ms = MapperService()
     ms.merge("_doc", {"properties": {
         "body": {"type": "text", "analyzer": "whitespace"},
-        "rank": {"type": "double"}}})
+        "rank": {"type": "double"},
+        "vec": {"type": "dense_vector", "dims": VEC_DIMS}}})
     eng = Engine(Path(tempfile.mkdtemp(prefix="chip_smoke_")), ms)
     seg_rows = 1 << 20
     for lo in range(0, args.docs, seg_rows):
@@ -401,31 +447,64 @@ def phase_data(args):
         seg.numeric_fields["rank"] = NumericFieldColumn(
             values=padrows(rank, 0.0),
             exists=padrows(np.ones(args.docs, bool), False))
+        vecs = np.zeros((np_rows, VEC_DIMS), np.float32)
+        vgen.standard_normal(dtype=np.float32, out=vecs[:rows])
+        vecs[:rows] /= np.linalg.norm(vecs[:rows], axis=1, keepdims=True)
+        seg.vector_fields["vec"] = VectorFieldColumn(
+            vecs=vecs, exists=padrows(np.ones(args.docs, bool), False),
+            dims=VEC_DIMS)
         eng.install_segment(seg, track_versions=False)
     reader = device_reader_for(eng)
     searcher = ShardSearcher(0, reader, ms)
     log(f"data: {len(reader.segments)} segment(s) installed and packed on "
-        f"{reader.device} in {time.perf_counter() - t0:.1f} s; "
-        f"{reader_bytes(reader)}")
+        f"{reader.device} in {time.perf_counter() - t0:.1f} s, with a "
+        f"{VEC_DIMS}-d unit vector a doc; {reader_bytes(reader)}; host "
+        f"memory: {host_memory()}")
     texts = [" ".join(term_names[t] for t in row) for row in qtids]
     return {"uterms": uterms, "utf": utf, "lens": lens, "df": df,
             "tokens": tokens, "rank": rank, "pairs": pairs,
             "qtids": qtids, "texts": texts, "term_names": term_names,
+            "qv4": qv4, "qvh": qvh, "mapper": ms,
             "engine": eng, "reader": reader, "searcher": searcher}
+
+
+def unit_rows(rng, shape) -> np.ndarray:
+    """Standard normal rows scaled to unit length, float32 (bench.py's
+    query vectors)."""
+    v = rng.standard_normal(shape).astype(np.float32)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def host_memory() -> str:
+    """The host's memory as ``free -g`` gives it, on one line."""
+    out = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                         timeout=60)
+    return " | ".join(" ".join(line.split())
+                      for line in out.stdout.splitlines()[:2]) \
+        if out.returncode == 0 else "not read"
 
 
 def reader_bytes(reader) -> str:
     """The reader's device bytes, split into the text and live columns
-    (what config 1 reads), the rank column and the position matrices."""
+    (what config 1 reads), the rank column, the position matrices, the
+    vector columns' exists masks and token counts, and the vector matrices
+    (f32 and int8)."""
     total = reader.device_bytes()
     rank = sum(nbytes(c.hi) + nbytes(c.lo) + nbytes(c.exists)
                for s in reader.segments for c in s.numeric.values())
     tokens = sum(nbytes(c.tokens) + nbytes(c.tok_extent)
                  for s in reader.segments for c in s.text.values()
                  if c.tokens is not None)
+    cols = [c for s in reader.segments
+            for c in list(s.vector.values()) + list(s.mvector.values())]
+    masks = sum(nbytes(c.exists) + (nbytes(c.lens) if hasattr(c, "lens")
+                                    else 0) for c in cols)
+    f32 = sum(nbytes(c.vecs) for c in cols if c.vecs is not None)
+    int8 = sum(nbytes(c.qvecs) for c in cols if c.qvecs is not None)
     return (f"reader device bytes {total} (text and live columns "
-            f"{total - rank - tokens}, rank column {rank}, position "
-            f"matrices {tokens})")
+            f"{total - rank - tokens - masks - f32 - int8}, rank column "
+            f"{rank}, position matrices {tokens}, vector exists/lens "
+            f"{masks}, vector matrices f32 {f32}, int8 {int8})")
 
 
 def smi_sample() -> str:
@@ -641,11 +720,14 @@ def phase_kernels(torch, args, data) -> list[dict]:
 
 
 def path_kernels():
-    """The launch counter of every hand kernel, by the name the kernels JSON
-    line gives it."""
-    from elasticsearch_tpu_torch.ops import lexical, phrase, topk
+    """The launch counter of every hand kernel, by its name in the kernels
+    line (K5's f32 and int8 instantiations have one each)."""
+    from elasticsearch_tpu_torch.ops import (
+        lexical, maxsim, phrase, topk, vector)
     return {"bm25_scan": lexical.BM25_SCAN, "stable_topk": topk.TOPK,
-            "phrase_scan": phrase.PHRASE_SCAN}
+            "phrase_scan": phrase.PHRASE_SCAN,
+            "int8_cosine": vector.INT8_COSINE, "maxsim": maxsim.MAXSIM,
+            "maxsim_int8": maxsim.MAXSIM_INT8}
 
 
 def drive(torch, searcher, batches):
@@ -700,9 +782,12 @@ def gid_to_orig(reader) -> np.ndarray:
     return out
 
 
-def check_vs_cpu(label, args, results, cpu, matched, orig_of) -> float:
+def check_vs_cpu(label, args, results, cpu, matched, orig_of, k=None,
+                 rtol=1e-5, atol=1e-5, tie_tol=1e-4) -> float:
     """Each result against its float64 CPU scoring: totals exact, the hit
-    count, scores within 1e-5, tie-tolerant recall@k = 1.0."""
+    count, scores within ``atol`` (+ ``rtol``), tie-tolerant recall@k = 1.0
+    (k: ``args.k`` unless given)."""
+    k = k or args.k
     recalls = []
     for qi, (res, s64, m64) in enumerate(zip(results, cpu, matched)):
         n_match = int(m64.sum())
@@ -710,13 +795,14 @@ def check_vs_cpu(label, args, results, cpu, matched, orig_of) -> float:
               f"{label} query {qi}: total {res.total} != CPU matches "
               f"{n_match}")
         orig = orig_of[np.asarray(res.doc_ids, np.int64)]
-        check(len(orig) == min(args.k, n_match) and (orig >= 0).all(),
+        check(len(orig) == min(k, n_match) and (orig >= 0).all(),
               f"{label} query {qi}: {len(orig)} hits for {n_match} matches")
         check(bool(m64[orig].all()),
               f"{label} query {qi}: a hit the CPU scoring does not match")
-        check(np.allclose(res.scores, s64[orig], rtol=1e-5, atol=1e-5),
+        check(np.allclose(res.scores, s64[orig], rtol=rtol, atol=atol),
               f"{label} query {qi}: scores disagree with the CPU scoring")
-        recalls.append(tie_tolerant_recall(s64, orig, args.k, matched=m64))
+        recalls.append(tie_tolerant_recall(s64, orig, k, tol=tie_tol,
+                                           matched=m64))
     recall = float(np.mean(recalls))
     check(recall == 1.0, f"{label}: recall {recall} != 1.0")
     return recall
@@ -739,6 +825,9 @@ def phase_main_path(torch, args, data, kernels, name, smi_line) -> dict:
     check(launches["phrase_scan"] == 0 and all(
         c.tokens is None for s in reader.segments for c in s.text.values()),
         "config 1 put a position matrix on the card")
+    check(all(c.vecs is None and c.qvecs is None for s in reader.segments
+              for c in s.vector.values()),
+          "config 1 put a vector matrix on the card")
 
     # fetch the top 10 hits of one request
     r0 = results[0][0]
@@ -969,17 +1058,19 @@ def phase_config3(torch, args, data, name, smi_line) -> dict:
     return stats
 
 
-def phase_profile(torch, args, data, label, bodies) -> dict:
+def phase_profile(torch, args, data, label, bodies, searcher=None) -> dict:
     """One batch under torch.profiler (after an unrecorded warm-up run of
     it): device time by kernel, the busy share of the batch, and the host
-    planning of the batch alone."""
+    planning of the batch alone (a pure knn request plans no query)."""
     from torch.profiler import ProfilerActivity, profile
     from elasticsearch_tpu_torch.search import query_dsl, segment_exec
-    searcher, reader = data["searcher"], data["reader"]
+    searcher = searcher or data["searcher"]
+    reader = searcher.reader
     batch = batches_of(args, bodies[:args.batch])[0]
     # host-only planning of the batch (resolve every query on every
     # segment), no device work
-    queries = [query_dsl.parse_query(b["query"]) for b in bodies[:args.batch]]
+    queries = [query_dsl.parse_query(b["query"]) for b in bodies[:args.batch]
+               if "query" in b]
     flags = {"min_score": False, "search_after": False}
     GC.take()
     t0 = time.perf_counter()
@@ -1028,7 +1119,9 @@ def phase_profile(torch, args, data, label, bodies) -> dict:
         return {"wall_ms": wall_ms, "plan_ms": plan_ms, "busy_ms": None}
     by_kernel = {"K1": ("bm25_scan_kernel",),
                  "K2": ("chunk_topk_kernel", "merge_candidates_kernel"),
-                 "K3": ("phrase_scan_kernel",)}
+                 "K3": ("phrase_scan_kernel",),
+                 "K4": ("int8_cosine_kernel",), "K5": ("maxsim_kernel",),
+                 "cuBLAS": ("gemm", "xmma", "cutlass")}
     parts = {}
     for kname, keys in by_kernel.items():
         sel = [r for r in rows if any(k in r[2] for k in keys)]
@@ -1074,6 +1167,538 @@ def phase_elementwise(torch, args, data) -> None:
         f"apply_boost_mode multiply {fs_ms:.4f} ms (per segment)")
 
 
+# --------------------------------------------------------------------------
+# config 4, hybrid and MaxSim: the knn lane
+# --------------------------------------------------------------------------
+
+def segment_rows(reader):
+    """(corpus row of the segment's first doc, real rows) per segment."""
+    return [(int(s.seg.ids[0]), s.seg.num_docs) for s in reader.segments]
+
+
+def cosines64(reader, field, qs, chunk=1 << 17) -> np.ndarray:
+    """float64 cosine of each query row of ``qs`` against every corpus row,
+    from the segments' own (host) vectors normalized in float64. → [Q, N]
+    indexed by corpus row."""
+    q = qs.astype(np.float64)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    n = sum(rows for _, rows in segment_rows(reader))
+    out = np.empty((len(q), n))
+    for dseg, (first, rows) in zip(reader.segments, segment_rows(reader)):
+        vecs = dseg.seg.vector_fields[field].vecs
+        for lo in range(0, rows, chunk):
+            hi = min(lo + chunk, rows)
+            v = vecs[lo:hi].astype(np.float64)
+            v /= np.maximum(np.linalg.norm(v, axis=1, keepdims=True), 1e-12)
+            out[:, first + lo:first + hi] = q @ v.T
+    return out
+
+
+def dequant_dots64(pack, reader, qs, chunk=1 << 17) -> np.ndarray:
+    """float64 dots of each (normalized) query with the dequantized int8
+    rows ``q·scale + offset`` of each segment. → [Q, N] by corpus row."""
+    q = qs.astype(np.float64)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    n = sum(rows for _, rows in segment_rows(reader))
+    out = np.empty((len(q), n))
+    for s, (first, rows) in zip(pack.segs, segment_rows(reader)):
+        for lo in range(0, rows, chunk):
+            hi = min(lo + chunk, rows)
+            v = s["vecs"][lo:hi].cpu().numpy().astype(np.float64) \
+                * s["scale"] + s["offset"]
+            out[:, first + lo:first + hi] = q @ v.T
+    return out
+
+
+def register_knn_indices() -> None:
+    """Register the int8 index's knn settings (``index.knn.quantization:
+    int8``, as bench.py:824-828 does) and the weighted-fusion index's."""
+    from elasticsearch_tpu_torch.search import segment_exec
+    segment_exec.configure_knn_plane(INT8_INDEX,
+                                     {"index.knn.quantization": "int8"})
+    segment_exec.configure_knn_plane(WEIGHTED_INDEX,
+                                     {"index.search.hybrid.mode": "weighted"})
+
+
+def knn_bodies(qvs, texts=None) -> list[dict]:
+    """bench.py's config-4 requests (k = num_candidates = 100), with a
+    ``match`` of the query's terms beside the knn section when ``texts``
+    (the rag_hybrid leg)."""
+    out = []
+    for i, v in enumerate(qvs):
+        body = {"knn": {"field": "vec", "query_vector": v.tolist(),
+                        "k": KNN_K, "num_candidates": KNN_K},
+                "size": KNN_K}
+        if texts is not None:
+            body["query"] = {"match": {"body": texts[i]}}
+        out.append(body)
+    return out
+
+
+def phase_int8_kernel(torch, args, data) -> dict:
+    """K4 against its plain version on segment 0's int8 column at the
+    config-4 batch's shape, and at an odd shape."""
+    from elasticsearch_tpu_torch.index.segment import quantize_vectors
+    from elasticsearch_tpu_torch.ops import vector
+    reader = data["reader"]
+    seg = reader.segments[0]
+    t0 = time.perf_counter()
+    col = reader.fetch_vectors(seg, "vec", "int8")
+    torch.cuda.synchronize()
+    log(f"int8 kernel: segment 0's column normalized, quantized on the host "
+        f"and put on the card in {time.perf_counter() - t0:.2f} s (scale "
+        f"{col.scale!r}, offset {col.offset!r})")
+    qv, ex = col.qvecs, col.exists
+    scale, offset = col.scale, col.offset
+    qs = torch.from_numpy(data["qv4"][:args.batch]).to(qv.device)
+    qn = vector.l2_normalize(qs)
+    qsum = qn.sum(dim=-1)
+    got = vector.cosine_scores_int8_batch(qv, scale, offset, ex, qs)
+    want = vector.cosine_scores_int8_batch_plain(qv, scale, offset, ex, qn,
+                                                 qsum)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(err <= 1e-5, f"K4 differs from its plain version by {err}")
+    k4_ms = timed(torch, "K4", lambda: vector.cosine_scores_int8_batch(
+        qv, scale, offset, ex, qs), reps=10)
+    plain_ms = timed(torch, "K4 plain", lambda:
+                     vector.cosine_scores_int8_batch_plain(
+                         qv, scale, offset, ex, qn, qsum), reps=3)
+    qf = qv.float()            # the library call's float copy, made once
+    lib_ms = timed(torch, "K4 torch.matmul on a float copy", lambda:
+                   torch.matmul(qn, qf.T), reps=10)
+    del qf
+    n, d = qv.shape
+    b = qs.shape[0]
+    k4_bytes = nbytes(qv) + nbytes(ex) + nbytes(qn) + nbytes(qsum) + \
+        nbytes(got)
+    k4_b, k4_by = bound(k4_bytes, 2 * b * n * d)
+    log(f"K4 int8_cosine [B={b}, N={n}, D={d}]: max |K4 - plain| = {err} "
+        f"(<= 1e-5); kernel_ms={k4_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={lib_ms:.4f} (torch.matmul on a float copy of the "
+        f"column) bound_ms={k4_b:.4f} ({k4_by}: {2 * b * n * d} flop, "
+        f"{k4_bytes} B)")
+    # odd shape: B = 3, N = 100,003, D = 100, holes every fifth row
+    rng = np.random.default_rng([args.seed, 8])
+    n_odd, d_odd = 100_003, 100
+    qcol = quantize_vectors(unit_rows(rng, (n_odd, d_odd)), d_odd)
+    o_qv = torch.from_numpy(qcol.qvecs).to(qv.device)
+    o_ex = torch.ones(n_odd, dtype=torch.bool, device=qv.device)
+    o_ex[::5] = False
+    o_qs = torch.from_numpy(rng.standard_normal((3, d_odd)).astype(
+        np.float32)).to(qv.device)
+    o_qn = vector.l2_normalize(o_qs)
+    o_got = vector.cosine_scores_int8_batch(o_qv, qcol.scale, qcol.offset,
+                                            o_ex, o_qs)
+    o_want = vector.cosine_scores_int8_batch_plain(
+        o_qv, qcol.scale, qcol.offset, o_ex, o_qn, o_qn.sum(dim=-1))
+    torch.cuda.synchronize()
+    o_err = float((o_got - o_want).abs().max())
+    check(o_err <= 1e-5 and bool((o_got[:, ~o_ex] == 0).all()),
+          f"K4 differs from its plain version at the odd shape ({o_err})")
+    log(f"K4 int8_cosine [B=3, N={n_odd}, D={d_odd}, exists holes every "
+        f"fifth row]: max |K4 - plain| = {o_err} (<= 1e-5)")
+    return {"name": "int8_cosine", "route": "cuda", "source": K4_SOURCE,
+            "replaces": K4_REPLACES, "launches": 0, "max_abs_err": err,
+            "ms": k4_ms, "plain_ms": plain_ms, "bound_ms": k4_b,
+            "bound_by": k4_by, "library_ms": lib_ms,
+            "shape": {"B": b, "N": n, "D": d}}
+
+
+def phase_config4(torch, args, data, name, smi_line) -> tuple[dict, dict]:
+    """BASELINE config 4 through query_phase_batch: f32 (torch.matmul) and,
+    through a searcher of the int8 index over the same reader, int8 (K4)."""
+    from elasticsearch_tpu_torch.search import segment_exec
+    from elasticsearch_tpu_torch.search.phase import ShardSearcher
+    check(not torch.backends.cuda.matmul.allow_tf32 and
+          torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on for float32 matrix products")
+    reader = data["reader"]
+    register_knn_indices()
+    # set-up, untimed: the first knn request of each quantization
+    # normalizes or quantizes the column on the host and puts it on the card
+    for cfg in (segment_exec.knn_plane_config(None),
+                segment_exec.knn_plane_config(INT8_INDEX)):
+        t0 = time.perf_counter()
+        segment_exec.vector_pack_for(reader, "vec", cfg)
+        torch.cuda.synchronize()
+        log(f"config 4: the {cfg.quantization} column's set-up on the host "
+            f"and upload (the first {cfg.quantization} request's, untimed) "
+            f"took {time.perf_counter() - t0:.2f} s; {reader_bytes(reader)}")
+    batches = batches_of(args, knn_bodies(data["qv4"]))
+    results, per_batch, wall, launches, peak = drive(
+        torch, data["searcher"], batches)
+    stats = report("config 4 (knn, f32)", args, data, batches, per_batch,
+                   wall, launches, peak, name, smi_line, ("stable_topk",))
+    check(launches["int8_cosine"] == 0, "config 4 f32 launched K4")
+    s8 = ShardSearcher(0, reader, data["mapper"], index_name=INT8_INDEX)
+    data["searcher_int8"] = s8
+    res8, per8, wall8, launch8, peak8 = drive(torch, s8, batches)
+    stats8 = report("config 4 (knn, int8)", args, data, batches, per8,
+                    wall8, launch8, peak8, name, smi_line,
+                    ("int8_cosine", "stable_topk"))
+    # the first queries against float64 cosines / dequantized dots
+    nq = CHECK_QUERIES
+    t0 = time.perf_counter()
+    orig_of = gid_to_orig(reader)
+    # every doc has a vector: the total is the corpus
+    everyone = [np.ones(len(data["lens"]), bool)] * nq
+    total = len(data["lens"])
+    cos = cosines64(reader, "vec", data["qv4"][:nq])
+    recall = check_vs_cpu("config 4 f32", args, results[0][:nq], cos,
+                          everyone, orig_of, k=KNN_K, rtol=0, tie_tol=1e-5)
+    pack = segment_exec.vector_pack_for(
+        reader, "vec", segment_exec.knn_plane_config(INT8_INDEX))
+    deq = dequant_dots64(pack, reader, data["qv4"][:nq])
+    recall8 = check_vs_cpu("config 4 int8", args, res8[0][:nq], deq,
+                           everyone, orig_of, k=KNN_K, rtol=0, tie_tol=1e-5)
+    worst = 0.0
+    for qi, res in enumerate(res8[0][:nq]):
+        qn = data["qv4"][qi] / np.linalg.norm(data["qv4"][qi])
+        envelope = pack.score_bound(qn) + 1e-5
+        dev = np.abs(res.scores - cos[qi][orig_of[res.doc_ids]]).max()
+        worst = max(worst, float(dev) / envelope)
+        check(dev <= envelope, f"config 4 int8 query {qi}: a hit is "
+              f"{dev} from its cosine, above the bound {envelope}")
+    # bench.py's int8-vs-f32 recall@10, as information
+    n32 = min(32, len(results[0]) * len(results))
+    f_top = [r.doc_ids[:10] for b in results for r in b][:n32]
+    i_top = [r.doc_ids[:10] for b in res8 for r in b][:n32]
+    overlap = sum(len(set(f.tolist()) & set(i.tolist()))
+                  for f, i in zip(f_top, i_top)) / sum(len(f) for f in f_top)
+    log(f"config 4: first {nq} queries vs float64 ({time.perf_counter() - t0:.1f}"
+        f" s): totals {total}, scores within 1e-5, tie-tolerant "
+        f"recall@{KNN_K} f32 {recall}, int8 {recall8} (against the "
+        f"dequantized rows); int8 hits within the quantization bound of "
+        f"their cosine (worst at {worst:.3f} of it); int8-vs-f32 recall@10 "
+        f"over {n32} queries: {overlap:.4f}")
+    return stats, stats8
+
+
+def fused_reference(lex, matched, cos, c, k0, mode, w_lex=0.5, tol=1e-5):
+    """numpy fusion of float64 legs for one query: each leg's top ``c`` by
+    (score desc, corpus row asc) over its eligible rows. → (expected score
+    by row, expected order, ambiguous rows, union size, boundary
+    ambiguities)."""
+    legs = []
+    for s, elig in ((lex, matched), (cos, np.ones(len(cos), bool))):
+        rows = np.nonzero(elig)[0]
+        top = rows[np.lexsort((rows, -s[rows]))[:c + 1]]
+        sc = s[top]
+        near = np.zeros(len(top), bool)
+        # a near tie may swap between float64 and the card's f32; an exact
+        # one (the same inputs) is broken by row in both
+        step = np.abs(np.diff(sc))
+        gaps = (step <= tol) & (step > 0)
+        near[:-1] |= gaps
+        near[1:] |= gaps
+        boundary = len(top) > c and bool(near[c - 1])
+        legs.append((top[:c], sc[:c], set(top[near].tolist()), boundary))
+    fused = {}
+    if mode == "rrf":
+        for top, _, _, _ in legs:
+            for r, row in enumerate(top):
+                contrib = np.float32(1.0) / np.float32(k0 + r + 1)
+                fused[int(row)] = np.float32(fused.get(int(row), 0.0)
+                                             + contrib)
+    else:
+        for (top, sc, _, _), w in zip(legs, (w_lex, 1.0 - w_lex)):
+            lo, hi = sc.min(), sc.max()
+            rng_ = hi - lo if hi > lo else 1.0
+            for row, v in zip(top, (sc - lo) / rng_):
+                fused[int(row)] = fused.get(int(row), 0.0) + w * v
+    order = sorted(fused, key=lambda row: (-fused[row], row))
+    ambiguous = legs[0][2] | legs[1][2]
+    return fused, order, ambiguous, len(fused), \
+        int(legs[0][3]) + int(legs[1][3])
+
+
+def check_fused(label, results, lexs, matched, coss, orig_of, mode,
+                k0=60, w_lex=0.5) -> None:
+    """Fused results against the numpy fusion of float64 legs, tie-tolerant
+    at each leg's 100th candidate: a hit whose rank in a leg is not set by
+    a near tie carries exactly (RRF) or within 1e-5 (weighted) the expected
+    score; every expected top-k row above the k-th score that no near tie
+    touches is a hit; the total is the legs' union up to the boundary
+    ambiguities."""
+    atol = 0.0 if mode == "rrf" else 1e-5
+    for qi, res in enumerate(results):
+        fused, order, amb, union, slack = fused_reference(
+            lexs[qi], matched[qi], coss[qi], KNN_K, k0, mode, w_lex)
+        check(abs(res.total - union) <= slack, f"{label} query {qi}: total "
+              f"{res.total}, the legs' union {union} (slack {slack})")
+        rows = orig_of[np.asarray(res.doc_ids, np.int64)]
+        check(abs(len(rows) - min(KNN_K, union)) <= slack,
+              f"{label} query {qi}: {len(rows)} hits")
+        for row, score in zip(rows.tolist(), res.scores.tolist()):
+            if row in amb:
+                continue
+            check(row in fused and abs(score - fused[row]) <= atol,
+                  f"{label} query {qi}: row {row} scores {score}, expected "
+                  f"{fused.get(row)}")
+        kth = fused[order[min(KNN_K, len(order)) - 1]]
+        got = set(rows.tolist())
+        for row in order[:KNN_K]:
+            if row not in amb and fused[row] > kth + atol:
+                check(row in got, f"{label} query {qi}: expected row {row} "
+                      f"(score {fused[row]}) is not a hit")
+
+
+def phase_hybrid(torch, args, data, name, smi_line) -> dict:
+    """The rag_hybrid request shape (bench.py:735-740): the 4-term match and
+    the knn section, fused by RRF, then one untimed batch under the
+    weighted sum."""
+    from elasticsearch_tpu_torch.search.phase import ShardSearcher
+    bodies = knn_bodies(data["qvh"], data["texts"])
+    batches = batches_of(args, bodies)
+    results, per_batch, wall, launches, peak = drive(
+        torch, data["searcher"], batches)
+    stats = report("hybrid (match + knn, RRF)", args, data, batches,
+                   per_batch, wall, launches, peak, name, smi_line,
+                   ("bm25_scan", "stable_topk"))
+    sw = ShardSearcher(0, data["reader"], data["mapper"],
+                       index_name=WEIGHTED_INDEX)
+    res_w = sw.query_phase_batch(batches[0])
+    check(res_w is not None, "the weighted hybrid batch fell back")
+    nq = CHECK_QUERIES
+    t0 = time.perf_counter()
+    lex = cpu_scores(data["uterms"], data["utf"], data["lens"], data["df"],
+                     data["qtids"][:nq])
+    cos = cosines64(data["reader"], "vec", data["qvh"][:nq])
+    orig_of = gid_to_orig(data["reader"])
+    matched = [s > 0 for s in lex]
+    check_fused("hybrid RRF", results[0][:nq], lex, matched, cos, orig_of,
+                "rrf")
+    check_fused("hybrid weighted", res_w[:nq], lex, matched, cos, orig_of,
+                "weighted")
+    log(f"hybrid: first {nq} queries vs a numpy fusion of float64 legs "
+        f"({time.perf_counter() - t0:.1f} s): RRF scores exact and the "
+        f"weighted sum within 1e-5 outside near ties at a leg's "
+        f"{KNN_K}th candidate, totals and tie-tolerant recall@{KNN_K} "
+        f"hold")
+    return stats
+
+
+def phase_maxsim_data(args) -> dict:
+    """A rank_vectors index: 2 x 2^17 docs (``--maxsim-docs``) with 8-32
+    tokens of 128-d standard normal components (normalized per token by the
+    lane), and 32-token queries, from a child generator."""
+    from elasticsearch_tpu_torch.index.device_reader import device_reader_for
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.index.segment import (
+        MultiVectorFieldColumn, Segment)
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.search.phase import ShardSearcher
+    import tempfile
+    rng = np.random.default_rng([args.seed, 7])
+    t0 = time.perf_counter()
+    ms = MapperService()
+    ms.merge("_doc", {"properties": {
+        "body": {"type": "text", "analyzer": "whitespace"},
+        "tok": {"type": "rank_vectors", "dims": MAXSIM_DIMS,
+                "max_tokens": MAXSIM_TOKENS}}})
+    eng = Engine(Path(tempfile.mkdtemp(prefix="chip_smoke_maxsim_")), ms)
+    rows = args.maxsim_docs // 2
+    for si in range(2):
+        toks = np.zeros((rows, MAXSIM_TOKENS, MAXSIM_DIMS), np.float32)
+        rng.standard_normal(dtype=np.float32, out=toks)
+        lens = rng.integers(8, MAXSIM_TOKENS + 1, size=rows).astype(np.int32)
+        toks[np.arange(MAXSIM_TOKENS)[None, :] >= lens[:, None]] = 0.0
+        seg = Segment.from_packed_text(
+            0, "body", terms=["x"], tokens=None,
+            uterms=np.zeros((rows, 1), np.int32),
+            utf=np.ones((rows, 1), np.float32),
+            doc_len=np.ones(rows, np.int32),
+            df=np.asarray([rows], np.int64), num_docs=rows,
+            ids=[str(si * rows + i) for i in range(rows)])
+        seg.mvector_fields["tok"] = MultiVectorFieldColumn(
+            vecs=toks, lens=lens, exists=np.ones(rows, bool),
+            dims=MAXSIM_DIMS)
+        eng.install_segment(seg, track_versions=False)
+    n_q = args.maxsim_batches * args.batch
+    queries = rng.standard_normal((n_q, MAXSIM_TOKENS, MAXSIM_DIMS)).astype(
+        np.float32)
+    reader = device_reader_for(eng)
+    log(f"MaxSim data: {2 * rows} docs in 2 segments, T={MAXSIM_TOKENS}, "
+        f"D={MAXSIM_DIMS}, {n_q} queries of {MAXSIM_TOKENS} tokens, built "
+        f"in {time.perf_counter() - t0:.1f} s; {reader_bytes(reader)}; host "
+        f"memory: {host_memory()}")
+    return {"engine": eng, "reader": reader, "mapper": ms,
+            "queries": queries,
+            "searcher": ShardSearcher(0, reader, ms),
+            "searcher_int8": ShardSearcher(0, reader, ms,
+                                           index_name=INT8_INDEX)}
+
+
+def maxsim_bodies(queries) -> list[dict]:
+    return [{"knn": {"field": "tok", "query_vector": q.tolist(),
+                     "k": KNN_K, "num_candidates": KNN_K}, "size": KNN_K}
+            for q in queries]
+
+
+def phase_maxsim_kernel(torch, args, mdata) -> list[dict]:
+    """K5 (f32 and int8 tokens) against its plain version at the shape the
+    MaxSim path gives it and at odd shapes."""
+    from elasticsearch_tpu_torch.index.segment import quantize_vectors
+    from elasticsearch_tpu_torch.ops import maxsim
+    reader = mdata["reader"]
+    seg = reader.segments[0]
+    lens = seg.mvector["tok"].lens
+    dev = lens.device
+    q = mdata["queries"][:args.batch]
+    qn = q / np.maximum(np.linalg.norm(q, axis=2, keepdims=True), 1e-12)
+    qs = torch.from_numpy(qn).to(dev)
+    qm = torch.ones(qs.shape[:2], dtype=torch.bool, device=dev)
+    qsums = qs.sum(dim=2)
+    out = []
+    for quant, replaces in (("f32", K5_REPLACES), ("int8", K5_INT8_REPLACES)):
+        col = reader.fetch_vectors(seg, "tok", quant)
+        tk = col.qvecs if quant == "int8" else col.vecs
+        sc, off = col.scale, col.offset
+        if quant == "int8":
+            run = lambda: maxsim.maxsim_scores_int8_batch_body(  # noqa: E731
+                tk, sc, off, lens, qs, qm)
+            plain = lambda: maxsim.maxsim_scores_int8_batch_body_plain(  # noqa: E731
+                tk, sc, off, lens, qs, qm, qsums)
+        else:
+            run = lambda: maxsim.maxsim_scores_batch_body(  # noqa: E731
+                tk, lens, qs, qm)
+            plain = lambda: maxsim.maxsim_scores_batch_body_plain(  # noqa: E731
+                tk, lens, qs, qm)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(err <= 1e-5, f"K5 {quant} differs from its plain version by "
+              f"{err}")
+        ms_ = timed(torch, f"K5 {quant}", run, reps=3)
+        plain_ms = timed(torch, f"K5 {quant} plain", plain, reps=1)
+        n, t, d = tk.shape
+        b, qt = qm.shape
+        flops = 2 * b * qt * n * t * d
+        k5_bytes = nbytes(tk) + nbytes(lens) + nbytes(qs) + nbytes(qm) + \
+            nbytes(got) + (nbytes(qsums) if quant == "int8" else 0)
+        k5_b, k5_by = bound(k5_bytes, flops)
+        log(f"K5 maxsim {quant} [B={b}, Qt={qt}, N={n}, T={t}, D={d}]: max "
+            f"|K5 - plain| = {err} (<= 1e-5); kernel_ms={ms_:.4f} "
+            f"plain_ms={plain_ms:.4f} bound_ms={k5_b:.4f} ({k5_by}: {flops} "
+            f"flop, {k5_bytes} B) library_ms=null (no single torch call "
+            f"computes a masked max-then-sum of dots)")
+        out.append({"name": "maxsim" if quant == "f32" else "maxsim_int8",
+                    "route": "cuda", "source": K5_SOURCE,
+                    "replaces": replaces, "launches": 0,
+                    "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
+                    "bound_ms": k5_b, "bound_by": k5_by, "library_ms": None,
+                    "shape": {"B": b, "Qt": qt, "N": n, "T": t, "D": d}})
+    # odd shapes: B = 3, N = 10,007, T = 5, D = 100, Qt = 3 with a qmask
+    # hole, some docs without tokens
+    rng = np.random.default_rng([args.seed, 9])
+    n_o, t_o, d_o, qt_o = 10_007, 5, 100, 3
+    toks = unit_rows(rng, (n_o, t_o, d_o))
+    o_lens = rng.integers(0, t_o + 1, size=n_o).astype(np.int32)
+    o_lens[:5] = 0
+    toks[np.arange(t_o)[None, :] >= o_lens[:, None]] = 0.0
+    o_qs = torch.from_numpy(unit_rows(rng, (3, qt_o, d_o))).to(dev)
+    o_qm = torch.ones((3, qt_o), dtype=torch.bool, device=dev)
+    o_qm[0, 1] = False
+    o_qm[2, 0] = False
+    lens_t = torch.from_numpy(o_lens).to(dev)
+    f_t = torch.from_numpy(toks).to(dev)
+    qcol = quantize_vectors(toks, d_o)
+    i_t = torch.from_numpy(qcol.qvecs).to(dev)
+    pairs = (
+        (maxsim.maxsim_scores_batch_body(f_t, lens_t, o_qs, o_qm),
+         maxsim.maxsim_scores_batch_body_plain(f_t, lens_t, o_qs, o_qm)),
+        (maxsim.maxsim_scores_int8_batch_body(i_t, qcol.scale, qcol.offset,
+                                              lens_t, o_qs, o_qm),
+         maxsim.maxsim_scores_int8_batch_body_plain(
+             i_t, qcol.scale, qcol.offset, lens_t, o_qs, o_qm,
+             o_qs.sum(dim=2))))
+    torch.cuda.synchronize()
+    for (g, w), quant in zip(pairs, ("f32", "int8")):
+        e = float((g - w).abs().max())
+        check(e <= 1e-5 and bool((g[:, :5] == 0).all()),
+              f"K5 {quant} differs from its plain version at the odd shape "
+              f"({e})")
+        log(f"K5 maxsim {quant} [B=3, Qt=3 with qmask holes, N={n_o}, "
+            f"T={t_o}, D={d_o}, docs without tokens]: max |K5 - plain| = "
+            f"{e} (<= 1e-5)")
+    return out
+
+
+def maxsim64(reader, pack, queries, int8: bool, chunk=8192) -> np.ndarray:
+    """float64 MaxSim of each query against every corpus row: per-token
+    normalized float64 tokens (int8: the dequantized tokens ``q·scale +
+    offset``), the max over each doc's real tokens, summed over the query's
+    tokens. → [Q, N] by corpus row."""
+    q = queries.astype(np.float64)
+    q /= np.maximum(np.linalg.norm(q, axis=2, keepdims=True), 1e-12)
+    qt = q.shape[1]
+    flat_q = q.reshape(-1, q.shape[2])
+    n = sum(rows for _, rows in segment_rows(reader))
+    out = np.empty((len(q), n))
+    for dseg, s, (first, rows) in zip(reader.segments, pack.segs,
+                                      segment_rows(reader)):
+        col = dseg.seg.mvector_fields["tok"]
+        t = col.vecs.shape[1]
+        for lo in range(0, rows, chunk):
+            hi = min(lo + chunk, rows)
+            if int8:
+                v = s["vecs"][lo:hi].cpu().numpy().astype(np.float64) \
+                    * s["scale"] + s["offset"]
+            else:
+                v = col.vecs[lo:hi].astype(np.float64)
+                v /= np.maximum(np.linalg.norm(v, axis=2, keepdims=True),
+                                1e-12)
+            sim = (v.reshape(-1, v.shape[2]) @ flat_q.T).reshape(
+                hi - lo, t, len(q), qt)
+            pad = np.arange(t)[None, :] >= col.lens[lo:hi, None]
+            sim[pad] = -np.inf
+            out[:, first + lo:first + hi] = sim.max(axis=1).sum(axis=2).T
+    return out
+
+
+def phase_maxsim(torch, args, mdata, name, smi_line) -> tuple[dict, dict]:
+    """rank_vectors MaxSim batches through query_phase_batch, f32 tokens then
+    int8, the first queries against float64 MaxSim."""
+    from elasticsearch_tpu_torch.search import segment_exec
+    for index in (None, INT8_INDEX):      # set-up, untimed, as for config 4
+        t0 = time.perf_counter()
+        cfg = segment_exec.knn_plane_config(index)
+        segment_exec.vector_pack_for(mdata["reader"], "tok", cfg)
+        torch.cuda.synchronize()
+        log(f"MaxSim: the {cfg.quantization} token column's set-up and "
+            f"upload took {time.perf_counter() - t0:.2f} s")
+    batches = batches_of(args, maxsim_bodies(mdata["queries"]))
+    out = []
+    for label, searcher, int8 in (
+            ("MaxSim (rank_vectors, f32)", mdata["searcher"], False),
+            ("MaxSim (rank_vectors, int8)", mdata["searcher_int8"], True)):
+        results, per_batch, wall, launches, peak = drive(torch, searcher,
+                                                         batches)
+        k5, other = ("maxsim_int8", "maxsim") if int8 \
+            else ("maxsim", "maxsim_int8")
+        stats = report(label, args, mdata, batches, per_batch, wall,
+                       launches, peak, name, smi_line, (k5, "stable_topk"))
+        check(launches[other] == 0,
+              f"{label}: K5's {other} instantiation ran {launches[other]} "
+              f"times on the {k5} path")
+        nq = MAXSIM_CHECK_QUERIES
+        t0 = time.perf_counter()
+        pack = segment_exec.vector_pack_for(
+            mdata["reader"], "tok",
+            segment_exec.knn_plane_config(INT8_INDEX if int8 else None))
+        s64 = maxsim64(mdata["reader"], pack, mdata["queries"][:nq], int8)
+        recall = check_vs_cpu(
+            label, args, results[0][:nq], s64,
+            [np.ones(s64.shape[1], bool)] * nq, gid_to_orig(mdata["reader"]),
+            k=KNN_K, rtol=0, atol=1e-4)
+        log(f"{label}: first {nq} queries vs float64 MaxSim "
+            f"({time.perf_counter() - t0:.1f} s): totals exact, scores "
+            f"within 1e-4, tie-tolerant recall@{KNN_K} = {recall}")
+        out.append(stats)
+    return out[0], out[1]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1 << 21,
@@ -1082,6 +1707,10 @@ def main(argv=None) -> int:
                     help="batches of config 1")
     ap.add_argument("--cfg-batches", type=int, default=4,
                     help="batches of configs 2 and 3 each")
+    ap.add_argument("--maxsim-docs", type=int, default=1 << 18,
+                    help="docs of the rank_vectors index, in two segments")
+    ap.add_argument("--maxsim-batches", type=int, default=2,
+                    help="batches of rank_vectors MaxSim, f32 and int8 each")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--k", type=int, default=1000)
     ap.add_argument("--terms", type=int, default=4)
@@ -1104,10 +1733,6 @@ def main(argv=None) -> int:
         stats2 = phase_config2(torch, args, data, name, smi_line)
         stats3 = phase_config3(torch, args, data, name, smi_line)
         k3["launches"] = stats2["launches"]["phrase_scan"]
-        for kern in kernels:
-            kern["launches_by_config"] = {
-                "2": stats2["launches"][kern["name"]],
-                "3": stats3["launches"][kern["name"]]}
         phase_profile(torch, args, data, "config 1", [
             {"query": {"match": {"body": t}}, "size": args.k}
             for t in data["texts"][:args.batch]])
@@ -1116,6 +1741,34 @@ def main(argv=None) -> int:
         phase_profile(torch, args, data, "config 3",
                       config3_bodies(args, data))
         phase_elementwise(torch, args, data)
+        # the knn lane
+        k4 = phase_int8_kernel(torch, args, data)
+        kernels.append(k4)
+        stats4, stats4i = phase_config4(torch, args, data, name, smi_line)
+        k4["launches"] = stats4i["launches"]["int8_cosine"]
+        stats_h = phase_hybrid(torch, args, data, name, smi_line)
+        mdata = phase_maxsim_data(args)
+        k5s = phase_maxsim_kernel(torch, args, mdata)
+        kernels.extend(k5s)
+        stats_m, stats_mi = phase_maxsim(torch, args, mdata, name, smi_line)
+        k5s[0]["launches"] = stats_m["launches"]["maxsim"]
+        k5s[1]["launches"] = stats_mi["launches"]["maxsim_int8"]
+        by_config = {"2": stats2, "3": stats3, "4": stats4, "4-int8": stats4i,
+                     "hybrid": stats_h, "maxsim": stats_m,
+                     "maxsim-int8": stats_mi}
+        for kern in kernels:
+            kern["launches_by_config"] = {
+                cfg: st["launches"][kern["name"]]
+                for cfg, st in by_config.items()}
+        phase_profile(torch, args, data, "config 4 f32",
+                      knn_bodies(data["qv4"][:args.batch]))
+        phase_profile(torch, args, data, "config 4 int8",
+                      knn_bodies(data["qv4"][:args.batch]),
+                      searcher=data["searcher_int8"])
+        phase_profile(torch, args, data, "hybrid",
+                      knn_bodies(data["qvh"][:args.batch], data["texts"]))
+        phase_profile(torch, args, mdata, "MaxSim f32",
+                      maxsim_bodies(mdata["queries"][:args.batch]))
     except Exception as e:                  # noqa: BLE001 — report, then fail
         traceback.print_exc()
         print(f"[chip_smoke] FAILED: {type(e).__name__}: {e}",

@@ -2,8 +2,9 @@
 
 A segment of either package is plain host data: sorted term dictionary,
 forward impact columns, position matrix, doc-frequency table, keyword
-ordinals with their sorted vocabulary, numeric doc values, ids, sources,
-and the reader's live mask beside it. :func:`segment_from_arrays` rebuilds
+ordinals with their sorted vocabulary, numeric doc values, dense and
+multi-vector (rank_vectors) columns, ids, sources, and the reader's live
+mask beside it. :func:`segment_from_arrays` rebuilds
 the port's :class:`Segment` from those arrays — numpy and lists only, nothing of the
 JAX package — so both packages can score the very same index.
 """
@@ -13,7 +14,8 @@ from __future__ import annotations
 import numpy as np
 
 from elasticsearch_tpu_torch.index.segment import (
-    KeywordFieldColumn, NumericFieldColumn, Segment)
+    KeywordFieldColumn, MultiVectorFieldColumn, NumericFieldColumn, Segment,
+    VectorFieldColumn)
 
 
 def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
@@ -24,6 +26,8 @@ def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
                         tokens: np.ndarray | None = None,
                         keyword: dict | None = None,
                         numeric: dict | None = None,
+                        vectors: dict | None = None,
+                        mvectors: dict | None = None,
                         seg_id: int = 0) -> tuple[Segment, np.ndarray]:
     """→ (single-text-field Segment, its [padded] bool live mask).
 
@@ -32,8 +36,11 @@ def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
     beyond ``num_docs`` are padding; ``ids`` and ``sources`` cover at least
     the real rows; ``tokens`` (position matrix) may be None, which indexes
     without positions. ``keyword`` maps a field to ``(sorted vocab, [padded,
-    K] int32 ords)`` and ``numeric`` a field to ``([padded] float64 values,
-    [padded] bool exists)``."""
+    K] int32 ords)``, ``numeric`` a field to ``([padded] float64 values,
+    [padded] bool exists)``, ``vectors`` a dense_vector field to ``([padded,
+    D] float32 vectors, [padded] bool exists)`` and ``mvectors`` a
+    rank_vectors field to ``([padded, T, D] float32 token matrices, [padded]
+    int32 token counts, [padded] bool exists)``."""
     padded = int(uterms.shape[0])
     live = np.asarray(live, dtype=bool)
     if live.shape != (padded,) or not \
@@ -53,6 +60,19 @@ def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
         seg.numeric_fields[name] = NumericFieldColumn(
             values=_rows(values, np.float64, padded, name),
             exists=_rows(exists, bool, padded, name))
+    for name, (vecs, exists) in (vectors or {}).items():
+        vecs = _rows(vecs, np.float32, padded, name)
+        exists = _rows(exists, bool, padded, name)
+        # a column no doc fills has dims 0, as indexing makes it
+        seg.vector_fields[name] = VectorFieldColumn(
+            vecs=vecs, exists=exists,
+            dims=int(vecs.shape[1]) if exists.any() else 0)
+    for name, (vecs, lens, exists) in (mvectors or {}).items():
+        vecs = _rows(vecs, np.float32, padded, name)
+        exists = _rows(exists, bool, padded, name)
+        seg.mvector_fields[name] = MultiVectorFieldColumn(
+            vecs=vecs, lens=_rows(lens, np.int32, padded, name),
+            exists=exists, dims=int(vecs.shape[2]) if exists.any() else 0)
     return seg, live.copy()
 
 

@@ -13,9 +13,16 @@ the reader's device when the reader is made. A text field's position matrix
 time a plan names the field in ``positions_needed``
 (:meth:`DeviceReader.fetch_tokens`), and stays cached on the reader, as the
 JAX package does (``jit_exec._fetch``): a BM25 ``match`` never reads it, so
-a reader that serves only those never holds it. Vector, geo, shape and
-nested columns stay host-side on the segment (``DeviceSegment.seg``): no
-query this port serves reads them yet.
+a reader that serves only those never holds it. A vector field's matrix
+(``dense_vector`` [N, D], ``rank_vectors`` [N, T, D]) is lazy the same way:
+the knn lane and the ``knn`` query leaf put it on the device at first use,
+one copy per (segment, field, quantization) (:meth:`DeviceReader.
+fetch_vectors`), L2-normalized (f32) or also int8-quantized on the host on
+the way, with no host copy kept; its [N] ``exists`` mask (and a
+rank_vectors field's token counts) go with the reader, as in the JAX
+package. Geo, shape and nested
+columns stay host-side on the segment (``DeviceSegment.seg``): no query this
+port serves reads them yet.
 
 Also aggregates per-field corpus statistics across segments host-side
 (doc counts, Σ field length, per-term df on demand) — what Lucene exposes as
@@ -25,7 +32,7 @@ CollectionStatistics/TermStatistics for query-time IDF.
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -33,7 +40,7 @@ import torch
 
 from elasticsearch_tpu_torch.common.device import resolve_device
 from elasticsearch_tpu_torch.index.engine import SearcherView
-from elasticsearch_tpu_torch.index.segment import Segment
+from elasticsearch_tpu_torch.index.segment import Segment, quantize_vectors
 from elasticsearch_tpu_torch.ops.phrase import token_extent
 
 
@@ -83,6 +90,36 @@ def dd_split(v: np.ndarray | float) -> tuple[np.ndarray, np.ndarray]:
     return hi, lo
 
 
+def _normalized(vecs: np.ndarray) -> np.ndarray:
+    """Each row (rank_vectors: each token) over its L2 norm, in numpy f32 —
+    the JAX package's ``jit_exec._host_knn_column`` arithmetic."""
+    norms = np.linalg.norm(vecs, axis=-1, keepdims=True)
+    return np.ascontiguousarray(
+        (vecs / np.maximum(norms, 1e-12)).astype(np.float32))
+
+
+@dataclass
+class DeviceVectorField:
+    """A dense_vector column: ``exists`` with the reader; the L2-normalized
+    f32 rows (``vecs``, cosine = dot) and their int8 quantization
+    (``qvecs``, ``v ≈ q·scale + offset``) each put on the device at first
+    use (:meth:`DeviceReader.fetch_vectors`)."""
+    exists: torch.Tensor                   # [Np] bool
+    column: Any                            # host VectorFieldColumn
+    vecs: torch.Tensor | None = None       # [Np, D] f32
+    qvecs: torch.Tensor | None = None      # [Np, D] int8
+    scale: float = 1.0                     # qvecs' snapshot, set with it
+    offset: float = 0.0
+
+
+@dataclass
+class DeviceMultiVectorField(DeviceVectorField):
+    """A rank_vectors column: as a dense_vector one, with per-token
+    normalized [Np, T, D] token matrices, and ``lens`` (each doc's real
+    token rows) with the reader."""
+    lens: torch.Tensor | None = None       # [Np] i32 real token rows
+
+
 @dataclass
 class DeviceSegment:
     seg: Segment
@@ -91,6 +128,8 @@ class DeviceSegment:
     text: dict[str, DeviceTextField]
     keyword: dict[str, DeviceKeywordField]
     numeric: dict[str, DeviceNumericField]
+    vector: dict[str, DeviceVectorField] = field(default_factory=dict)
+    mvector: dict[str, DeviceMultiVectorField] = field(default_factory=dict)
 
     @property
     def padded_docs(self) -> int:
@@ -124,7 +163,7 @@ class DeviceReader:
         self.generation = view.generation
         self.segments: list[DeviceSegment] = []
         self._text_stats: dict[str, TextFieldStats] = {}
-        self._tokens_lock = threading.Lock()
+        self._lazy_lock = threading.Lock()
         doc_base = 0
         for seg, live in zip(view.segments, view.live_masks):
             self.segments.append(self._pack_segment(seg, live, doc_base))
@@ -154,8 +193,14 @@ class DeviceReader:
             hi, lo = dd_split(c.values)
             numeric[name] = DeviceNumericField(
                 hi=put(hi), lo=put(lo), exists=put(c.exists), column=c)
+        vector = {name: DeviceVectorField(exists=put(c.exists), column=c)
+                  for name, c in seg.vector_fields.items()}
+        mvector = {name: DeviceMultiVectorField(
+            lens=put(c.lens), exists=put(c.exists), column=c)
+            for name, c in seg.mvector_fields.items()}
         return DeviceSegment(seg=seg, live=put(live), doc_base=doc_base,
-                             text=text, keyword=keyword, numeric=numeric)
+                             text=text, keyword=keyword, numeric=numeric,
+                             vector=vector, mvector=mvector)
 
     def fetch_tokens(self, seg: DeviceSegment, field: str) -> None:
         """Put ``field``'s position matrix of ``seg`` (and each row's
@@ -164,11 +209,34 @@ class DeviceReader:
         col = seg.text.get(field)
         if col is None or col.tokens is not None:
             return
-        with self._tokens_lock:
+        with self._lazy_lock:
             if col.tokens is None:
                 tokens = self._put(col.column.tokens)
                 col.tok_extent = token_extent(tokens)
                 col.tokens = tokens
+
+    def fetch_vectors(self, seg: DeviceSegment, field: str,
+                      quant: str) -> DeviceVectorField | None:
+        """Put ``field``'s vector matrix of ``seg`` on the device under
+        ``quant`` once per reader: ``"f32"`` fills ``vecs`` with the rows
+        (rank_vectors: the tokens) L2-normalized as ``v / max(|v|, 1e-12)``;
+        ``"int8"`` fills ``qvecs``, ``scale`` and ``offset`` with the int8
+        quantization of those normalized rows over the whole padded array,
+        padding rows included, as the JAX package quantizes it. The host
+        arrays made on the way are dropped. → the column, or None when the
+        segment lacks the field."""
+        col = seg.vector.get(field) or seg.mvector.get(field)
+        if col is None:
+            return None
+        with self._lazy_lock:
+            if quant == "int8" and col.qvecs is None:
+                qcol = quantize_vectors(_normalized(col.column.vecs),
+                                        col.column.dims)
+                col.scale, col.offset = qcol.scale, qcol.offset
+                col.qvecs = self._put(qcol.qvecs)
+            elif quant != "int8" and col.vecs is None:
+                col.vecs = self._put(_normalized(col.column.vecs))
+        return col
 
     def device_bytes(self) -> int:
         """Bytes of the tensors this reader placed on its device."""
@@ -182,6 +250,12 @@ class DeviceReader:
             tensors += [c.ords for c in s.keyword.values()]
             for c in s.numeric.values():
                 tensors += [c.hi, c.lo, c.exists]
+            for c in s.vector.values():
+                tensors += [t for t in (c.exists, c.vecs, c.qvecs)
+                            if t is not None]
+            for c in s.mvector.values():
+                tensors += [t for t in (c.lens, c.exists, c.vecs, c.qvecs)
+                            if t is not None]
             total += sum(t.numel() * t.element_size() for t in tensors)
         return total
 

@@ -16,8 +16,10 @@ Lucene's Query.createWeight/scorer split as driven by QueryPhase.execute
 
 The port serves ``match`` with BM25 scoring (the ``msm1`` shortcut
 included), ``match_all``, ``match_none``, exact ``match_phrase`` (kernel K3),
-``bool``, ``constant_score``, ``term``, ``terms``, ``range`` and ``exists``
-on keyword, numeric and text fields, and ``function_score`` with weight,
+``bool``, ``constant_score``, ``term``, ``terms``, ``range``, ``exists`` on
+keyword, numeric, text and dense_vector fields, the ``knn`` leaf (cosine
+over a dense_vector field, the alias of the top-level ``knn`` section that
+``segment_exec``'s knn lane serves) and ``function_score`` with weight,
 random_score, field_value_factor and numeric/date decay functions. Every
 other query type is refused with ``QueryParsingError("no executor for query
 type [...]")``, as the reference refuses an unknown type, and a feature of a
@@ -45,6 +47,7 @@ from elasticsearch_tpu_torch.ops import filters as filter_ops
 from elasticsearch_tpu_torch.ops import functionscore as fs_ops
 from elasticsearch_tpu_torch.ops import lexical
 from elasticsearch_tpu_torch.ops import phrase as phrase_ops
+from elasticsearch_tpu_torch.ops import vector as vector_ops
 from elasticsearch_tpu_torch.ops.similarity import BM25Params, idf as bm25_idf
 from elasticsearch_tpu_torch.search import query_dsl as q
 
@@ -60,7 +63,7 @@ class ConstTable:
     signature run as one batch.
     """
 
-    __slots__ = ("values", "sig", "positions_needed")
+    __slots__ = ("values", "sig", "positions_needed", "vectors_needed")
 
     def __init__(self):
         self.values: list[np.ndarray] = []
@@ -69,6 +72,9 @@ class ConstTable:
         # (phrase scoring); segment_exec puts those on the device before the
         # plan runs, and no other plan makes the reader upload them
         self.positions_needed: set = set()
+        # dense_vector fields whose normalized [N, D] matrix the plan reads
+        # (the knn leaf); put on the device the same way
+        self.vectors_needed: set = set()
 
     def add(self, v, dtype=None) -> int:
         arr = np.asarray(v, dtype=dtype)
@@ -140,6 +146,9 @@ class ExecutionContext:
     # "doc_count": {field: int}, "avgdl": {field: float}}. When set, idf
     # and avgdl come from here instead of the shard-local reader.
     dfs_stats: dict | None = None
+    # the shard's index name: the knn lane reads its index.knn.* settings
+    # by it (segment_exec.knn_plane_config)
+    index_name: str | None = None
 
 
 class SegmentResolver:
@@ -540,10 +549,9 @@ class SegmentResolver:
 
     def _res_ExistsQuery(self, query: q.ExistsQuery) -> Emit:
         f = query.field
-        if f in self.seg.seg.vector_fields or f in self.seg.seg.geo_fields:
+        if f in self.seg.seg.geo_fields:
             raise NotPortedError(
-                f"[exists] on the vector or geo field [{f}] is not ported "
-                f"yet")
+                f"[exists] on the geo field [{f}] is not ported yet")
         r_boost = self.c(query.boost, np.float32)
         if f in self.seg.numeric:
             self.sig("exists", "num", f)
@@ -557,11 +565,35 @@ class SegmentResolver:
             self.sig("exists", "text", f)
             mask_emit = lambda em: filter_ops.text_field_exists(  # noqa: E731
                 em.seg.text[f].doc_len)
+        elif f in self.seg.vector:
+            self.sig("exists", "vec", f)   # reads only the [N] exists mask
+            mask_emit = lambda em: filter_ops.field_exists(  # noqa: E731
+                em.seg.vector[f].exists)
         else:
             self.sig("exists", "none", f)
             mask_emit = _no_docs
         return lambda em: bool_ops.constant_score(mask_emit(em),
                                                   em.get(r_boost))
+
+    def _res_KnnQuery(self, query: q.KnnQuery) -> Emit:
+        """The query-DSL ``knn`` leaf: ``(cosine + 1) · boost`` on every doc
+        with a vector, 0 and no match elsewhere. It reads the field's
+        normalized f32 matrix, the copy the knn lane reads too."""
+        field = query.field
+        if self.seg.vector.get(field) is None:
+            return self._zeros()
+        self.ct.vectors_needed.add(field)
+        r_qv = self.c(query.query_vector, np.float32)
+        r_boost = self.c(query.boost, np.float32)
+
+        def emit(em):
+            col = em.seg.vector[field]
+            scores = vector_ops.cosine_scores_batch(col.vecs, col.exists,
+                                                    em.get(r_qv))
+            return ((scores + 1.0) * em.get(r_boost)[:, None]
+                    * col.exists.to(torch.float32)[None, :],
+                    col.exists.expand(em.batch, em.n))
+        return emit
 
     # ------------------------------------------------------------- compound
 

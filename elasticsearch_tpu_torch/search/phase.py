@@ -15,9 +15,12 @@ filters the source.
 This slice serves score-ordered requests (``sort`` absent or ``_score``
 desc), batched through :meth:`ShardSearcher.query_phase_batch` and one at a
 time through :meth:`ShardSearcher.query_phase` (which also takes
-``post_filter``, ``min_score`` and ``search_after``). Aggregations, field
-sort, rescore, knn, suggest, terminate_after, timeout, highlight and script
-fields are refused with :class:`NotPortedError`.
+``post_filter``, ``min_score`` and ``search_after``), and the top-level
+``knn`` section (dense cosine in f32 or int8, rank_vectors MaxSim, alone or
+fused with a ``query`` by RRF or a weighted sum) through the knn lane of
+``segment_exec``. Aggregations, field sort, rescore, suggest,
+terminate_after, timeout, highlight and script fields are refused with
+:class:`NotPortedError`.
 """
 
 from __future__ import annotations
@@ -28,7 +31,8 @@ from typing import Any
 
 import numpy as np
 
-from elasticsearch_tpu_torch.common.errors import NotPortedError
+from elasticsearch_tpu_torch.common.errors import (
+    NotPortedError, QueryParsingError)
 from elasticsearch_tpu_torch.index.device_reader import DeviceReader
 from elasticsearch_tpu_torch.ops import topk as topk_ops
 from elasticsearch_tpu_torch.search import query_dsl as q, segment_exec
@@ -55,6 +59,9 @@ class ParsedSearchRequest:
     version: bool = False                          # render _version per hit
     terminate_after: int | None = None             # per-shard collected cap
     timeout_ms: float | None = None                # per-shard time budget
+    # top-level "knn" search section (dense / late-interaction lane;
+    # combined with `query` → hybrid fusion)
+    knn: q.KnnSection | None = None
 
 
 def parse_search_request(body: dict | None) -> ParsedSearchRequest:
@@ -71,7 +78,9 @@ def parse_search_request(body: dict | None) -> ParsedSearchRequest:
         else:
             req.sort.append({k: ({"order": v} if isinstance(v, str) else v)
                              for k, v in s.items()})
-    for key in ("aggs", "aggregations", "suggest", "rescore", "knn"):
+    if body.get("knn") is not None:
+        _check_knn_combination(body, req.sort)
+    for key in ("aggs", "aggregations", "suggest", "rescore"):
         if body.get(key):
             raise NotPortedError(f"[{key}] is not ported yet")
     if "post_filter" in body:
@@ -106,7 +115,30 @@ def parse_search_request(body: dict | None) -> ParsedSearchRequest:
     if body.get("timeout") is not None:
         from elasticsearch_tpu_torch.common.settings import parse_time_value
         req.timeout_ms = parse_time_value(body["timeout"], "timeout") * 1000.0
+    if body.get("knn") is not None:
+        req.knn = q.parse_knn_section(body["knn"])
+        req.knn.hybrid = "query" in body
     return req
+
+
+def _check_knn_combination(body: dict, sort: list) -> None:
+    """The knn section composes with from/size, _source/fields and its own
+    ``filter``; request features that would need fused score arrays over
+    the whole corpus are a 400 up front, as in the JAX package."""
+    bad = [label for cond, label in (
+        (bool(sort) and not _is_score_order(sort), "sort"),
+        (bool(body.get("aggs") or body.get("aggregations")), "aggs"),
+        ("post_filter" in body, "post_filter"),
+        (body.get("min_score") is not None, "min_score"),
+        (body.get("search_after") is not None, "search_after"),
+        (bool(body.get("rescore")), "rescore"),
+        (bool(body.get("suggest")), "suggest"),
+        (bool(body.get("terminate_after")), "terminate_after"),
+    ) if cond]
+    if bad:
+        raise QueryParsingError(
+            f"[knn] cannot be combined with {bad} — use the knn section's "
+            f"own [filter] for filtering")
 
 
 def _is_score_order(sort: list) -> bool:
@@ -157,7 +189,8 @@ class ShardSearcher:
     """Per-shard query execution over a DeviceReader."""
 
     def __init__(self, shard_id: int, reader: DeviceReader, mapper_service,
-                 dfs_stats: dict | None = None, version_fn=None):
+                 index_name: str = "", dfs_stats: dict | None = None,
+                 version_fn=None):
         self.shard_id = shard_id
         self.reader = reader
         self.mapper_service = mapper_service
@@ -165,7 +198,8 @@ class ShardSearcher:
         self.version_fn = version_fn
         self.ctx = ExecutionContext(reader=reader,
                                     mapper_service=mapper_service,
-                                    dfs_stats=dfs_stats)
+                                    dfs_stats=dfs_stats,
+                                    index_name=index_name or None)
 
     # -- query phase ---------------------------------------------------------
 
@@ -177,6 +211,8 @@ class ShardSearcher:
         if bad:
             raise NotPortedError(f"the query phase of {bad} is not ported "
                                  f"yet")
+        if req.knn is not None:
+            return self._knn_query_phase(req)
         fast = self.query_phase_batch([req])
         if fast is not None:
             return fast[0]
@@ -214,6 +250,12 @@ class ShardSearcher:
         among several arms here; this port has the exact arm only.)"""
         if not reqs:
             return ("empty", [])
+        # an all-knn batch takes the knn lane; a mixed batch declines (the
+        # caller serves each request alone, on its own lane)
+        if any(r.knn is not None for r in reqs):
+            if not all(r.knn is not None for r in reqs):
+                return None
+            return self._knn_batch_launch(reqs)
         return self._exact_batch_launch(reqs)
 
     def _exact_batch_launch(self, reqs: list):
@@ -236,6 +278,83 @@ class ShardSearcher:
             return None
         return ("device", reqs, k, pack, out)
 
+    # -- dense / late-interaction lane (top-level "knn" section) ------------
+
+    def _validate_knn(self, knn: q.KnnSection) -> None:
+        """Mapping validation: the field must be mapped dense_vector (flat
+        query_vector) or rank_vectors (list of vectors), and the query's
+        dims must match the mapping — a 400 before any device work."""
+        fm = self.mapper_service.field_mapper(knn.field)
+        kind = getattr(fm, "kind", None)
+        if fm is None or kind not in ("vector", "mvector"):
+            raise QueryParsingError(
+                f"[knn] field [{knn.field}] is not mapped as "
+                f"dense_vector or rank_vectors")
+        if knn.multi and kind != "mvector":
+            raise QueryParsingError(
+                f"[knn] field [{knn.field}] is dense_vector but "
+                f"query_vector is a list of vectors — flat [dims] "
+                f"expected")
+        if not knn.multi and kind != "vector":
+            raise QueryParsingError(
+                f"[knn] field [{knn.field}] is rank_vectors — "
+                f"query_vector must be a list of [dims] token vectors")
+        dims = int(getattr(fm, "dims", 0))
+        qdims = len(knn.query_vector[0]) if knn.multi \
+            else len(knn.query_vector)
+        if qdims != dims:
+            raise QueryParsingError(
+                f"[knn] query_vector dims [{qdims}] != mapped dims "
+                f"[{dims}] of field [{knn.field}]")
+
+    @staticmethod
+    def _knn_limit(req: ParsedSearchRequest) -> int:
+        """Hits a knn request may return: the from/size window, capped by
+        the section's k for pure knn (k IS "how many neighbors"); hybrid
+        windows read from the fused list."""
+        lim = max(req.from_ + req.size, 1)
+        return lim if req.knn.hybrid else min(lim, req.knn.k)
+
+    def _knn_batch_launch(self, reqs: list):
+        """The knn lane: B knn / hybrid requests through
+        segment_exec.run_knn_hybrid_batch. → a drain handle, or None when
+        the batch does not share one shape or plan signature (the caller
+        serves each request alone). Mapping violations raise
+        QueryParsingError."""
+        for r in reqs:
+            self._validate_knn(r.knn)
+        if any(_not_ported_features(r) for r in reqs):
+            return None
+        if not self.reader.segments:
+            return ("empty", reqs)
+        knns = [r.knn for r in reqs]
+        if len({(kn.field, kn.hybrid, kn.multi, kn.num_candidates)
+                for kn in knns}) != 1:
+            return None
+        cfg = segment_exec.knn_plane_config(self.ctx.index_name)
+        k = max(self._knn_limit(r) for r in reqs)
+        pack = segment_exec.vector_pack_for(self.reader, knns[0].field, cfg)
+        if pack is None and not knns[0].hybrid:
+            # mapped, but no segment carries a vector: no hit, total 0
+            return ("empty", reqs)
+        if pack is not None and pack.multi != knns[0].multi:
+            return None
+        packed = self.reader.max_doc < (1 << 24)   # as the exact arm
+        out = segment_exec.run_knn_hybrid_batch(
+            self.reader, self.ctx, reqs, pack, cfg, k=k,
+            num_candidates=knns[0].num_candidates, packed=packed)
+        if out is None:                   # mixed plan signatures
+            return None
+        return ("knn", reqs, k, packed, out)
+
+    def _knn_query_phase(self, req: ParsedSearchRequest) -> ShardQueryResult:
+        """One knn / hybrid request: the knn lane with B = 1."""
+        handle = self._knn_batch_launch([req])
+        if handle is None:
+            raise NotPortedError("the eager knn lane is not ported: this "
+                                 "request's shape has no knn-lane program")
+        return self.query_phase_batch_drain(handle)[0]
+
     def query_phase_batch_drain(self, handle) -> list[ShardQueryResult]:
         """Phase 2: wait for the launched batch's results on the host (one
         device→host copy when packed) and build per-request results."""
@@ -253,17 +372,19 @@ class ShardSearcher:
             ms = out["top_scores"].cpu().numpy()
             md = out["top_docs"].cpu().numpy()
             totals = out["count"].cpu().numpy()
-        results = []
-        for bi, req in enumerate(reqs):
-            kq = max(req.from_ + req.size, 1)
-            valid = md[bi] >= 0
-            s_, d_ = ms[bi][valid][:kq], md[bi][valid][:kq]
-            results.append(ShardQueryResult(
-                self.shard_id, int(totals[bi]),
-                float(s_[0]) if s_.size else None,
-                d_.astype(np.int32), s_.astype(np.float32), None, {},
-                self.reader))
-        return results
+        if tag == "knn":
+            return [self._result(bi, ms, md, totals, self._knn_limit(req))
+                    for bi, req in enumerate(reqs)]
+        return [self._result(bi, ms, md, totals, max(req.from_ + req.size, 1))
+                for bi, req in enumerate(reqs)]
+
+    def _result(self, bi: int, ms, md, totals, kq: int) -> ShardQueryResult:
+        """Row ``bi`` of a drained batch, cut to its first ``kq`` hits."""
+        valid = md[bi] >= 0
+        s_, d_ = ms[bi][valid][:kq], md[bi][valid][:kq]
+        return ShardQueryResult(
+            self.shard_id, int(totals[bi]), float(s_[0]) if s_.size else None,
+            d_.astype(np.int32), s_.astype(np.float32), None, {}, self.reader)
 
     def _finish_score_order(self, k: int, total: int, seg_scores: list,
                             seg_docs: list, bases: list) -> ShardQueryResult:

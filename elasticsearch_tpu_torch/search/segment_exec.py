@@ -20,15 +20,31 @@ axis:
    merges the segments' candidates, concatenated in segment order after
    each segment's ``doc_base`` is added (TopDocs.merge's tie order), and the
    result packs into one ``[B, 2k+1]`` tensor for a single device→host copy.
+
+The knn lane (the knn section of ``jit_exec.py``) serves the top-level
+``knn`` section: per segment the vector column is scored for the batch (a
+dense f32 cosine is one ``torch.matmul``; int8 is kernel K4, rank_vectors
+MaxSim kernel K5), masked by exists ∧ live ∧ the section's ``filter``, and
+its top ``num_candidates`` kept (K2); the segments' candidates merge (K2),
+and a request that also carries a ``query`` fuses the two candidate lists
+by RRF or a weighted sum (:func:`run_knn_hybrid_batch`). The vector columns
+go to the device at first use, one copy per (segment, field, quantization)
+(``DeviceReader.fetch_vectors``).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
 from elasticsearch_tpu_torch.index.device_reader import DeviceSegment
+from elasticsearch_tpu_torch.ops import blockmax as blockmax_ops
+from elasticsearch_tpu_torch.ops import maxsim as maxsim_ops
 from elasticsearch_tpu_torch.ops import topk as topk_ops
+from elasticsearch_tpu_torch.ops import vector as vector_ops
 from elasticsearch_tpu_torch.search.execute import (
     ConstTable, EmitCtx, ExecutionContext, SegmentResolver, stack_consts)
 
@@ -51,12 +67,14 @@ def _plan(seg: DeviceSegment, ctx: ExecutionContext, query, post_filter,
     return ct, emit_q, emit_pf, refs
 
 
-def _fetch_positions(seg: DeviceSegment, ctx: ExecutionContext,
-                     ct: ConstTable) -> None:
-    """Put the position matrices the plan reads on the device (a no-op once
-    the reader holds them)."""
+def _fetch_lazy(seg: DeviceSegment, ctx: ExecutionContext,
+                ct: ConstTable) -> None:
+    """Put the position matrices and normalized vector matrices the plan
+    reads on the device (a no-op once the reader holds them)."""
     for field in sorted(ct.positions_needed):
         ctx.reader.fetch_tokens(seg, field)
+    for field in sorted(ct.vectors_needed):
+        ctx.reader.fetch_vectors(seg, field, "f32")
 
 
 def _build(view: DeviceSegment, consts, emit_q, emit_pf, refs, k: int,
@@ -104,7 +122,7 @@ def run_segment(seg: DeviceSegment, ctx: ExecutionContext, query,
         "_doc_base": seg.doc_base,
     }
     ct, emit_q, emit_pf, refs = _plan(seg, ctx, query, post_filter, flags)
-    _fetch_positions(seg, ctx, ct)
+    _fetch_lazy(seg, ctx, ct)
     consts = stack_consts([ct.values], ctx.reader.device) \
         if ct.values else []
     outs = _build(seg, consts, emit_q, emit_pf, refs, int(k), 1)
@@ -133,7 +151,7 @@ def _plan_segment_batch(seg: DeviceSegment, ctx: ExecutionContext,
         # const-free plans (match_none / absent-field zeros): the per-query
         # path serves these (rare) shapes
         return None
-    _fetch_positions(seg, ctx, ct0)
+    _fetch_lazy(seg, ctx, ct0)
     return {"seg": seg, "emit": emit0, "refs": refs0, "k": int(k),
             "consts": stack_consts(consts_rows, ctx.reader.device)}
 
@@ -174,3 +192,362 @@ def run_reader_batch(segments: list, ctx: ExecutionContext, queries: list,
     if pack:
         return topk_ops.pack_batch_result_body(top_s, top_d, counts)
     return {"top_scores": top_s, "top_docs": top_d, "count": counts}
+
+
+# --------------------------------------------------------------------------
+# The knn / hybrid lane: the top-level ``knn`` search section (dense cosine
+# over a dense_vector field, f32 or int8, or MaxSim over a rank_vectors
+# field), optionally fused with a lexical query by RRF or a weighted sum.
+# Counterpart of the knn section of jit_exec.py.
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class KnnPlaneConfig:
+    """Per-index knn-lane knobs (``index.knn.*`` / ``index.search.hybrid.*``
+    settings). The ``knn`` search section itself is the opt-in."""
+    quantization: str = "f32"      # f32 | int8
+    fusion_mode: str = "rrf"       # rrf | weighted
+    rank_constant: int = 60        # RRF k
+    lexical_weight: float = 0.5    # weighted-sum lexical leg weight
+
+
+#: index name → config (indices without an entry use the defaults)
+_knn_configs: dict[str, KnnPlaneConfig] = {}
+
+
+def validate_knn_settings(settings) -> KnnPlaneConfig:
+    """Validate the ``index.knn.*`` / ``index.search.hybrid.*`` knobs,
+    raising the create-index-time 400 (IllegalArgumentError) on a bad
+    value."""
+    get = settings.get if settings is not None else (lambda *_: None)
+    quant = str(get("index.knn.quantization", "f32") or "f32").lower()
+    if quant not in ("f32", "int8"):
+        raise IllegalArgumentError(
+            f"index.knn.quantization must be f32 or int8, got [{quant}]")
+    mode = str(get("index.search.hybrid.mode", "rrf") or "rrf").lower()
+    if mode not in ("rrf", "weighted"):
+        raise IllegalArgumentError(
+            f"index.search.hybrid.mode must be rrf or weighted, "
+            f"got [{mode}]")
+    raw_k0 = get("index.search.hybrid.rank_constant", 60)
+    try:
+        k0 = int(60 if raw_k0 is None or raw_k0 == "" else raw_k0)
+    except (TypeError, ValueError):
+        raise IllegalArgumentError(
+            f"index.search.hybrid.rank_constant must be an integer, "
+            f"got [{raw_k0}]") from None
+    if k0 < 1:
+        raise IllegalArgumentError(
+            f"index.search.hybrid.rank_constant must be >= 1, got {k0}")
+    raw_w = get("index.search.hybrid.lexical_weight", 0.5)
+    try:
+        w = float(0.5 if raw_w is None or raw_w == "" else raw_w)
+    except (TypeError, ValueError):
+        raise IllegalArgumentError(
+            f"index.search.hybrid.lexical_weight must be a number, "
+            f"got [{raw_w}]") from None
+    if not 0.0 <= w <= 1.0:
+        raise IllegalArgumentError(
+            f"index.search.hybrid.lexical_weight must be in [0, 1], "
+            f"got {w}")
+    return KnnPlaneConfig(quantization=quant, fusion_mode=mode,
+                          rank_constant=k0, lexical_weight=w)
+
+
+def configure_knn_plane(index_name: str, settings=None) -> None:
+    """Register an index's knn-lane config from its settings."""
+    _knn_configs[index_name] = validate_knn_settings(settings)
+
+
+def knn_plane_config(index_name: str | None) -> KnnPlaneConfig:
+    if index_name is None:
+        return KnnPlaneConfig()
+    return _knn_configs.get(index_name) or KnnPlaneConfig()
+
+
+class _VectorPack:
+    """A reader's knn columns for a (field, quantization): per segment the
+    device vector array (f32, or int8 with its scale/offset snapshot) and
+    masks, aligned 1:1 with the reader's segments (None for segments
+    without the field)."""
+
+    __slots__ = ("quant", "multi", "dims", "segs")
+
+    def __init__(self, quant):
+        self.quant = quant
+        self.multi = False
+        self.dims = 0
+        self.segs = []          # per reader segment: dict | None
+
+    def score_bound(self, qn) -> float:
+        """Worst per-segment quantization score bound for one normalized
+        query (0.0 under f32) — the int8 recall envelope: each component
+        moves by at most scale/2, so a score by ``scale/2 · Σ|q|`` (summed
+        over every query token for MaxSim)."""
+        if self.quant != "int8":
+            return 0.0
+        qsum = float(np.abs(np.asarray(qn, np.float64)).sum())
+        return max((s["scale"] * 0.5 * qsum for s in self.segs
+                    if s is not None), default=0.0)
+
+
+def vector_pack_for(reader, field: str,
+                    cfg: KnnPlaneConfig) -> _VectorPack | None:
+    """The knn pack of ``field`` under the config's quantization, over the
+    reader's lazy device columns (:meth:`DeviceReader.fetch_vectors` puts
+    each on the device once). None when no segment carries the field."""
+    pack = _VectorPack(cfg.quantization)
+    for dseg in reader.segments:
+        col = reader.fetch_vectors(dseg, field, cfg.quantization)
+        if col is None:
+            pack.segs.append(None)
+            continue
+        pack.multi = field in dseg.mvector
+        pack.dims = col.column.dims
+        int8 = cfg.quantization == "int8"
+        pack.segs.append({
+            "vecs": col.qvecs if int8 else col.vecs,
+            "exists": col.exists, "live": dseg.live,
+            "lens": col.lens if pack.multi else None,
+            "scale": col.scale if int8 else 1.0,
+            "offset": col.offset if int8 else 0.0,
+            "doc_base": int(dseg.doc_base)})
+    if all(s is None for s in pack.segs):
+        return None
+    return pack
+
+
+#: sort key of an empty candidate slot when partners are looked up
+_NO_DOC = 1 << 62
+
+
+def _fuse_lists(r_l, ld, r_d, dd, k: int):
+    """Sum each doc's contributions from the two candidate lists and take
+    the fused top-k by (score desc, doc asc).
+
+    r_l / r_d: [B, C] f32 per-list contributions (0 on empty slots); ld / dd:
+    [B, C] global doc ids (-1 empty), each list's ids unique. A doc in both
+    lists gets ``r_l + r_d`` once, on its lexical slot; the knn slot goes
+    empty. Each lexical candidate's partner comes from a sorted copy of the
+    knn ids (``searchsorted``), never from a [B, C, C] comparison, and every
+    sum has at most one nonzero term, so the fused scores are the reference's
+    bit for bit. → (scores [B, k], docs [B, k], fused candidates [B])."""
+    b, c = dd.shape
+    key_d = torch.where(dd >= 0, dd.to(torch.int64), _NO_DOC)
+    sorted_d, order = torch.sort(key_d, dim=1)
+    key_l = ld.to(torch.int64).contiguous()
+    pos = torch.searchsorted(sorted_d, key_l).clamp(max=c - 1)
+    found = (ld >= 0) & (torch.gather(sorted_d, 1, pos) == key_l)
+    partner = torch.gather(order, 1, pos)
+    f_l = r_l + torch.where(found, torch.gather(r_d, 1, partner), 0.0)
+    # each knn slot takes its lexical partner's contribution; the slots of
+    # unmatched lexical candidates all land in a spare column, dropped
+    slot = torch.where(found, partner, c)
+    back = torch.zeros((b, c + 1), dtype=torch.float32, device=dd.device)
+    back.scatter_(1, slot, torch.where(found, r_l, 0.0))
+    dup = torch.zeros((b, c + 1), dtype=torch.bool, device=dd.device)
+    dup.scatter_(1, slot, found)
+    f_d = r_d + back[:, :c]
+    dup_d = dup[:, :c]
+    valid_l = ld >= 0
+    keep_d = (dd >= 0) & ~dup_d
+    s_l = torch.where(valid_l, f_l, float("-inf"))
+    s_d = torch.where(keep_d, f_d, float("-inf"))
+    count = valid_l.sum(dim=1, dtype=torch.int32) + \
+        keep_d.sum(dim=1, dtype=torch.int32)
+    ts, td = blockmax_ops.merge_topk_by_doc(s_l, ld, s_d, dd, k)
+    return ts, td, count
+
+
+def _rrf_fuse_body(ls, ld, ds, dd, boosts, k0: float, k: int):
+    """Reciprocal-rank fusion of two candidate rankings.
+
+    ls/ld: lexical (scores, GLOBAL doc ids) [B, C]; ds/dd: knn lane [B, C];
+    boosts: [B] knn contribution multiplier. A doc's fused score is the f32
+    sum of its per-list ``1/(k0 + rank + 1)`` contributions (the knn one
+    times the boost). → (scores [B, k], docs [B, k], count [B])."""
+    c = ld.shape[1]
+    dev = ld.device
+    rk = 1.0 / (torch.tensor(float(k0), dtype=torch.float32, device=dev)
+                + torch.arange(c, dtype=torch.float32, device=dev) + 1.0)
+    r_l = torch.where(ld >= 0, rk[None, :], 0.0)
+    r_d = torch.where(dd >= 0, rk[None, :] * boosts[:, None], 0.0)
+    return _fuse_lists(r_l, ld, r_d, dd, k)
+
+
+def _weighted_fuse_body(ls, ld, ds, dd, boosts, w_lex: float, k: int):
+    """Weighted-sum fusion: each list min-max-normalizes its candidate
+    scores (the models/hybrid.py linear mode), then ``w·lex +
+    (1-w)·boost·knn`` sums per doc. → (scores [B, k], docs [B, k],
+    count [B])."""
+    def norm(s, valid):
+        lo = torch.where(valid, s, float("inf")).amin(dim=1, keepdim=True)
+        hi = torch.where(valid, s, float("-inf")).amax(dim=1, keepdim=True)
+        rng = hi - lo
+        rng = torch.where((rng > 0) & torch.isfinite(rng), rng, 1.0)
+        lo = torch.where(torch.isfinite(lo), lo, 0.0)
+        return torch.where(valid, (s - lo) / rng, 0.0)
+    w = torch.tensor(float(w_lex), dtype=torch.float32, device=ld.device)
+    r_l = w * norm(ls, ld >= 0)
+    r_d = (1.0 - w) * boosts[:, None] * norm(ds, dd >= 0)
+    return _fuse_lists(r_l, ld, r_d, dd, k)
+
+
+def _plan_knn_segment(dseg: DeviceSegment, ctx: ExecutionContext,
+                      reqs: list) -> dict | None:
+    """Resolve one segment's per-request lexical query (hybrid) and knn
+    filter into emit closures and stacked constants. → plan dict, or None
+    when the requests do not share one plan signature."""
+    sig0 = emit_q0 = emit_f0 = ct0 = None
+    consts_rows = []
+    for req in reqs:
+        ct = ConstTable()
+        resolver = SegmentResolver(dseg, ctx, ct)
+        knn = req.knn
+        emit_q = resolver.resolve(req.query) if knn.hybrid else None
+        emit_f = resolver.resolve_mask(knn.filter) \
+            if knn.filter is not None else None
+        ct.static("knn-lane", knn.hybrid, knn.filter is not None)
+        if sig0 is None:
+            sig0, emit_q0, emit_f0, ct0 = ct.signature(), emit_q, emit_f, ct
+        elif ct.signature() != sig0:
+            return None
+        consts_rows.append(ct.values)
+    _fetch_lazy(dseg, ctx, ct0)
+    consts = stack_consts(consts_rows, ctx.reader.device) \
+        if consts_rows[0] else []
+    return {"seg": dseg, "emit_q": emit_q0, "emit_f": emit_f0,
+            "consts": consts}
+
+
+def _knn_query_inputs(reqs: list, pack: _VectorPack, device):
+    """The batch's query vectors, normalized on the host in numpy f32 as
+    ``v / max(|v|, 1e-12)``. → (qv, qmask | None). Dense: qv [B, D] f32.
+    rank_vectors: qv [B, Qt, D] with per-token normalization, zero tokens
+    past each query's own, and qmask [B, Qt] (Qt: the batch's longest
+    query)."""
+    rows = [req.knn for req in reqs]
+    if not pack.multi:
+        qv = np.zeros((len(rows), pack.dims), np.float32)
+        for i, kn in enumerate(rows):
+            v = np.asarray(kn.query_vector, np.float32)
+            qv[i] = v / max(float(np.linalg.norm(v)), 1e-12)
+        return torch.from_numpy(qv).to(device), None
+    qt = max(len(kn.query_vector) for kn in rows)
+    qv = np.zeros((len(rows), qt, pack.dims), np.float32)
+    qmask = np.zeros((len(rows), qt), bool)
+    for i, kn in enumerate(rows):
+        m = np.asarray(kn.query_vector, np.float32)
+        norms = np.linalg.norm(m, axis=1, keepdims=True)
+        qv[i, :m.shape[0]] = m / np.maximum(norms, 1e-12)
+        qmask[i, :m.shape[0]] = True
+    return torch.from_numpy(qv).to(device), torch.from_numpy(qmask).to(device)
+
+
+def _knn_segment_scores(pack: _VectorPack, s: dict, qv, qmask):
+    """One segment's [B, N] knn scores: dense cosine (torch.matmul, f32),
+    int8 cosine (K4), or MaxSim over f32 or int8 tokens (K5)."""
+    if pack.multi and pack.quant == "int8":
+        return maxsim_ops.maxsim_scores_int8_batch_body(
+            s["vecs"], s["scale"], s["offset"], s["lens"], qv, qmask)
+    if pack.multi:
+        return maxsim_ops.maxsim_scores_batch_body(s["vecs"], s["lens"], qv,
+                                                   qmask)
+    if pack.quant == "int8":
+        return vector_ops.cosine_scores_int8_batch(
+            s["vecs"], s["scale"], s["offset"], s["exists"], qv)
+    return torch.where(s["exists"][None, :], qv @ s["vecs"].T, 0.0)
+
+
+def run_knn_hybrid_batch(reader, ctx: ExecutionContext, reqs: list,
+                         pack: _VectorPack | None, cfg: KnnPlaneConfig, *,
+                         k: int, num_candidates: int, packed: bool):
+    """B knn (or hybrid lexical + knn) requests over the whole reader.
+
+    Per segment: the knn lane scores the vector column, masked by exists ∧
+    live ∧ the request's ``filter``, and keeps its top ``num_candidates``
+    (K2); a hybrid request's lexical query scores the same segment through
+    the emit closures and keeps its own top ``num_candidates``. Each lane's
+    candidates merge across segments (K2), and hybrid requests fuse the two
+    rankings by RRF (``rank_constant``) or a weighted sum. ``pack`` is None
+    only for a hybrid batch on a field no segment carries: its knn list is
+    empty and the lexical list alone is fused.
+
+    Returns, on the reader's device, the packed ``[B, 2k+1]`` f32 tensor
+    (``packed=True``; exact only while doc ids and counts stay below 2**24,
+    as for :func:`run_reader_batch`) or {"top_scores" [B, k], "top_docs"
+    [B, k], "count" [B]}; None when the batch's plans do not share one
+    signature (callers serve each request alone)."""
+    segments = reader.segments
+    if not segments or not reqs:
+        return None
+    hybrid = reqs[0].knn.hybrid
+    b = len(reqs)
+    c = int(num_candidates)
+    dev = reader.device
+    plans = []
+    if hybrid or any(r.knn.filter is not None for r in reqs):
+        for dseg in segments:
+            plan = _plan_knn_segment(dseg, ctx, reqs)
+            if plan is None:
+                return None
+            plans.append(plan)
+    boosts = torch.tensor([r.knn.boost for r in reqs], dtype=torch.float32,
+                          device=dev)
+    # ---- per-segment lexical candidates and filter masks ----------------
+    lex_ts, lex_td = [], []
+    fmasks = [None] * len(segments)
+    for i, plan in enumerate(plans):
+        view = plan["seg"]
+        em = EmitCtx(view, plan["consts"], b)
+        if plan["emit_q"] is not None:
+            scores, mask = plan["emit_q"](em)
+            ts, td = topk_ops.top_k(scores, mask & view.live[None, :],
+                                    min(c, view.padded_docs), 0)
+            lex_ts.append(ts)
+            lex_td.append(td)
+        if plan["emit_f"] is not None:
+            fmasks[i] = plan["emit_f"](em)
+    # ---- per-segment knn candidates --------------------------------------
+    knn_ts, knn_td, vec_bases = [], [], []
+    knn_counts = torch.zeros(b, dtype=torch.int32, device=dev)
+    if pack is not None:
+        qv, qmask = _knn_query_inputs(reqs, pack, dev)
+        for i, s in enumerate(pack.segs):
+            if s is None:
+                continue
+            scores = _knn_segment_scores(pack, s, qv, qmask)
+            if not hybrid:
+                # knn-only: the section boost scales the reported scores
+                # (rank-preserving: boost > 0 is validated)
+                scores = scores * boosts[:, None]
+            elig = (s["exists"] & s["live"])[None, :]
+            masks = elig.expand(b, -1) if fmasks[i] is None \
+                else elig & fmasks[i]
+            ts, td = vector_ops.filtered_topk_batch(
+                scores, masks, min(c, elig.shape[1]), 0)
+            knn_ts.append(ts)
+            knn_td.append(td)
+            vec_bases.append(s["doc_base"])
+            knn_counts = knn_counts + masks.sum(dim=1, dtype=torch.int32)
+    if knn_ts:
+        ds, dd = topk_ops.merge_top_k_batch_body(knn_ts, knn_td, c,
+                                                 vec_bases)
+    else:
+        ds = torch.full((b, c), float("-inf"), device=dev)
+        dd = torch.full((b, c), -1, dtype=torch.int32, device=dev)
+    if not hybrid:
+        ts, td, count = ds[:, :k], dd[:, :k], knn_counts
+    else:
+        ls, ld = topk_ops.merge_top_k_batch_body(
+            lex_ts, lex_td, c, [int(seg.doc_base) for seg in segments])
+        if cfg.fusion_mode == "weighted":
+            ts, td, count = _weighted_fuse_body(
+                ls, ld, ds, dd, boosts, float(cfg.lexical_weight), k)
+        else:
+            ts, td, count = _rrf_fuse_body(ls, ld, ds, dd, boosts,
+                                           float(cfg.rank_constant), k)
+    if packed:
+        return topk_ops.pack_batch_result_body(ts, td, count)
+    return {"top_scores": ts, "top_docs": td, "count": count}

@@ -2,7 +2,10 @@
 
 K1 (BM25 scan) and K3 (exact-phrase scan) must be bit-identical to their
 plain versions; K2 (stable top-k) must return the same ids and scores, ties
-included. These tests need
+included. K4 (int8 cosine) and K5 (MaxSim, f32 and int8 tokens) sum their
+dot products in another order than the plain versions' matrix products, so
+they agree within 1e-5 absolute (unit vectors; K5 adds 1e-6 relative for
+sums of up to 150 token maxima). These tests need
 an NVIDIA GPU and nvcc (the kernels have no CPU mode) and skip elsewhere.
 On a machine with a card, run them without the JAX test bootstrap:
 
@@ -13,7 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from elasticsearch_tpu_torch.ops import lexical, phrase, topk
+from elasticsearch_tpu_torch.index.segment import quantize_vectors
+from elasticsearch_tpu_torch.ops import (
+    lexical, maxsim, phrase, topk, vector)
 
 pytestmark = pytest.mark.cuda
 
@@ -431,3 +436,185 @@ def test_configs_2_and_3_on_the_card_match_the_cpu(cuda, tmp_path):
         assert g.total == w.total
         np.testing.assert_allclose(g.scores, w.scores, rtol=1e-6, atol=0)
         assert set(g.doc_ids[:40].tolist()) <= set(w.doc_ids.tolist())
+
+
+def _unit(rng, shape):
+    v = rng.standard_normal(shape).astype(np.float32)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+@pytest.mark.parametrize("b,n,d", [(64, 20000, 768), (3, 100003, 100),
+                                   (65, 300, 16), (1, 7, 5)])
+def test_int8_cosine_matches_plain(cuda, b, n, d):
+    """K4 against its plain version, exists holes every fifth row, scale and
+    offset from quantize_vectors over the padded column."""
+    rng = np.random.default_rng(b + n)
+    vecs = _unit(rng, (n, d))
+    vecs[-2:] = 0.0                               # padding rows
+    qcol = quantize_vectors(vecs, d)
+    exists = np.ones(n, bool)
+    exists[::5] = False
+    qv = torch.from_numpy(qcol.qvecs).to(cuda)
+    ex = torch.from_numpy(exists).to(cuda)
+    qs = torch.from_numpy(rng.standard_normal((b, d)).astype(
+        np.float32)).to(cuda)
+    before = vector.INT8_COSINE.launches
+    got = vector.cosine_scores_int8_batch(qv, qcol.scale, qcol.offset, ex, qs)
+    torch.cuda.synchronize()
+    assert vector.INT8_COSINE.launches == before + 1
+    qn = vector.l2_normalize(qs)
+    want = vector.cosine_scores_int8_batch_plain(
+        qv, qcol.scale, qcol.offset, ex, qn, qn.sum(dim=-1))
+    assert bool((got[:, ~ex] == 0).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def _maxsim_inputs(rng, cuda, b, n, t, qt, d):
+    toks = _unit(rng, (n, t, d))
+    lens = rng.integers(0, t + 1, size=n).astype(np.int32)
+    lens[:3] = 0
+    lens[3] = t
+    toks[np.arange(t)[None, :] >= lens[:, None]] = 0.0
+    qs = _unit(rng, (b, qt, d))
+    qmask = np.ones((b, qt), bool)
+    qmask[0, -1] = False                          # a padded query token
+    qs[0, -1] = 0.0
+    if b > 1 and qt > 1:
+        qmask[1, 0] = False                       # a hole in front
+    return (toks, torch.from_numpy(lens).to(cuda),
+            torch.from_numpy(qs).to(cuda), torch.from_numpy(qmask).to(cuda))
+
+
+MAXSIM_SHAPES = [(4, 1000, 32, 32, 128), (3, 10007, 5, 3, 100),
+                 (2, 300, 200, 150, 24), (5, 257, 1, 1, 7),
+                 (64, 4096, 32, 32, 128)]
+
+
+@pytest.mark.parametrize("b,n,t,qt,d", MAXSIM_SHAPES)
+def test_maxsim_f32_matches_plain(cuda, b, n, t, qt, d):
+    rng = np.random.default_rng(n + t)
+    toks, lens, qs, qmask = _maxsim_inputs(rng, cuda, b, n, t, qt, d)
+    tk = torch.from_numpy(toks).to(cuda)
+    before = (maxsim.MAXSIM.launches, maxsim.MAXSIM_INT8.launches)
+    got = maxsim.maxsim_scores_batch_body(tk, lens, qs, qmask)
+    torch.cuda.synchronize()
+    # the f32 instantiation ran, and not the int8 one
+    assert (maxsim.MAXSIM.launches, maxsim.MAXSIM_INT8.launches) == (
+        before[0] + 1, before[1])
+    want = maxsim.maxsim_scores_batch_body_plain(tk, lens, qs, qmask)
+    assert bool((got[:, :3] == 0).all())          # docs without tokens
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,n,t,qt,d", MAXSIM_SHAPES)
+def test_maxsim_int8_matches_plain(cuda, b, n, t, qt, d):
+    rng = np.random.default_rng(n + t + 1)
+    toks, lens, qs, qmask = _maxsim_inputs(rng, cuda, b, n, t, qt, d)
+    qcol = quantize_vectors(toks, d)
+    tk = torch.from_numpy(qcol.qvecs).to(cuda)
+    before = (maxsim.MAXSIM.launches, maxsim.MAXSIM_INT8.launches)
+    got = maxsim.maxsim_scores_int8_batch_body(tk, qcol.scale, qcol.offset,
+                                               lens, qs, qmask)
+    torch.cuda.synchronize()
+    # the int8 instantiation ran, and not the f32 one
+    assert (maxsim.MAXSIM.launches, maxsim.MAXSIM_INT8.launches) == (
+        before[0], before[1] + 1)
+    want = maxsim.maxsim_scores_int8_batch_body_plain(
+        tk, qcol.scale, qcol.offset, lens, qs, qmask, qs.sum(dim=2))
+    assert bool((got[:, :3] == 0).all())
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-5)
+
+
+def test_vector_kernels_refuse_what_they_do_not_take(cuda):
+    qv = torch.zeros((8, 4), dtype=torch.int8, device=cuda)
+    ex = torch.ones(8, dtype=torch.bool, device=cuda)
+    qs = torch.ones((2, 4), device=cuda)
+    with pytest.raises(TypeError):
+        vector.cosine_scores_int8_batch(qv.float(), 1.0, 0.0, ex, qs)
+    with pytest.raises(ValueError):
+        vector.cosine_scores_int8_batch(qv, 1.0, 0.0, ex[:5], qs)
+    toks = torch.zeros((8, 3, 4), device=cuda)
+    lens = torch.ones(8, dtype=torch.int32, device=cuda)
+    qt = torch.ones((2, 2, 4), device=cuda)
+    qm = torch.ones((2, 2), dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        maxsim.maxsim_scores_batch_body(toks, lens.long(), qt, qm)
+    with pytest.raises(ValueError):
+        maxsim.maxsim_scores_batch_body(toks[:, :, :3], lens, qt, qm)
+    with pytest.raises(ValueError):
+        maxsim.maxsim_scores_batch_body(toks[:, ::2], lens, qt, qm)
+
+
+def test_knn_lane_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Top-level knn (f32: torch.matmul, int8: K4), hybrid RRF and MaxSim
+    (K5, f32 and int8) through query_phase_batch on the card return what
+    the plain versions return on the CPU."""
+    from elasticsearch_tpu_torch.index.device_reader import DeviceReader
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.search import segment_exec
+    from elasticsearch_tpu_torch.search.phase import (
+        ShardSearcher, parse_search_request)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    rng = np.random.default_rng(21)
+    ms = MapperService()
+    ms.merge("_doc", {"properties": {
+        "body": {"type": "text"}, "vec": {"type": "dense_vector", "dims": 48},
+        "tok": {"type": "rank_vectors", "dims": 32, "max_tokens": 16}}})
+    eng = Engine(tmp_path / "e", ms)
+    for i in range(600):
+        d = {"body": " ".join(f"w{x}" for x in rng.integers(0, 10, 6))}
+        if i % 6:
+            d["vec"] = rng.standard_normal(48).tolist()
+            d["tok"] = rng.standard_normal(
+                (int(rng.integers(1, 12)), 32)).tolist()
+        eng.index(str(i), d)
+        if i == 300:
+            eng.refresh()
+    eng.refresh()
+    segment_exec.configure_knn_plane("card_int8",
+                                     {"index.knn.quantization": "int8"})
+    view = eng.acquire_searcher()
+    batches = {
+        "dense": [{"knn": {"field": "vec", "k": 20, "num_candidates": 40,
+                           "query_vector": rng.standard_normal(48).tolist()},
+                   "size": 20} for _ in range(8)],
+        "hybrid": [{"query": {"match": {"body": "w1 w2"}},
+                    "knn": {"field": "vec", "k": 20, "num_candidates": 40,
+                            "query_vector": rng.standard_normal(48).tolist()},
+                    "size": 30} for _ in range(8)],
+        "maxsim": [{"knn": {"field": "tok", "k": 20, "num_candidates": 40,
+                            "query_vector": rng.standard_normal(
+                                (5, 32)).tolist()}, "size": 20}
+                   for _ in range(8)],
+    }
+    for index in ("", "card_int8"):
+        on_cpu = ShardSearcher(0, DeviceReader(view, device="cpu"), ms,
+                               index_name=index)
+        on_card = ShardSearcher(0, DeviceReader(view, device=cuda), ms,
+                                index_name=index)
+        for name, bodies in batches.items():
+            reqs = [parse_search_request(b) for b in bodies]
+            want = on_cpu.query_phase_batch(reqs)
+            k4, k5, k5i = (vector.INT8_COSINE.launches,
+                           maxsim.MAXSIM.launches,
+                           maxsim.MAXSIM_INT8.launches)
+            got = on_card.query_phase_batch(reqs)
+            int8 = index == "card_int8"
+            assert vector.INT8_COSINE.launches == k4 + (
+                2 if int8 and name != "maxsim" else 0)
+            assert maxsim.MAXSIM.launches == k5 + (
+                2 if name == "maxsim" and not int8 else 0)
+            assert maxsim.MAXSIM_INT8.launches == k5i + (
+                2 if name == "maxsim" and int8 else 0)
+            for g, w in zip(got, want):
+                assert g.total == w.total
+                if name == "hybrid":
+                    np.testing.assert_array_equal(g.doc_ids, w.doc_ids)
+                    np.testing.assert_array_equal(g.scores, w.scores)
+                else:
+                    np.testing.assert_allclose(g.scores, w.scores, rtol=0,
+                                               atol=1e-5)
+                    assert set(g.doc_ids[:15].tolist()) <= \
+                        set(w.doc_ids.tolist())

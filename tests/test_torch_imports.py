@@ -1,6 +1,7 @@
 """The port stands alone: serving searches through it (a match, a bool with a
-match_phrase, a function_score) loads neither JAX nor the JAX package, and its entry points never fall back to the CPU on their
-own."""
+match_phrase, a function_score, and on the knn lane a dense knn in f32 and
+int8, a hybrid and a rank_vectors MaxSim) loads neither JAX nor the JAX
+package, and its entry points never fall back to the CPU on their own."""
 
 import json
 import os
@@ -20,21 +21,38 @@ from elasticsearch_tpu_torch.mapping import MapperService
 from elasticsearch_tpu_torch.search.phase import (
     ShardSearcher, parse_search_request)
 
+from elasticsearch_tpu_torch.search.segment_exec import configure_knn_plane
+
 ms = MapperService()
-ms.merge("_doc", {"properties": {"body": {"type": "text"},
-                                 "rank": {"type": "double"}}})
+ms.merge("_doc", {"properties": {
+    "body": {"type": "text"}, "rank": {"type": "double"},
+    "vec": {"type": "dense_vector", "dims": 3},
+    "tok": {"type": "rank_vectors", "dims": 2}}})
 eng = Engine(Path(tempfile.mkdtemp()), ms)
+vecs = [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.6, 0.8, 0.0]]
+toks = [[[1.0, 0.0]], [[0.0, 1.0], [0.1, 0.9]], [[0.7, 0.7]]]
 for i, text in enumerate(["quick brown fox", "lazy dog", "quick dog"]):
-    eng.index(str(i), {"body": text, "rank": 10.0 * (3 - i)})
+    eng.index(str(i), {"body": text, "rank": 10.0 * (3 - i),
+                       "vec": vecs[i], "tok": toks[i]})
 eng.refresh()
-searcher = ShardSearcher(0, device_reader_for(eng, device="cpu"), ms)
+reader = device_reader_for(eng, device="cpu")
+searcher = ShardSearcher(0, reader, ms)
+configure_knn_plane("int8_idx", {"index.knn.quantization": "int8"})
+searcher_int8 = ShardSearcher(0, reader, ms, index_name="int8_idx")
 
 
-def ids_of(body):
+def ids_of(body, s=searcher):
     req = parse_search_request(body)
-    res = searcher.query_phase_batch([req])[0]
-    return [h["_id"] for h in searcher.fetch_phase(
+    res = s.query_phase_batch([req])[0]
+    return [h["_id"] for h in s.fetch_phase(
         req, res, "idx", list(range(len(res.doc_ids))))]
+
+
+knn = {"field": "vec", "query_vector": [0.0, 1.0, 0.1], "k": 3}
+knn_ids = [ids_of({"knn": knn}), ids_of({"knn": knn}, searcher_int8),
+           ids_of({"knn": knn, "query": {"match": {"body": "fox"}}}),
+           ids_of({"knn": {"field": "tok", "query_vector": [[0.0, 1.0]],
+                           "k": 3}})]
 
 
 match_ids = ids_of({"query": {"match": {"body": "quick dog"}}})
@@ -53,6 +71,7 @@ except RuntimeError:
     refused = True
 print(json.dumps({
     "ids": [match_ids, phrase_ids, fs_ids],
+    "knn_ids": knn_ids,
     "leaked": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "elasticsearch_tpu")),
@@ -70,6 +89,8 @@ def test_port_serves_without_jax_or_the_jax_package(tmp_path):
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["ids"] == [["2", "1", "0"], ["2", "1"], ["0", "1", "2"]]
+    assert got["knn_ids"] == [["1", "2", "0"], ["1", "2", "0"],
+                              ["0", "1", "2"], ["1", "2", "0"]]
     assert got["leaked"] == []
     assert got["no_card_refused"]
 
