@@ -62,6 +62,30 @@ no result line:
             float64 MaxSim.
 14. profile — one batch of config 4 (f32, int8), hybrid and MaxSim under
             torch.profiler: cuBLAS, K2, K4, K5, other element-wise ops.
+15. impact kernels — an index over config 1's reader set to
+            ``index.search.impact_plane`` (16-bit impacts, 8192-row blocks,
+            bench.py's impact_pruning settings); its host quantization and
+            upload timed as set-up; K6 against its plain version bit for bit
+            at the eager shape and at odd shapes (8 and 16 bits, a term
+            quantized to 0, a cursor, dead rows), K7 against its plain
+            version (top-k and block counters) at the pruned shape with a
+            carry across the segments and at odd ones (k = 1, k above the
+            matches, every block skipped), each timed beside its plain
+            version and its bound.
+16. impact eager — config 1's requests on the impact index (K6 + K2):
+            the first queries bit-equal to a numpy recompute from the host
+            impacts, totals equal to the float64 match counts, every hit
+            within the quantization bound of its BM25 score.
+17. impact pruned — bench.py's impact_pruning requests (3 rare terms, k =
+            10, track_total_hits false, batches of 32): the block-max sweep
+            (K7) bit-identical to the eager arm, its block counters
+            reconciled batch by batch, the skip ratio beside bench.py's
+            predicted occupied fraction.
+18. impact rescore — bench.py's planner_fusion request shape (a 2-term
+            match rescored by a 2-term match, window 24): the impact ->
+            rescore arm bit-equal to a numpy recompute.
+19. profile — one eager and one pruned impact batch under torch.profiler,
+            with the lane's host planning alone.
 
 The last lines are one JSON object of per-kernel numbers, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -93,12 +117,16 @@ K2_SOURCE = "elasticsearch_tpu_torch/csrc/topk.cu"
 K3_SOURCE = "elasticsearch_tpu_torch/csrc/phrase_scan.cu"
 K4_SOURCE = "elasticsearch_tpu_torch/csrc/int8_cosine.cu"
 K5_SOURCE = "elasticsearch_tpu_torch/csrc/maxsim.cu"
+K6_SOURCE = "elasticsearch_tpu_torch/csrc/impact_scan.cu"
+K7_SOURCE = "elasticsearch_tpu_torch/csrc/blockmax_sweep.cu"
 K1_REPLACES = "elasticsearch_tpu/ops/lexical.py:16"
 K2_REPLACES = "elasticsearch_tpu/ops/topk.py:27"
 K3_REPLACES = "elasticsearch_tpu/ops/phrase.py:59"
 K4_REPLACES = "elasticsearch_tpu/ops/vector.py:52"
 K5_REPLACES = "elasticsearch_tpu/ops/maxsim.py:67"
 K5_INT8_REPLACES = "elasticsearch_tpu/ops/maxsim.py:136"
+K6_REPLACES = "elasticsearch_tpu/ops/blockmax.py:54"
+K7_REPLACES = "elasticsearch_tpu/ops/blockmax.py:152"
 # config 4 (bench.py:703-717): 768-d unit vectors, k = num_candidates = 100
 VEC_DIMS = 768
 KNN_K = 100
@@ -342,7 +370,8 @@ def phase_card(torch):
 def phase_build():
     from elasticsearch_tpu_torch.ops import cuda_build
     sources = [Path(src).name for src in (K1_SOURCE, K2_SOURCE, K3_SOURCE,
-                                          K4_SOURCE, K5_SOURCE)]
+                                          K4_SOURCE, K5_SOURCE, K6_SOURCE,
+                                          K7_SOURCE)]
     t0 = time.perf_counter()
     built = cuda_build.build_libraries(sources)
     log(f"build: {len(sources)} sources in "
@@ -368,7 +397,13 @@ def phase_build():
         "32-deep step of 64 queries and 128 docs as floats); maxsim "
         "83.5 KiB (a 16-deep step of 128 query-token rows and 128 "
         "doc-token columns, the 128 x 132 tile of dots, running max, sums "
-        "and token counts)")
+        "and token counts); impact_scan the batch's term table, per query "
+        "its scale x boost and cursor, and per warp a stamp and an impact "
+        "per table slot and an 8-row output run (about 47 KiB at B = 64, "
+        "T = 4); blockmax_sweep 41 KiB static (the running top-k and its "
+        "merge buffer, 1024 keys of 8 bytes each, a 2048-key candidate "
+        "list, 1024 entries of the visiting order and bounds, the query's "
+        "terms), its candidate lists read across the cluster")
 
 
 def phrase_pairs(rng, tokens, lens, n):
@@ -487,8 +522,8 @@ def host_memory() -> str:
 def reader_bytes(reader) -> str:
     """The reader's device bytes, split into the text and live columns
     (what config 1 reads), the rank column, the position matrices, the
-    vector columns' exists masks and token counts, and the vector matrices
-    (f32 and int8)."""
+    vector columns' exists masks and token counts, the vector matrices
+    (f32 and int8), and the impact lane's columns and block tables."""
     total = reader.device_bytes()
     rank = sum(nbytes(c.hi) + nbytes(c.lo) + nbytes(c.exists)
                for s in reader.segments for c in s.numeric.values())
@@ -501,10 +536,14 @@ def reader_bytes(reader) -> str:
                                     else 0) for c in cols)
     f32 = sum(nbytes(c.vecs) for c in cols if c.vecs is not None)
     int8 = sum(nbytes(c.qvecs) for c in cols if c.qvecs is not None)
+    impacts = sum(nbytes(t) for s in reader.segments
+                  for c in s.impacts.values()
+                  for t in (c.qimp, c.block_max) if t is not None)
     return (f"reader device bytes {total} (text and live columns "
-            f"{total - rank - tokens - masks - f32 - int8}, rank column "
-            f"{rank}, position matrices {tokens}, vector exists/lens "
-            f"{masks}, vector matrices f32 {f32}, int8 {int8})")
+            f"{total - rank - tokens - masks - f32 - int8 - impacts}, rank "
+            f"column {rank}, position matrices {tokens}, vector exists/lens "
+            f"{masks}, vector matrices f32 {f32}, int8 {int8}, impact "
+            f"columns and block tables {impacts})")
 
 
 def smi_sample() -> str:
@@ -723,11 +762,13 @@ def path_kernels():
     """The launch counter of every hand kernel, by its name in the kernels
     line (K5's f32 and int8 instantiations have one each)."""
     from elasticsearch_tpu_torch.ops import (
-        lexical, maxsim, phrase, topk, vector)
+        blockmax, lexical, maxsim, phrase, topk, vector)
     return {"bm25_scan": lexical.BM25_SCAN, "stable_topk": topk.TOPK,
             "phrase_scan": phrase.PHRASE_SCAN,
             "int8_cosine": vector.INT8_COSINE, "maxsim": maxsim.MAXSIM,
-            "maxsim_int8": maxsim.MAXSIM_INT8}
+            "maxsim_int8": maxsim.MAXSIM_INT8,
+            "impact_scan": blockmax.IMPACT_SCAN,
+            "blockmax_sweep": blockmax.BLOCKMAX_SWEEP}
 
 
 def drive(torch, searcher, batches):
@@ -763,9 +804,9 @@ def report(label, args, data, batches, per_batch, wall, launches, peak,
     qps = n / wall
     p50 = statistics.median(per_batch)
     log(f"{label}: launches {launches} over {len(batches)} batches of "
-        f"{args.batch} on {len(data['reader'].segments)} segment(s)")
+        f"{len(batches[0])} on {len(data['reader'].segments)} segment(s)")
     log(f"{label}: {qps:.2f} queries/s, p50 {p50:.3f} ms per batch of "
-        f"{args.batch} (batches: {', '.join(f'{x:.3f}' for x in per_batch)} "
+        f"{len(batches[0])} (batches: {', '.join(f'{x:.3f}' for x in per_batch)} "
         f"ms), peak device memory {peak} B, {reader_bytes(data['reader'])}; "
         f"{GC.take()} in the batches — on {name} ({smi_line})")
     return {"qps": qps, "p50_ms": p50, "peak_bytes": peak,
@@ -1058,10 +1099,12 @@ def phase_config3(torch, args, data, name, smi_line) -> dict:
     return stats
 
 
-def phase_profile(torch, args, data, label, bodies, searcher=None) -> dict:
+def phase_profile(torch, args, data, label, bodies, searcher=None,
+                  plan=None) -> dict:
     """One batch under torch.profiler (after an unrecorded warm-up run of
     it): device time by kernel, the busy share of the batch, and the host
-    planning of the batch alone (a pure knn request plans no query)."""
+    planning of the batch alone (a pure knn request plans no query; the
+    impact lane's planning is ``plan``, called with the batch)."""
     from torch.profiler import ProfilerActivity, profile
     from elasticsearch_tpu_torch.search import query_dsl, segment_exec
     searcher = searcher or data["searcher"]
@@ -1074,9 +1117,12 @@ def phase_profile(torch, args, data, label, bodies, searcher=None) -> dict:
     flags = {"min_score": False, "search_after": False}
     GC.take()
     t0 = time.perf_counter()
-    for seg in reader.segments:
-        for query in queries:
-            segment_exec._plan(seg, searcher.ctx, query, None, flags)
+    if plan is not None:
+        plan(batch)
+    else:
+        for seg in reader.segments:
+            for query in queries:
+                segment_exec._plan(seg, searcher.ctx, query, None, flags)
     plan_ms = (time.perf_counter() - t0) * 1e3
     plan_gc = GC.take()
     torch.cuda.synchronize()
@@ -1121,13 +1167,15 @@ def phase_profile(torch, args, data, label, bodies, searcher=None) -> dict:
                  "K2": ("chunk_topk_kernel", "merge_candidates_kernel"),
                  "K3": ("phrase_scan_kernel",),
                  "K4": ("int8_cosine_kernel",), "K5": ("maxsim_kernel",),
+                 "K6": ("impact_scan_kernel",),
+                 "K7": ("blockmax_sweep_kernel",),
                  "cuBLAS": ("gemm", "xmma", "cutlass")}
     parts = {}
     for kname, keys in by_kernel.items():
         sel = [r for r in rows if any(k in r[2] for k in keys)]
         parts[kname] = (sum(r[0] for r in sel), sum(r[1] for r in sel))
     other = busy_ms - sum(v[0] for v in parts.values())
-    log(f"profile {label}: one batch of {args.batch}: wall {wall_ms:.3f} ms, "
+    log(f"profile {label}: one batch of {len(batch)}: wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
         f"host planning alone {plan_ms:.3f} ms; "
         + ", ".join(f"{k} {v[0]:.3f} ms ({v[1]} kernels)"
@@ -1699,6 +1747,606 @@ def phase_maxsim(torch, args, mdata, name, smi_line) -> tuple[dict, dict]:
     return out[0], out[1]
 
 
+# --------------------------------------------------------------------------
+# the impact lane: quantized eager impacts (K6), the block-max sweep (K7) and
+# the impact -> rescore arm, on config 1's reader
+# --------------------------------------------------------------------------
+
+# bench.py's impact_pruning leg at 16 bits (bench.py:1757). 8192-row blocks:
+# the block table of a 2^20-row segment over the 500,000-term dictionary
+# stays within IMPACT_BLOCK_BUDGET = 2^26 cells (128 blocks); at the default
+# 2048 rows it would not (512 blocks) and pruning would decline
+IMPACT_INDEX = "smoke_impact"
+IMPACT_SETTINGS = {"index.search.impact_plane": True,
+                   "index.search.impact.bits": 16,
+                   "index.search.impact.block_rows": 8192}
+# the impact_pruning leg's requests (bench.py:1746-1765): 3 terms with df
+# in [2e-5 N, 2e-4 N], size 10, batches of 32, 4 batches
+PRUNED_TERMS, PRUNED_K, PRUNED_BATCH, PRUNED_BATCHES = 3, 10, 32, 4
+# the planner_fusion leg's requests (bench.py:2207-2218): a 2-term match
+# rescored by a 2-term match, window 24, weights 1.0 and 1.5, total;
+# size 10, two batches of 16
+RESCORE_WINDOW, RESCORE_QW, RESCORE_RW = 24, 1.0, 1.5
+RESCORE_BATCH, RESCORE_BATCHES = 16, 2
+
+
+def phase_impact_setup(torch, args, data) -> None:
+    """Register the impact index, build its pack (the host quantization of
+    both segments and their upload: set-up, timed apart) and draw the
+    pruned and rescore phases' requests from child generators."""
+    from elasticsearch_tpu_torch.search import segment_exec
+    from elasticsearch_tpu_torch.search.phase import ShardSearcher
+    reader = data["reader"]
+    segment_exec.configure_impact_plane(IMPACT_INDEX, IMPACT_SETTINGS)
+    searcher = ShardSearcher(0, reader, data["mapper"],
+                             index_name=IMPACT_INDEX)
+    cfg = segment_exec.impact_plane_config(IMPACT_INDEX)
+    t0 = time.perf_counter()
+    pack = segment_exec.impact_pack_for(reader, "body", cfg,
+                                        k1=searcher.ctx.bm25.k1,
+                                        b=searcher.ctx.bm25.b)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(pack is not None and pack.can_prune,
+          "the impact pack has no block tables: pruning would decline")
+    tables = sum(nbytes(s["block_max"]) for s in pack.segs)
+    qimp = sum(nbytes(s["qimp"]) for s in pack.segs)
+    log(f"impact: {len(pack.segs)} segment(s), V = "
+        f"{[int(s['block_max'].shape[1]) for s in pack.segs]}, n_blocks = "
+        f"{[s['n_blocks'] for s in pack.segs]} of {cfg.block_rows} rows, "
+        f"block tables {tables} B, qimp {qimp} B ({cfg.bits}-bit), scales "
+        f"{[s['scale'] for s in pack.segs]}, bound_per_term "
+        f"{pack.bound_per_term}; host quantization and upload {setup_s:.2f} "
+        f"s (set-up, untimed); {reader_bytes(reader)}; host memory: "
+        f"{host_memory()}")
+    n_docs, df = len(data["lens"]), data["df"]
+    lo_df = max(2, int(2e-5 * n_docs))
+    hi_df = max(lo_df + 2, int(2e-4 * n_docs))
+    cand = np.nonzero((df >= lo_df) & (df <= hi_df))[0]
+    if cand.size < PRUNED_TERMS:            # as bench.py falls back
+        cand = np.nonzero(df > 0)[0]
+    data.update(
+        impact_searcher=searcher, impact_pack=pack,
+        q_pruned=np.random.default_rng([args.seed, 7]).choice(
+            cand, size=(PRUNED_BATCHES * PRUNED_BATCH, PRUNED_TERMS)).astype(
+                np.int32),
+        q_rescore=make_queries(np.random.default_rng([args.seed, 8]),
+                               RESCORE_BATCHES * RESCORE_BATCH, 4, df),
+        impact_df_band=(lo_df, hi_df))
+
+
+def impact_inputs(torch, data, rows):
+    """A batch's per-segment term ids, boosts (1.0) and no cursor, as the
+    lane makes them, from corpus term-id rows."""
+    from elasticsearch_tpu_torch.search import segment_exec
+    pack = data["impact_pack"]
+    names = data["term_names"]
+    term_lists = [[names[t] for t in row] for row in rows]
+    return segment_exec._impact_query_inputs(
+        pack, term_lists, [1.0] * len(rows), [None] * len(rows),
+        pack.scales.device)
+
+
+def scan_bytes(torch, uterms, tids) -> int:
+    """Bytes a row scan must read: each row's term ids up to its first pad
+    (one pad cell past the last term), and the 2-byte impact of every cell
+    holding a term of the batch."""
+    n, u = uterms.shape
+    cells = int(torch.clamp((uterms >= 0).sum(dim=1) + 1, max=u).sum())
+    hits = int(torch.isin(uterms, tids[tids >= 0].unique()).sum())
+    return cells * 4 + hits * 2
+
+
+def check_k6(torch, blockmax, a, trailing_pad, what):
+    got = blockmax.impact_scores_batch(*a, trailing_pad=trailing_pad)
+    want = blockmax.impact_scores_batch_plain(*a)
+    torch.cuda.synchronize()
+    check(torch.equal(got[1], want[1]), f"K6 valid differs from its plain "
+          f"version ({what})")
+    check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+          f"K6 scores are not bit-identical to its plain version ({what})")
+    return got
+
+
+def check_k7(torch, blockmax, carry, seg_args, what):
+    got = blockmax.blockmax_sweep(carry, *seg_args, trailing_pad=True)
+    want = blockmax.blockmax_sweep_plain(carry, *seg_args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("top scores", "top docs", "scored", "skipped",
+                           "matched"), got, want):
+        check(torch.equal(g.view(torch.int32), w.view(torch.int32)),
+              f"K7 {name} differ from its plain version ({what})")
+    return got
+
+
+def sweep_args(torch, blockmax, s, qtids, sb, k, cs=None, cd=None):
+    """K7's arguments for one segment: the bounds and the sweep order
+    (torch ops), no cursor unless given."""
+    qtids = qtids.contiguous()
+    b = qtids.shape[0]
+    dev = qtids.device
+    cs = torch.full((b,), float("inf"), device=dev) if cs is None else cs
+    cd = torch.full((b,), -1, dtype=torch.int32, device=dev) \
+        if cd is None else cd
+    ub_i = blockmax.block_bounds(s["block_max"], qtids)
+    ub_f, order = blockmax.sweep_order(ub_i, sb)
+    return (s["uterms"], s["qimp"], s["live"], ub_i, ub_f, order, qtids, sb,
+            cs, cd, k, s["doc_base"])
+
+
+def sweep_work(torch, s, seg_args, carry, out):
+    """The least work of one K7 launch on this run's data. The blocks a
+    query scores are the first ``scored`` of its order with ``ub_i > 0``:
+    the run test fails for good at the first block whose bound is below θ
+    (the order is by descending bound and θ only rises). Bytes: the union
+    of the batch's scored blocks, each read once (each row's term ids up to
+    its first pad, the impacts and live bytes of its rows that hold a
+    batch term), plus the bounds, the order and the carry, read and
+    written. Operations: a compare of every scanned cell with each of the
+    query's terms, over the (query, block) pairs scored.
+    → (bytes, compares, blocks in the union)."""
+    uterms = s["uterms"]
+    n, u = uterms.shape
+    ub_i, ub_f, order, qtids = seg_args[3], seg_args[4], seg_args[5], \
+        seg_args[6]
+    nb = ub_i.shape[1]
+    r = n // nb
+    present = torch.gather(ub_i, 1, order.long()) > 0
+    n_scored = out[2] - carry[2]
+    runs = present & (torch.cumsum(present.int(), dim=1) <=
+                      n_scored[:, None])
+    check(int(runs.sum()) == int(n_scored.sum()),
+          "K7 scored more blocks than its order holds with a bound")
+    q_idx, j_idx = torch.nonzero(runs, as_tuple=True)
+    blocks = order.long()[q_idx, j_idx]
+    cells = torch.clamp((uterms >= 0).sum(dim=1) + 1, max=u)
+    hit = torch.isin(uterms, qtids[qtids >= 0].unique())
+    per_block = (cells * 4 + hit.sum(dim=1) * 2 + hit.any(dim=1)).view(
+        nb, r).sum(dim=1)
+    union = blocks.unique()
+    n_terms = (qtids >= 0).sum(dim=1)
+    ops = int((cells.view(nb, r).sum(dim=1)[blocks] * n_terms[q_idx]).sum())
+    small = sum(nbytes(x) for x in (ub_i, ub_f, order, qtids)) + \
+        2 * sum(nbytes(x) for x in carry)
+    return int(per_block[union].sum()) + small, ops, int(union.numel())
+
+
+def phase_impact_kernels(torch, args, data) -> list[dict]:
+    """K6 and K7 against their plain versions at the shapes the impact
+    phases give them and at odd shapes, timed beside the plain versions and
+    their bounds."""
+    from elasticsearch_tpu_torch.ops import blockmax
+    pack = data["impact_pack"]
+    s0, s1 = pack.segs[0], pack.segs[-1]
+    # ---- K6 at the eager shape: config 1's first batch on segment 0 ------
+    qtids, boosts, cs, cd = impact_inputs(torch, data,
+                                          data["qtids"][:args.batch])
+    sb = pack.scales[0] * boosts
+    a6 = (s0["uterms"], s0["qimp"], qtids[0], sb, s0["live"], cs, cd,
+          s0["doc_base"])
+    got6 = check_k6(torch, blockmax, a6, s0["trailing_pad"],
+                    "the eager shape")
+    n, u = s0["uterms"].shape
+    bsz, t = qtids[0].shape
+    k6_ms = timed(torch, "K6", lambda: blockmax.impact_scores_batch(
+        *a6, trailing_pad=s0["trailing_pad"]), reps=20)
+    k6_plain_ms = timed(torch, "K6 plain",
+                        lambda: blockmax.impact_scores_batch_plain(*a6),
+                        reps=1, warmup=0)
+    k6_bytes = scan_bytes(torch, s0["uterms"], qtids[0]) + \
+        nbytes(s0["live"]) + nbytes(got6[0]) + nbytes(got6[1])
+    k6_bound, k6_by = bound(k6_bytes, 2 * bsz * n)
+    log(f"K6 impact_scan [B={bsz}, N={n}, U={u}, T={t}, 16-bit]: "
+        f"bit-identical to plain; kernel_ms={k6_ms:.4f} "
+        f"plain_ms={k6_plain_ms:.4f} bound_ms={k6_bound:.4f} ({k6_by}: "
+        f"{k6_bytes} B) library_ms=null")
+    # ---- K6 at odd shapes: B = 3, N = 100,003, T = 5, 8 and 16 bits ------
+    rng = np.random.default_rng([args.seed, 9])
+    n_odd = min(n, 100_003)
+    dev = qtids[0].device
+    o_rows = make_queries(rng, 3, 5, data["df"])
+    o_tids = impact_inputs(torch, data, o_rows)[0][0]
+    o_tids[1, 4] = -1
+    o_tids[2, 3] = o_tids[2, 0]
+    zero_t = int(o_tids[0, 0])          # a term whose impacts are all 0
+    ut = s0["uterms"][:n_odd]
+    q32 = s0["qimp"][:n_odd].to(torch.int32)
+    q32[ut == zero_t] = 0
+    live = s0["live"][:n_odd].clone()
+    live[::7] = False
+    o_sb = torch.tensor([0.37, 1.5, 0.02], device=dev) * pack.scales[0]
+    inf = torch.full((3,), float("inf"), device=dev)
+    none = torch.full((3,), -1, dtype=torch.int32, device=dev)
+    for bits, qo in ((16, q32.to(torch.uint16)),
+                     (8, (q32 >> 8).to(torch.uint8))):
+        sf, valid = blockmax.impact_scores_batch_plain(
+            ut, qo, o_tids, o_sb, live, inf, none, s0["doc_base"])
+        o_cs, o_cd = inf.clone(), none.clone()
+        hits = torch.nonzero(valid[1]).flatten()
+        check(hits.numel() > 2, "the odd K6 query has no hits")
+        mid = int(hits[hits.numel() // 2])
+        o_cs[1], o_cd[1] = sf[1, mid], mid + s0["doc_base"]
+        for pad in (True, False):
+            check_k6(torch, blockmax, (ut, qo, o_tids, o_sb, live, o_cs,
+                                       o_cd, s0["doc_base"]), pad,
+                     f"B=3, N={n_odd}, T=5, {bits}-bit, trailing_pad={pad}")
+    log(f"K6 impact_scan [B=3, N={n_odd}, T=5]: bit-identical to plain at 8 "
+        f"and 16 bits, with and without the first-pad stop, with a term "
+        f"whose impacts are all 0, a cursor and dead rows")
+    # ---- K7 at the pruned shape: the first pruned batch, both segments ---
+    k = PRUNED_K
+    p_tids, p_boosts, _, _ = impact_inputs(torch, data,
+                                           data["q_pruned"][:PRUNED_BATCH])
+    carry = blockmax.pruned_carry_init(PRUNED_BATCH, k, dev)
+    seg_args = [sweep_args(torch, blockmax, s, p_tids[i],
+                           pack.scales[i] * p_boosts, k)
+                for i, s in enumerate(pack.segs)]
+    first = check_k7(torch, blockmax, carry, seg_args[0],
+                     "the pruned shape, segment 0")
+    out = check_k7(torch, blockmax, first, seg_args[-1],
+                   "the pruned shape, a carry from segment 0")
+    scored0 = int(first[2].sum())
+    k7_ms = timed(torch, "K7", lambda: blockmax.blockmax_sweep(
+        carry, *seg_args[0], trailing_pad=True), reps=10)
+    k7_plain_ms = timed(torch, "K7 plain", lambda: blockmax.blockmax_sweep_plain(
+        carry, *seg_args[0]), reps=1, warmup=0)
+    # the launch lasts as long as its longest sweep: the query that scores
+    # the most blocks, timed alone
+    per_q = sorted(first[2].tolist())
+    heavy = int(torch.argmax(first[2]))
+    alone = tuple(x[heavy:heavy + 1] if 3 <= i <= 9 else x
+                  for i, x in enumerate(seg_args[0]))
+    carry1 = blockmax.pruned_carry_init(1, k, dev)
+    k7_heavy_ms = timed(torch, "K7 heaviest query alone",
+                        lambda: blockmax.blockmax_sweep(
+                            carry1, *alone, trailing_pad=True), reps=10)
+    n_blocks = s0["n_blocks"]
+    k7_bytes, k7_ops, union = sweep_work(torch, s0, seg_args[0], carry,
+                                         first)
+    k7_bound, k7_by = bound(k7_bytes, k7_ops)
+    log(f"K7 blockmax_sweep [B={PRUNED_BATCH}, N={n}, {n_blocks} blocks of "
+        f"{n // n_blocks} rows, T={PRUNED_TERMS}, k={k}]: equal to plain "
+        f"(top-k, scored, skipped, matched), segment 0 and with its carry "
+        f"into segment {len(pack.segs) - 1}; segment 0 scored {scored0} and "
+        f"skipped {int(first[3].sum())} blocks of {PRUNED_BATCH * n_blocks} "
+        f"(a query: min {per_q[0]}, median {per_q[len(per_q) // 2]}, max "
+        f"{per_q[-1]}; the max alone {k7_heavy_ms:.4f} ms); "
+        f"kernel_ms={k7_ms:.4f} plain_ms={k7_plain_ms:.4f} "
+        f"bound_ms={k7_bound:.4f} ({k7_by}: {k7_bytes} B and {k7_ops} "
+        f"compares over the {union} distinct blocks some query scored) "
+        f"library_ms=null")
+    # ---- K7 at odd shapes ----------------------------------------------
+    one = [sweep_args(torch, blockmax, s, p_tids[i][:, :1],
+                      pack.scales[i] * p_boosts, 1000)
+           for i, s in enumerate(pack.segs)]
+    wide = check_k7(torch, blockmax, blockmax.pruned_carry_init(
+        PRUNED_BATCH, 1000, dev), one[0], "k = 1000, one rare term a query")
+    check_k7(torch, blockmax, wide, one[-1], "k = 1000 with a carry")
+    check(bool((wide[1][:, -1] == -1).all()),
+          "the k above the matches case has a full top-k")
+    check_k7(torch, blockmax, blockmax.pruned_carry_init(PRUNED_BATCH, 1,
+                                                         dev),
+             sweep_args(torch, blockmax, s0, p_tids[0],
+                        pack.scales[0] * p_boosts, 1), "k = 1")
+    high = (torch.full((PRUNED_BATCH, k), 1e9, device=dev), out[1].clone(),
+            out[2].clone(), out[3].clone(), out[4].clone())
+    skip = check_k7(torch, blockmax, high, seg_args[0], "every block skipped")
+    check(bool((skip[3] - high[3] == n_blocks).all()),
+          "a carry no block can reach did not skip every block")
+    log(f"K7 blockmax_sweep odd shapes: equal to plain at k = 1000 over one "
+        f"rare term (above every query's matches) with a carry, k = 1, and "
+        f"a carry that skips every block")
+    return [
+        {"name": "impact_scan", "route": "cuda", "source": K6_SOURCE,
+         "replaces": K6_REPLACES, "launches": 0, "max_abs_err": 0.0,
+         "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound,
+         "bound_by": k6_by, "library_ms": None,
+         "library_null": "no single torch call: a compare of every cell "
+                         "with the query terms, then a masked integer sum",
+         "shape": {"B": bsz, "N": n, "U": u, "T": t, "bits": 16}},
+        {"name": "blockmax_sweep", "route": "cuda", "source": K7_SOURCE,
+         "replaces": K7_REPLACES, "launches": 0, "max_abs_err": 0.0,
+         "ms": k7_ms, "plain_ms": k7_plain_ms, "bound_ms": k7_bound,
+         "bound_by": k7_by, "library_ms": None,
+         "library_null": "no single torch call: a data-dependent sweep "
+                         "whose block skips read the running k-th score",
+         "shape": {"B": PRUNED_BATCH, "N": n, "blocks": n_blocks,
+                   "T": PRUNED_TERMS, "k": k, "blocks_scored": scored0,
+                   "blocks_union": union,
+                   "blocks_a_query": [per_q[0], per_q[len(per_q) // 2],
+                                      per_q[-1]],
+                   "heaviest_alone_ms": k7_heavy_ms}},
+    ]
+
+
+def impact_postings(uterms, qimp, wanted):
+    """{term: (rows, impacts)} of one segment for each term of ``wanted``,
+    gathered in one pass over its forward columns."""
+    wanted = np.unique(wanted)
+    queried = np.zeros(max(int(uterms.max()), int(wanted.max())) + 2, bool)
+    queried[wanted] = True
+    rows, cols = np.nonzero(queried[uterms])
+    t = uterms[rows, cols]
+    q = qimp[rows, cols].astype(np.int64)
+    order = np.argsort(t, kind="stable")
+    t, rows, q = t[order], rows[order], q[order]
+    starts = np.searchsorted(t, wanted)
+    ends = np.searchsorted(t, wanted, side="right")
+    return {int(w): (rows[s:e], q[s:e]) for w, s, e in zip(wanted, starts,
+                                                          ends)}
+
+
+def segment_postings(data, rows):
+    """[(pack segment, its real rows, impact postings of the terms of
+    ``rows``)] — the host impacts are the pack's columns, the term ids the
+    corpus's (every segment holds the whole dictionary; segments are full
+    2^20-row ones but the last, so a segment's base is its first corpus
+    row)."""
+    out = []
+    for s in data["impact_pack"].segs:
+        lo = s["doc_base"]
+        ut = data["uterms"][lo:lo + s["np_docs"]]
+        out.append((s, ut.shape[0], impact_postings(
+            ut, s["col"].qimp[:ut.shape[0]], np.asarray(rows).reshape(-1))))
+    return out
+
+
+def impact_oracle(data, rows, k):
+    """An independent numpy recompute of the eager arm for each query (corpus
+    term-id rows, boost 1): per segment the integer sum of the host column's
+    impacts of the query's terms, ``f32(qsum) * (f32(scale) * f32(1.0))``,
+    the match mask; the top k by (score desc, doc asc) over global ids.
+    → [(global ids, f32 scores, total)]."""
+    seg_post = segment_postings(data, rows)
+    out = []
+    for row in rows:
+        sc, gid, total = [], [], 0
+        for s, nr, post in seg_post:
+            qsum = np.zeros(nr, np.int64)
+            hit = np.zeros(nr, bool)
+            for term in row:
+                r_, q_ = post[int(term)]
+                qsum[r_] += q_
+                hit[r_] = True
+            sb = np.float32(np.float32(s["scale"]) * np.float32(1.0))
+            sf = qsum.astype(np.float32) * sb
+            d = np.nonzero(hit)[0]
+            total += d.size
+            sc.append(sf[d])
+            gid.append(d + s["doc_base"])
+        sc, gid = np.concatenate(sc), np.concatenate(gid)
+        top = np.lexsort((gid, -sc))[:k]
+        out.append((gid[top], sc[top], total))
+    return out
+
+
+def check_impact_exact(label, results, oracle):
+    for qi, (res, (ids, scores, total)) in enumerate(zip(results, oracle)):
+        check(res.total == total, f"{label} query {qi}: total {res.total} "
+              f"!= the recompute's {total}")
+        check(np.array_equal(res.doc_ids, ids),
+              f"{label} query {qi}: ids differ from the numpy recompute")
+        check(np.array_equal(res.scores.view(np.int32),
+                             scores.astype(np.float32).view(np.int32)),
+              f"{label} query {qi}: scores are not bit-equal to the numpy "
+              f"recompute")
+
+
+def impact_bodies(data, rows, size, **extra):
+    names = data["term_names"]
+    return [{"query": {"match": {"body": " ".join(names[t] for t in row)}},
+             "size": size, **extra} for row in rows]
+
+
+def phase_impact_eager(torch, args, data, name, smi_line) -> dict:
+    """Config 1's requests on the impact index: the eager arm (K6 + K2)."""
+    searcher, pack = data["impact_searcher"], data["impact_pack"]
+    batches = batches_of(args, impact_bodies(
+        data, data["qtids"][:args.batches * args.batch], args.k))
+    results, per_batch, wall, launches, peak = drive(torch, searcher,
+                                                     batches)
+    stats = report("impact eager", args, data, batches, per_batch, wall,
+                   launches, peak, name, smi_line,
+                   ("impact_scan", "stable_topk"))
+    check(launches["blockmax_sweep"] == 0 and launches["bm25_scan"] == 0,
+          "the eager impact arm launched K7 or K1")
+    nq = CHECK_QUERIES
+    t0 = time.perf_counter()
+    oracle = impact_oracle(data, data["qtids"][:nq], args.k)
+    check_impact_exact("impact eager", results[0][:nq], oracle)
+    # against the float64 BM25: exact totals, every hit within the
+    # quantization bound, a top-k member up to it (bench.py:1851-1877)
+    cpu = cpu_scores(data["uterms"], data["utf"], data["lens"], data["df"],
+                     data["qtids"][:nq])
+    orig_of = gid_to_orig(data["reader"])
+    tol = pack.bound_per_term * args.terms + 1e-4
+    worst = 0.0
+    for qi, (res, s64) in enumerate(zip(results[0][:nq], cpu)):
+        matched = s64 > 0
+        check(res.total == int(matched.sum()), f"impact eager query {qi}: "
+              f"total {res.total} != CPU matches {int(matched.sum())}")
+        orig = orig_of[np.asarray(res.doc_ids, np.int64)]
+        dev = np.abs(res.scores.astype(np.float64) - s64[orig])
+        worst = max(worst, float(dev.max()) if dev.size else 0.0)
+        check(bool((dev <= tol).all()), f"impact eager query {qi}: a hit "
+              f"is {dev.max()} from its BM25 score, above {tol}")
+        kk = min(args.k, int(matched.sum()))
+        kth = np.partition(np.where(matched, s64, -np.inf), -kk)[-kk]
+        check(bool((s64[orig] >= kth - tol).all()), f"impact eager query "
+              f"{qi}: a hit is not a top-{args.k} member up to the bound")
+    log(f"impact eager: first {nq} queries bit-equal to a numpy recompute "
+        f"from the host impacts (ids, scores, totals); totals equal to the "
+        f"float64 match counts; every hit within {worst:.6f} of its float64 "
+        f"BM25 (bound {tol:.6f}) and a top-{args.k} member up to it "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return stats
+
+
+def phase_impact_pruned(torch, args, data, name, smi_line) -> dict:
+    """bench.py's impact_pruning requests: the block-max sweep (K7), held
+    bit for bit against the eager arm on the same requests with totals
+    tracked, its block counters reconciled batch by batch."""
+    from elasticsearch_tpu_torch.search import segment_exec
+    from elasticsearch_tpu_torch.search.phase import parse_search_request
+    searcher, pack = data["impact_searcher"], data["impact_pack"]
+    rows = data["q_pruned"]
+
+    def batches(**extra):
+        reqs = [parse_search_request(b) for b in impact_bodies(
+            data, rows, PRUNED_K, **extra)]
+        return [reqs[i:i + PRUNED_BATCH]
+                for i in range(0, len(reqs), PRUNED_BATCH)]
+    pruned_b = batches(track_total_hits=False)
+    results, per_batch, wall, launches, peak = drive(torch, searcher,
+                                                     pruned_b)
+    stats = report("impact pruned", args, data, pruned_b, per_batch, wall,
+                   launches, peak, name, smi_line, ("blockmax_sweep",))
+    check(launches["impact_scan"] == 0 and launches["bm25_scan"] == 0,
+          "the pruned impact arm launched K6 or K1")
+    eager_b = batches()
+    eager, per_eager, _, launches_e, _ = drive(torch, searcher, eager_b)
+    check(launches_e["impact_scan"] > 0 and launches_e["blockmax_sweep"] == 0,
+          "the eager arm on the pruned requests did not take K6")
+    for bi, (pr, ea) in enumerate(zip(results, eager)):
+        for qi, (p, e) in enumerate(zip(pr, ea)):
+            check(np.array_equal(p.doc_ids, e.doc_ids) and np.array_equal(
+                p.scores.view(np.int32), e.scores.view(np.int32)),
+                f"impact pruned batch {bi} query {qi}: not bit-identical "
+                f"to the eager arm")
+    scored = skipped = 0
+    for bi, batch in enumerate(pruned_b):
+        st0 = segment_exec.impact_index_stats(IMPACT_INDEX)
+        check(searcher.query_phase_batch(batch) is not None,
+              "the pruned batch declined")
+        st1 = segment_exec.impact_index_stats(IMPACT_INDEX)
+        d_sc = st1["blocks_scored"] - st0["blocks_scored"]
+        d_sk = st1["blocks_skipped"] - st0["blocks_skipped"]
+        check(d_sc + d_sk == len(batch) * pack.total_blocks,
+              f"impact pruned batch {bi}: scored {d_sc} + skipped {d_sk} "
+              f"!= {len(batch)} x {pack.total_blocks} blocks")
+        scored += d_sc
+        skipped += d_sk
+    n_docs, df = len(data["lens"]), data["df"]
+    r = n_docs // pack.total_blocks
+    p_t = 1.0 - (1.0 - df[rows].astype(np.float64) / n_docs) ** r
+    pred_occ = float(np.mean(1.0 - np.prod(1.0 - p_t, axis=1)))
+    stats.update(skip_ratio=skipped / (scored + skipped),
+                 predicted_occupied_frac=pred_occ,
+                 eager_p50_ms=statistics.median(per_eager))
+    log(f"impact pruned: {PRUNED_BATCHES} batches of {PRUNED_BATCH} x "
+        f"{PRUNED_TERMS} terms with df in {data['impact_df_band']}, k = "
+        f"{PRUNED_K}: top-k bit-identical to the eager arm; blocks scored "
+        f"{scored} + skipped {skipped} = batch x {pack.total_blocks} in "
+        f"every batch; skip ratio {stats['skip_ratio']:.4f}, bench.py's "
+        f"predicted_occupied_frac {pred_occ:.4f}; ms a batch: pruned p50 "
+        f"{stats['p50_ms']:.3f} (batches {', '.join(f'{x:.3f}' for x in per_batch)}),"
+        f" eager p50 {stats['eager_p50_ms']:.3f} (batches "
+        f"{', '.join(f'{x:.3f}' for x in per_eager)})")
+    return stats
+
+
+def rescore_oracle(data, rows, size):
+    """The rescore arm recomputed in numpy: the eager oracle's top
+    max(size, window) by the first two terms, each candidate's impact sum
+    of the last two in its segment, the window combine in the JAX body's
+    f32 order and the window re-sort; cut to ``size``."""
+    prim = impact_oracle(data, [r[:2] for r in rows],
+                         max(size, RESCORE_WINDOW))
+    sec_post = segment_postings(data, [r[2:] for r in rows])
+    qw, rw = np.float32(RESCORE_QW), np.float32(RESCORE_RW)
+    out = []
+    for row, (ids, s, total) in zip(rows, prim):
+        sec = np.zeros(len(ids), np.float32)
+        hit = np.zeros(len(ids), bool)
+        for s_, nr, post in sec_post:
+            local = ids - s_["doc_base"]
+            inside = (local >= 0) & (local < nr)
+            qsum = np.zeros(len(ids), np.int64)
+            h = np.zeros(len(ids), bool)
+            for term in row[2:]:
+                r_, q_ = post[int(term)]        # rows ascending
+                if not r_.size:
+                    continue
+                pos = np.minimum(np.searchsorted(r_, local), r_.size - 1)
+                found = inside & (r_[pos] == local)
+                qsum[found] += q_[pos[found]]
+                h |= found
+            sb = np.float32(np.float32(s_["scale"]) * np.float32(1.0))
+            sec = sec + np.where(inside, qsum.astype(np.float32) * sb,
+                                 np.float32(0.0)).astype(np.float32)
+            hit |= h & inside
+        w = min(RESCORE_WINDOW, len(ids))
+        prim_s = (s * qw).astype(np.float32)
+        comb = np.where(hit, (prim_s + (sec * rw).astype(np.float32))
+                        .astype(np.float32), prim_s)
+        new_w = comb[:w]
+        order = np.lexsort((ids[:w], -new_w))
+        new_ids = np.concatenate([ids[:w][order], ids[w:]])
+        new_s = np.concatenate([new_w[order], s[w:]]).astype(np.float32)
+        out.append((new_ids[:size], new_s[:size], total))
+    return out
+
+
+def phase_impact_rescore(torch, args, data, name, smi_line) -> dict:
+    """bench.py's planner_fusion request shape on this corpus: the impact ->
+    rescore arm, held bit for bit against a numpy recompute."""
+    from elasticsearch_tpu_torch.search.phase import parse_search_request
+    names = data["term_names"]
+    rows = data["q_rescore"]
+    size = 10
+    bodies = [{"query": {"match": {"body": f"{names[r[0]]} {names[r[1]]}"}},
+               "size": size,
+               "rescore": {"window_size": RESCORE_WINDOW, "query": {
+                   "rescore_query": {"match": {
+                       "body": f"{names[r[2]]} {names[r[3]]}"}},
+                   "query_weight": RESCORE_QW,
+                   "rescore_query_weight": RESCORE_RW,
+                   "score_mode": "total"}}} for r in rows]
+    reqs = [parse_search_request(b) for b in bodies]
+    batches = [reqs[i:i + RESCORE_BATCH]
+               for i in range(0, len(reqs), RESCORE_BATCH)]
+    results, per_batch, wall, launches, peak = drive(
+        torch, data["impact_searcher"], batches)
+    stats = report("impact rescore", args, data, batches, per_batch, wall,
+                   launches, peak, name, smi_line,
+                   ("impact_scan", "stable_topk"))
+    check(launches["blockmax_sweep"] == 0 and launches["bm25_scan"] == 0,
+          "the rescore arm launched K7 or K1")
+    t0 = time.perf_counter()
+    want = rescore_oracle(data, rows, size)
+    check_impact_exact("impact rescore", [r for b in results for r in b],
+                       want)
+    log(f"impact rescore: {len(rows)} requests (window {RESCORE_WINDOW}, "
+        f"weights {RESCORE_QW} / {RESCORE_RW}, total) bit-equal to a numpy "
+        f"recompute: the eager top-{max(size, RESCORE_WINDOW)}, the "
+        f"secondary impact sums, the f32 window combine and re-sort "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return stats
+
+
+def impact_plan(torch, data, pruned: bool):
+    """The impact lane's host planning of a batch: the eligibility screen
+    (impact_terms), the per-segment term ids and constants, and for the
+    sweep the block bounds and the order (device work, synchronized)."""
+    from elasticsearch_tpu_torch.ops import blockmax
+    from elasticsearch_tpu_torch.search import segment_exec
+    from elasticsearch_tpu_torch.search.execute import impact_terms
+    searcher, pack = data["impact_searcher"], data["impact_pack"]
+
+    def plan(batch):
+        specs = [impact_terms(r.query, searcher.mapper_service)
+                 for r in batch]
+        qtids, boosts, _, _ = segment_exec._impact_query_inputs(
+            pack, [s[1] for s in specs], [s[2] for s in specs],
+            [None] * len(batch), pack.scales.device)
+        if pruned:
+            for i, s in enumerate(pack.segs):
+                ub_i = blockmax.block_bounds(s["block_max"], qtids[i])
+                blockmax.sweep_order(ub_i, pack.scales[i] * boosts)
+        torch.cuda.synchronize()
+    return plan
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1 << 21,
@@ -1753,9 +2401,19 @@ def main(argv=None) -> int:
         stats_m, stats_mi = phase_maxsim(torch, args, mdata, name, smi_line)
         k5s[0]["launches"] = stats_m["launches"]["maxsim"]
         k5s[1]["launches"] = stats_mi["launches"]["maxsim_int8"]
+        # the impact lane
+        phase_impact_setup(torch, args, data)
+        k67 = phase_impact_kernels(torch, args, data)
+        kernels.extend(k67)
+        stats_ie = phase_impact_eager(torch, args, data, name, smi_line)
+        stats_ip = phase_impact_pruned(torch, args, data, name, smi_line)
+        stats_ir = phase_impact_rescore(torch, args, data, name, smi_line)
+        k67[0]["launches"] = stats_ie["launches"]["impact_scan"]
+        k67[1]["launches"] = stats_ip["launches"]["blockmax_sweep"]
         by_config = {"2": stats2, "3": stats3, "4": stats4, "4-int8": stats4i,
                      "hybrid": stats_h, "maxsim": stats_m,
-                     "maxsim-int8": stats_mi}
+                     "maxsim-int8": stats_mi, "impact-eager": stats_ie,
+                     "impact-pruned": stats_ip, "impact-rescore": stats_ir}
         for kern in kernels:
             kern["launches_by_config"] = {
                 cfg: st["launches"][kern["name"]]
@@ -1769,6 +2427,14 @@ def main(argv=None) -> int:
                       knn_bodies(data["qvh"][:args.batch], data["texts"]))
         phase_profile(torch, args, mdata, "MaxSim f32",
                       maxsim_bodies(mdata["queries"][:args.batch]))
+        phase_profile(torch, args, data, "impact eager", impact_bodies(
+            data, data["qtids"][:args.batch], args.k),
+            searcher=data["impact_searcher"],
+            plan=impact_plan(torch, data, pruned=False))
+        phase_profile(torch, args, data, "impact pruned", impact_bodies(
+            data, data["q_pruned"][:PRUNED_BATCH], PRUNED_K,
+            track_total_hits=False), searcher=data["impact_searcher"],
+            plan=impact_plan(torch, data, pruned=True))
     except Exception as e:                  # noqa: BLE001 — report, then fail
         traceback.print_exc()
         print(f"[chip_smoke] FAILED: {type(e).__name__}: {e}",

@@ -7,6 +7,10 @@ multi-vector (rank_vectors) columns, ids, sources, and the reader's live
 mask beside it. :func:`segment_from_arrays` rebuilds
 the port's :class:`Segment` from those arrays — numpy and lists only, nothing of the
 JAX package — so both packages can score the very same index.
+:func:`impact_column_from_arrays` does the same for an impact column (the
+impact lane's quantized impacts and block maxima), and
+:func:`install_impact_column` puts one in a port segment's impact cache, so
+both packages' impact lanes can run on the very same column.
 """
 
 from __future__ import annotations
@@ -14,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 
 from elasticsearch_tpu_torch.index.segment import (
-    KeywordFieldColumn, MultiVectorFieldColumn, NumericFieldColumn, Segment,
-    VectorFieldColumn)
+    ImpactColumn, KeywordFieldColumn, MultiVectorFieldColumn,
+    NumericFieldColumn, Segment, VectorFieldColumn)
 
 
 def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
@@ -74,6 +78,38 @@ def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
             vecs=vecs, lens=_rows(lens, np.int32, padded, name),
             exists=exists, dims=int(vecs.shape[2]) if exists.any() else 0)
     return seg, live.copy()
+
+
+def impact_column_from_arrays(*, qimp: np.ndarray,
+                              block_max: np.ndarray | None, scale: float,
+                              bits: int, block_rows: int, doc_count: int,
+                              avgdl: float, k1: float, b: float,
+                              quant_gen: int = 0) -> ImpactColumn:
+    """→ the port's ImpactColumn holding a column's arrays: ``qimp`` [Np, U]
+    and ``block_max`` [NB, V] (None: over budget) in the dtype of ``bits``,
+    and its quantization snapshot."""
+    dtype = {8: np.uint8, 16: np.uint16}[int(bits)]
+    return ImpactColumn(
+        qimp=np.ascontiguousarray(qimp, dtype=dtype),
+        block_max=None if block_max is None
+        else np.ascontiguousarray(block_max, dtype=dtype),
+        scale=float(scale), bits=int(bits), block_rows=int(block_rows),
+        doc_count=int(doc_count), avgdl=float(avgdl), k1=float(k1),
+        b=float(b), quant_gen=int(quant_gen))
+
+
+def install_impact_column(seg: Segment, field: str, icol: ImpactColumn, *,
+                          block_rows: int) -> None:
+    """Put ``icol`` in ``seg``'s impact cache as the column of ``field``
+    under an index configured with ``block_rows`` (the config's, which the
+    column's own may undercut on a small segment): the impact lane then
+    scores with it instead of building its own."""
+    if icol.qimp.shape != seg.text_fields[field].uterms.shape:
+        raise ValueError(
+            f"impact column {icol.qimp.shape} does not match the segment's "
+            f"[{field}] rows {seg.text_fields[field].uterms.shape}")
+    cache = seg.__dict__.setdefault("_impact_cache", {})
+    cache[(field, icol.bits, int(block_rows), icol.k1, icol.b)] = icol
 
 
 def _rows(a, dtype, padded: int, name: str) -> np.ndarray:

@@ -20,7 +20,10 @@ one copy per (segment, field, quantization) (:meth:`DeviceReader.
 fetch_vectors`), L2-normalized (f32) or also int8-quantized on the host on
 the way, with no host copy kept; its [N] ``exists`` mask (and a
 rank_vectors field's token counts) go with the reader, as in the JAX
-package. Geo, shape and nested
+package. An impact-lane index's quantized columns (``ImpactColumn``: the
+impacts and the block maxima) go to the device the same way, at the lane's
+first request, one copy per (segment, field, bits, block rows, quantization
+generation) (:meth:`DeviceReader.fetch_impacts`). Geo, shape and nested
 columns stay host-side on the segment (``DeviceSegment.seg``): no query this
 port serves reads them yet.
 
@@ -121,6 +124,17 @@ class DeviceMultiVectorField(DeviceVectorField):
 
 
 @dataclass
+class DeviceImpacts:
+    """One segment's impact column on the device: the quantized impacts
+    ``qimp`` [Np, U] (uint8 / uint16, the layout of ``uterms``) and the block
+    maxima [NB, V] (None when the host build dropped them over budget), of
+    one quantization generation."""
+    quant_gen: int
+    qimp: torch.Tensor
+    block_max: torch.Tensor | None
+
+
+@dataclass
 class DeviceSegment:
     seg: Segment
     live: torch.Tensor              # [Np] bool (padding & deletes False)
@@ -130,6 +144,10 @@ class DeviceSegment:
     numeric: dict[str, DeviceNumericField]
     vector: dict[str, DeviceVectorField] = field(default_factory=dict)
     mvector: dict[str, DeviceMultiVectorField] = field(default_factory=dict)
+    # the impact lane's quantized columns, put on the device at first use
+    # (DeviceReader.fetch_impacts): (field, bits, block_rows, k1, b) →
+    # DeviceImpacts
+    impacts: dict = field(default_factory=dict)
 
     @property
     def padded_docs(self) -> int:
@@ -238,6 +256,26 @@ class DeviceReader:
                 col.vecs = self._put(_normalized(col.column.vecs))
         return col
 
+    def fetch_impacts(self, seg: DeviceSegment, field: str,
+                      icol) -> DeviceImpacts:
+        """Put the impact column ``icol`` (index/segment.ImpactColumn) of
+        ``seg``'s ``field`` on the device: one copy per (segment, field,
+        bits, block rows, BM25 k1 and b, quantization generation) — the key
+        of the host column it uploads. A later call with the same
+        generation finds it; a new generation (the statistics drifted and
+        the host column was requantized) replaces the old copy."""
+        key = (field, icol.bits, icol.block_rows, float(icol.k1),
+               float(icol.b))
+        with self._lazy_lock:
+            cur = seg.impacts.get(key)
+            if cur is None or cur.quant_gen != icol.quant_gen:
+                cur = DeviceImpacts(
+                    quant_gen=icol.quant_gen, qimp=self._put(icol.qimp),
+                    block_max=None if icol.block_max is None
+                    else self._put(icol.block_max))
+                seg.impacts[key] = cur
+        return cur
+
     def device_bytes(self) -> int:
         """Bytes of the tensors this reader placed on its device."""
         total = 0
@@ -256,6 +294,8 @@ class DeviceReader:
             for c in s.mvector.values():
                 tensors += [t for t in (c.lens, c.exists, c.vecs, c.qvecs)
                             if t is not None]
+            for c in s.impacts.values():
+                tensors += [t for t in (c.qimp, c.block_max) if t is not None]
             total += sum(t.numel() * t.element_size() for t in tensors)
         return total
 

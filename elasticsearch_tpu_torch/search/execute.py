@@ -146,9 +146,59 @@ class ExecutionContext:
     # "doc_count": {field: int}, "avgdl": {field: float}}. When set, idf
     # and avgdl come from here instead of the shard-local reader.
     dfs_stats: dict | None = None
-    # the shard's index name: the knn lane reads its index.knn.* settings
-    # by it (segment_exec.knn_plane_config)
+    # the shard's index name: the knn and impact lanes read their settings
+    # by it (segment_exec.knn_plane_config, impact_plane_config)
     index_name: str | None = None
+
+
+def impact_terms(query: "q.Query", mapper_service,
+                 max_terms: int = 64) -> tuple | None:
+    """Impact-lane eligibility: can this query be scored from the quantized
+    per-(term, doc) impact columns alone?
+
+    The precomputed impacts bake idf·tfNorm for default-BM25 OR-semantics
+    term scoring — the disjunctive match / term shapes on a text field and
+    nothing else. → (field, analyzed terms, boost) when eligible, None
+    otherwise (operators, msm, other similarities, negative boosts and
+    every other shape stay on the exact scorer). Mapping only: no segment
+    is read."""
+    t = type(query).__name__
+    if t == "TermQuery":
+        fm = mapper_service.field_mapper(query.field)
+        if fm is None or getattr(fm, "kind", None) != "text":
+            return None
+        # term on a text field scores like a single-term match through the
+        # keyword analyzer (the _res_TermQuery rewrite)
+        query = q.MatchQuery(field=query.field, text=str(query.value),
+                             analyzer="keyword", boost=query.boost)
+        t = "MatchQuery"
+    if t != "MatchQuery":
+        return None
+    field = query.field
+    if field in ("*", "_all"):
+        return None
+    fm = mapper_service.field_mapper(field)
+    if fm is None or getattr(fm, "kind", None) != "text":
+        return None
+    sim = fm.params.get("similarity") or \
+        getattr(mapper_service, "default_similarity", None)
+    if str(sim or "BM25").lower() not in ("bm25",):
+        return None
+    if query.operator == "and" or \
+            query.minimum_should_match not in (None, 1):
+        return None
+    if not (query.boost >= 0):            # a negative boost flips the order:
+        return None                       # the block bounds would invert
+    if query.analyzer:
+        analyzer = mapper_service.analysis.get(query.analyzer)
+    else:
+        analyzer = fm.search_analyzer
+    if analyzer is None:
+        return None
+    terms = [tok.term for tok in analyzer.analyze(query.text)]
+    if not terms or len(terms) > max_terms:
+        return None
+    return field, terms, float(query.boost)
 
 
 class SegmentResolver:

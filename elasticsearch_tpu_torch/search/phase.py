@@ -18,8 +18,14 @@ time through :meth:`ShardSearcher.query_phase` (which also takes
 ``post_filter``, ``min_score`` and ``search_after``), and the top-level
 ``knn`` section (dense cosine in f32 or int8, rank_vectors MaxSim, alone or
 fused with a ``query`` by RRF or a weighted sum) through the knn lane of
-``segment_exec``. Aggregations, field sort, rescore, suggest,
-terminate_after, timeout, highlight and script fields are refused with
+``segment_exec``. On an index that opted into the impact lane
+(``index.search.impact_plane``), a batch the lane admits is served from the
+quantized impact columns, as the JAX package's planner orders its arms: the
+impact → rescore arm (a batch carrying ``rescore``), then the impact arm
+(eager, or the block-max sweep when no request tracks its total), then the
+exact arm. An arm that declines hands the batch to the next. Aggregations,
+field sort, suggest, terminate_after, timeout, highlight, script fields and
+a ``rescore`` that the impact lane does not admit are refused with
 :class:`NotPortedError`.
 """
 
@@ -36,8 +42,20 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.index.device_reader import DeviceReader
 from elasticsearch_tpu_torch.ops import topk as topk_ops
 from elasticsearch_tpu_torch.search import query_dsl as q, segment_exec
-from elasticsearch_tpu_torch.search.execute import ExecutionContext
+from elasticsearch_tpu_torch.search.execute import (
+    ExecutionContext, impact_terms)
 from elasticsearch_tpu_torch.search.query_dsl import parse_query
+
+
+@dataclass
+class RescoreSpec:
+    """One rescore pass (QueryRescorer): re-rank the top ``window_size``
+    hits by combining the primary score with a rescore-query score."""
+    query: q.Query
+    window_size: int = 10
+    query_weight: float = 1.0
+    rescore_query_weight: float = 1.0
+    score_mode: str = "total"          # total | multiply | avg | max | min
 
 
 @dataclass
@@ -62,6 +80,7 @@ class ParsedSearchRequest:
     # top-level "knn" search section (dense / late-interaction lane;
     # combined with `query` → hybrid fusion)
     knn: q.KnnSection | None = None
+    rescore: list[RescoreSpec] = field(default_factory=list)
 
 
 def parse_search_request(body: dict | None) -> ParsedSearchRequest:
@@ -80,7 +99,7 @@ def parse_search_request(body: dict | None) -> ParsedSearchRequest:
                              for k, v in s.items()})
     if body.get("knn") is not None:
         _check_knn_combination(body, req.sort)
-    for key in ("aggs", "aggregations", "suggest", "rescore"):
+    for key in ("aggs", "aggregations", "suggest"):
         if body.get(key):
             raise NotPortedError(f"[{key}] is not ported yet")
     if "post_filter" in body:
@@ -115,6 +134,29 @@ def parse_search_request(body: dict | None) -> ParsedSearchRequest:
     if body.get("timeout") is not None:
         from elasticsearch_tpu_torch.common.settings import parse_time_value
         req.timeout_ms = parse_time_value(body["timeout"], "timeout") * 1000.0
+    raw_rescore = body.get("rescore")
+    if raw_rescore:
+        if isinstance(raw_rescore, dict):
+            raw_rescore = [raw_rescore]
+        for spec in raw_rescore:
+            inner = spec.get("query", {})
+            if "rescore_query" not in inner:
+                raise QueryParsingError("rescore requires [rescore_query]")
+            mode = str(inner.get("score_mode", "total")).lower()
+            if mode not in ("total", "multiply", "avg", "max", "min"):
+                raise QueryParsingError(
+                    f"illegal rescore score_mode [{mode}]")
+            req.rescore.append(RescoreSpec(
+                query=parse_query(inner["rescore_query"]),
+                window_size=int(spec.get("window_size", 10)),
+                query_weight=float(inner.get("query_weight", 1.0)),
+                rescore_query_weight=float(
+                    inner.get("rescore_query_weight", 1.0)),
+                score_mode=mode))
+        if req.sort:
+            raise QueryParsingError(
+                "rescore cannot be combined with sort (QueryRescorer "
+                "re-ranks by score)")
     if body.get("knn") is not None:
         req.knn = q.parse_knn_section(body["knn"])
         req.knn.hybrid = "query" in body
@@ -160,13 +202,15 @@ def _not_ported_features(req: ParsedSearchRequest) -> list[str]:
     ) if cond]
 
 
-def _top_k_window(reqs: list[ParsedSearchRequest]) -> int:
-    """Hits a shard collects for the batch: the largest from + size."""
+def _top_k_window(reqs: list[ParsedSearchRequest], windows=()) -> int:
+    """Hits a shard collects for the batch: the largest from + size (or
+    rescore window)."""
     k = max(max(req.from_ + req.size, 1) for req in reqs)
+    k = max([k, *windows])
     if k > topk_ops.MAX_K:
         raise NotPortedError(
-            f"from + size [{k}] is above the port's top-k limit "
-            f"[{topk_ops.MAX_K}]")
+            f"from + size (or the rescore window) [{k}] is above the "
+            f"port's top-k limit [{topk_ops.MAX_K}]")
     return k
 
 
@@ -216,6 +260,10 @@ class ShardSearcher:
         fast = self.query_phase_batch([req])
         if fast is not None:
             return fast[0]
+        if req.rescore:
+            raise NotPortedError(
+                "[rescore] is ported only on the impact lane: this request "
+                "is not one the lane admits")
         k = _top_k_window([req])
         outs = [(seg, segment_exec.run_segment(
             seg, self.ctx, req.query, post_filter=req.post_filter,
@@ -246,16 +294,27 @@ class ShardSearcher:
     def query_phase_batch_launch(self, reqs: list[ParsedSearchRequest]):
         """Phase 1: eligibility screen and the device work, without waiting
         for it. → an opaque handle for :meth:`query_phase_batch_drain`, or
-        None when the batch is ineligible. (The JAX package's planner picks
-        among several arms here; this port has the exact arm only.)"""
+        None when the batch is ineligible.
+
+        The arms in the JAX planner's tier order: an all-knn batch takes
+        the knn lane (a mixed batch declines: the caller serves each request
+        alone); otherwise the impact → rescore arm when a request carries
+        ``rescore``, then the impact arm, then the exact arm, each arm's
+        decline (None) handing the batch to the next. An error on the card
+        propagates: no arm falls back on one."""
         if not reqs:
             return ("empty", [])
-        # an all-knn batch takes the knn lane; a mixed batch declines (the
-        # caller serves each request alone, on its own lane)
         if any(r.knn is not None for r in reqs):
             if not all(r.knn is not None for r in reqs):
                 return None
             return self._knn_batch_launch(reqs)
+        if any(r.rescore for r in reqs):
+            handle = self._rescore_batch_launch(reqs)
+            if handle is not None:
+                return handle
+        handle = self._impact_batch_launch(reqs)
+        if handle is not None:
+            return handle
         return self._exact_batch_launch(reqs)
 
     def _exact_batch_launch(self, reqs: list):
@@ -263,7 +322,7 @@ class ShardSearcher:
         for req in reqs:
             if _not_ported_features(req) or req.post_filter is not None \
                     or req.min_score is not None \
-                    or req.search_after is not None:
+                    or req.search_after is not None or req.rescore:
                 return None
         k = _top_k_window(reqs)
         if not self.reader.segments:
@@ -277,6 +336,135 @@ class ShardSearcher:
         if out is None:                   # mixed plan signatures
             return None
         return ("device", reqs, k, pack, out)
+
+    # -- the impact lane (index.search.impact_plane) --------------------------
+
+    def _impact_batch_launch(self, reqs: list):
+        """The impact arm: serve the batch from the quantized impact columns
+        (segment_exec.run_impact_batch), by the block-max sweep when no
+        request tracks its total (run_impact_pruned). → a drain handle, or
+        None when the index did not opt in or the batch is not the lane's;
+        a decline is counted under its reason
+        (segment_exec.note_impact_fallback)."""
+        cfg = segment_exec.impact_plane_config(self.ctx.index_name)
+        if cfg is None or not self.reader.segments:
+            return None
+        decline = segment_exec.note_impact_fallback
+        if self.ctx.dfs_stats is not None:
+            # impacts bake the reader's idf; DFS statistics would score
+            # with another
+            decline("dfs-stats")
+            return None
+        specs = []
+        for req in reqs:
+            if (_not_ported_features(req) or req.post_filter is not None
+                    or req.min_score is not None or req.rescore
+                    or req.explain):
+                decline("ineligible-shape")
+                return None
+            if req.search_after is not None and \
+                    len(req.search_after) not in (1, 2):
+                decline("ineligible-cursor")
+                return None
+            spec = impact_terms(req.query, self.mapper_service,
+                                max_terms=cfg.max_terms)
+            if spec is None:
+                decline("ineligible-query")
+                return None
+            specs.append(spec)
+        pack = self._impact_pack(cfg, {f for f, _, _ in specs})
+        if pack is None:
+            return None
+        k = _top_k_window(reqs)
+        term_lists = [terms for _, terms, _ in specs]
+        boosts = [boost for _, _, boost in specs]
+        prune = cfg.prune and all(req.track_total_hits is False
+                                  for req in reqs)
+        # the continuation compares QUANTIZED scores: a cursor the exact
+        # scorer (or another quantization) minted would skip or repeat hits
+        cursors = []
+        for req, terms, boost in zip(reqs, term_lists, boosts):
+            if req.search_after is None:
+                cursors.append(None)
+                continue
+            cur = segment_exec.verify_impact_cursor(pack, terms, boost,
+                                                    req.search_after)
+            if cur is None:
+                decline("cross-lane-cursor")
+                return None
+            cursors.append(cur)
+        prune = prune and pack.can_prune     # block tables over budget
+        run = segment_exec.run_impact_pruned if prune \
+            else segment_exec.run_impact_batch
+        packed = self.reader.max_doc < (1 << 24)
+        out = run(pack, term_lists, boosts, cursors, k=k, packed=packed)
+        return ("impact", reqs, k, packed, out, prune, pack.total_blocks)
+
+    def _impact_pack(self, cfg, fields: set, admit: bool = True):
+        """The screen both impact arms end with: their queries on one field
+        (else the decline ``mixed-fields``), then, when ``admit``, that
+        field's impact pack for this searcher's BM25 (else
+        ``no-impact-columns``). → the pack, or None."""
+        if len(fields) != 1:
+            segment_exec.note_impact_fallback("mixed-fields")
+            return None
+        if not admit:
+            return None
+        pack = segment_exec.impact_pack_for(
+            self.reader, next(iter(fields)), cfg, k1=self.ctx.bm25.k1,
+            b=self.ctx.bm25.b)
+        if pack is None:
+            segment_exec.note_impact_fallback("no-impact-columns")
+        return pack
+
+    def _rescore_batch_launch(self, reqs: list):
+        """The impact → rescore arm (segment_exec.run_impact_rescore): the
+        eager impact arm's candidates, their rescore-query scores and the
+        window combine and re-sort, all on the device. Admission: the index
+        opted into the impact lane; every request carries exactly one
+        rescore pass, with one score_mode for the batch; the query and the
+        rescore query are impact-scorable on one field; no cursor. → a
+        drain handle or None (the impact and exact arms then screen the
+        batch, and both decline a rescore)."""
+        cfg = segment_exec.impact_plane_config(self.ctx.index_name)
+        if cfg is None or not self.reader.segments or \
+                self.ctx.dfs_stats is not None:
+            return None
+        specs, specs2, windows, qws, rws, modes = [], [], [], [], [], []
+        for req in reqs:
+            if (len(req.rescore) != 1 or _not_ported_features(req)
+                    or req.post_filter is not None
+                    or req.min_score is not None or req.explain
+                    or req.search_after is not None):
+                return None
+            rs = req.rescore[0]
+            spec = impact_terms(req.query, self.mapper_service,
+                                max_terms=cfg.max_terms)
+            spec2 = impact_terms(rs.query, self.mapper_service,
+                                 max_terms=cfg.max_terms)
+            if spec is None or spec2 is None:
+                segment_exec.note_impact_fallback("ineligible-query")
+                return None
+            specs.append(spec)
+            specs2.append(spec2)
+            windows.append(int(rs.window_size))
+            qws.append(float(rs.query_weight))
+            rws.append(float(rs.rescore_query_weight))
+            modes.append(rs.score_mode)
+        # one score_mode a batch, screened after the field as the
+        # reference does
+        pack = self._impact_pack(
+            cfg, {f for f, _, _ in specs} | {f for f, _, _ in specs2},
+            admit=len(set(modes)) == 1)
+        if pack is None:
+            return None
+        k = _top_k_window(reqs, windows)
+        packed = self.reader.max_doc < (1 << 24)
+        out = segment_exec.run_impact_rescore(
+            pack, [t for _, t, _ in specs], [bo for _, _, bo in specs],
+            [t for _, t, _ in specs2], [bo for _, _, bo in specs2],
+            windows, qws, rws, modes[0], k=k, packed=packed)
+        return ("rescore", reqs, k, packed, out, False, pack.total_blocks)
 
     # -- dense / late-interaction lane (top-level "knn" section) ------------
 
@@ -364,14 +552,28 @@ class ShardSearcher:
                                      np.zeros(0, np.int32),
                                      np.zeros(0, np.float32), None, {},
                                      self.reader) for _ in reqs]
-        _, _, k, pack, out = handle
+        k, pack, out = handle[2], handle[3], handle[4]
         if pack:
-            ms, md, totals = topk_ops.unpack_batch_result(
-                out.cpu().numpy(), k)
+            host = out.cpu().numpy()
+            ms, md, totals = topk_ops.unpack_batch_result(host, k)
         else:
-            ms = out["top_scores"].cpu().numpy()
-            md = out["top_docs"].cpu().numpy()
-            totals = out["count"].cpu().numpy()
+            host = {name: v.cpu().numpy() for name, v in out.items()}
+            ms, md, totals = (host["top_scores"], host["top_docs"],
+                              host["count"])
+        if tag in ("impact", "rescore"):
+            pruned, total_blocks = handle[5], handle[6]
+            if pruned:
+                scored, skipped = (
+                    int(host[:, 2 * k + 1 + i].sum()) if pack
+                    else int(host[name].sum())
+                    for i, name in enumerate(("blocks_scored",
+                                              "blocks_skipped")))
+            else:
+                # the eager arm (and the rescore arm's first stage) scores
+                # every block
+                scored, skipped = total_blocks * len(reqs), 0
+            segment_exec.note_impact_served(self.ctx.index_name, len(reqs),
+                                            scored, skipped)
         if tag == "knn":
             return [self._result(bi, ms, md, totals, self._knn_limit(req))
                     for bi, req in enumerate(reqs)]

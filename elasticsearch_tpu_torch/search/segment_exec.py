@@ -30,10 +30,21 @@ and a request that also carries a ``query`` fuses the two candidate lists
 by RRF or a weighted sum (:func:`run_knn_hybrid_batch`). The vector columns
 go to the device at first use, one copy per (segment, field, quantization)
 (``DeviceReader.fetch_vectors``).
+
+The impact lane (the impact section of ``jit_exec.py``) serves an index that
+opted in (``index.search.impact_plane``) from quantized impact columns built
+on the host (``index/segment.build_impact_column``) and put on the device at
+first use (``DeviceReader.fetch_impacts``): the eager arm scores every row
+(kernel K6, then K2), the pruned arm sweeps the row blocks in descending
+bound order and skips those that cannot reach the running k-th score (kernel
+K7), and the rescore arm re-ranks the eager arm's window by a second impact
+query (:func:`run_impact_batch`, :func:`run_impact_pruned`,
+:func:`run_impact_rescore`).
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -41,6 +52,8 @@ import torch
 
 from elasticsearch_tpu_torch.common.errors import IllegalArgumentError
 from elasticsearch_tpu_torch.index.device_reader import DeviceSegment
+from elasticsearch_tpu_torch.index.segment import (
+    IMPACT_BITS, IMPACT_BLOCK_ROWS, build_impact_column)
 from elasticsearch_tpu_torch.ops import blockmax as blockmax_ops
 from elasticsearch_tpu_torch.ops import maxsim as maxsim_ops
 from elasticsearch_tpu_torch.ops import topk as topk_ops
@@ -551,3 +564,401 @@ def run_knn_hybrid_batch(reader, ctx: ExecutionContext, reqs: list,
     if packed:
         return topk_ops.pack_batch_result_body(ts, td, count)
     return {"top_scores": ts, "top_docs": td, "count": count}
+
+
+# --------------------------------------------------------------------------
+# The impact lane: opt-in per index (``index.search.impact_plane``). Requests
+# score from the quantized impact columns (index/segment.py ImpactColumn):
+# eagerly over every row (kernel K6, then K2), or, when no request of the
+# batch tracks its total, by the block-max sweep (kernel K7) that skips the
+# row blocks whose bound cannot reach the running k-th score. The rescore arm
+# runs the eager arm as its first stage, then scores the candidates against
+# the rescore query and re-sorts the window, all on the device. Counterpart
+# of the impact section of jit_exec.py; the mesh form is not ported.
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ImpactPlaneConfig:
+    """Per-index impact-lane knobs (``index.search.impact.*`` settings)."""
+    bits: int = 8
+    block_rows: int = 2048
+    prune: bool = True          # the block-max sweep when totals untracked
+    max_terms: int = 64         # the terms a query may carry
+
+
+#: index name → config for indices that opted in (absent: lane off)
+_impact_configs: dict[str, ImpactPlaneConfig] = {}
+_impact_lock = threading.Lock()
+#: decline reason → count
+_impact_fallback_reasons: dict[str, int] = {}
+#: index name → {"admissions", "blocks_scored", "blocks_skipped"}
+_impact_index_stats: dict[str, dict] = {}
+
+
+def validate_impact_settings(settings) -> tuple:
+    """Validate the ``index.search.impact.*`` knobs, raising the
+    create-index-time 400 (IllegalArgumentError) on a bad value.
+    → (bits, block_rows, max_terms)."""
+    get = settings.get if settings is not None else (lambda *_: None)
+
+    def setting(name, default):
+        raw = get(name, default)
+        try:
+            return int(default if raw is None or raw == "" else raw)
+        except (TypeError, ValueError):
+            raise IllegalArgumentError(
+                f"{name} must be an integer, got [{raw}]") from None
+
+    bits = setting("index.search.impact.bits", IMPACT_BITS)
+    if bits not in (8, 16):
+        raise IllegalArgumentError(
+            f"index.search.impact.bits must be 8 or 16, got {bits}")
+    block_rows = setting("index.search.impact.block_rows", IMPACT_BLOCK_ROWS)
+    if block_rows <= 0 or block_rows & (block_rows - 1):
+        raise IllegalArgumentError(
+            "index.search.impact.block_rows must be a power of two, "
+            f"got {block_rows}")
+    max_terms = setting("index.search.impact.max_terms", 64)
+    if max_terms < 1:
+        raise IllegalArgumentError(
+            f"index.search.impact.max_terms must be >= 1, got {max_terms}")
+    # the JAX body's packed (Σq·256 + matches) sum stays inside int32: T ≤
+    # 255 matches in a byte, and 16-bit impacts need T·65535·256 < 2³¹
+    cap = 127 if bits == 16 else 255
+    if max_terms > cap:
+        raise IllegalArgumentError(
+            f"index.search.impact.max_terms must be <= {cap} at {bits}-bit "
+            f"impacts, got {max_terms}")
+    return bits, block_rows, max_terms
+
+
+def configure_impact_plane(index_name: str, settings=None) -> None:
+    """Register (or, with the setting off, clear) an index's impact-lane
+    config from its settings; bad values raise (validate_impact_settings)."""
+    get = settings.get if settings is not None else (lambda *_: None)
+    raw = get("index.search.impact_plane", "false")
+    if str(raw).lower() not in ("true", "1"):
+        _impact_configs.pop(index_name, None)
+        return
+    bits, block_rows, max_terms = validate_impact_settings(settings)
+    _impact_configs[index_name] = ImpactPlaneConfig(
+        bits=bits, block_rows=block_rows, max_terms=max_terms,
+        prune=str(get("index.search.impact.prune", "true")).lower()
+        in ("true", "1"))
+
+
+def impact_plane_config(index_name: str | None) -> ImpactPlaneConfig | None:
+    if index_name is None:
+        return None
+    return _impact_configs.get(index_name)
+
+
+def note_impact_fallback(reason: str) -> None:
+    """One impact-lane decline (the batch goes on to the next arm)."""
+    with _impact_lock:
+        _impact_fallback_reasons[reason] = \
+            _impact_fallback_reasons.get(reason, 0) + 1
+
+
+def impact_fallback_reasons() -> dict:
+    with _impact_lock:
+        return dict(_impact_fallback_reasons)
+
+
+def note_impact_served(index_name: str | None, n_requests: int,
+                       blocks_scored: int, blocks_skipped: int) -> None:
+    """``n_requests`` served by the impact lane and the blocks its sweep
+    scored and skipped (the eager arm scores every block)."""
+    if not index_name:
+        return
+    with _impact_lock:
+        bucket = _impact_index_stats.setdefault(
+            index_name, {"admissions": 0, "blocks_scored": 0,
+                         "blocks_skipped": 0})
+        bucket["admissions"] += n_requests
+        bucket["blocks_scored"] += int(blocks_scored)
+        bucket["blocks_skipped"] += int(blocks_skipped)
+
+
+def impact_index_stats(index_name: str) -> dict:
+    """One index's impact-lane rollup (zeros when never admitted)."""
+    with _impact_lock:
+        bucket = dict(_impact_index_stats.get(index_name, {}))
+    out = {"admissions": bucket.get("admissions", 0),
+           "blocks_scored": bucket.get("blocks_scored", 0),
+           "blocks_skipped": bucket.get("blocks_skipped", 0)}
+    total = out["blocks_scored"] + out["blocks_skipped"]
+    out["skip_ratio"] = round(out["blocks_skipped"] / total, 4) \
+        if total else 0.0
+    return out
+
+
+class _ImpactPack:
+    """A reader's impact columns for one (field, config, k1, b): per segment
+    carrying the field, its device tensors (uterms, live, qimp, block_max)
+    and host column, plus each segment's dequant scale as an f32 tensor."""
+
+    __slots__ = ("field", "cfg", "segs", "can_prune",
+                 "total_blocks", "bound_per_term", "scales")
+
+    def __init__(self, field, cfg):
+        self.field = field
+        self.cfg = cfg
+        self.segs = []
+        self.can_prune = True
+        self.total_blocks = 0
+        self.bound_per_term = 0.0
+        self.scales = None      # [S] f32 on the reader's device
+
+
+def _impact_global_df(reader, field: str, col) -> np.ndarray:
+    """Reader-global df for one segment's term dictionary: its own df plus
+    every sibling segment's df of the same term, merged through the sorted
+    term dictionaries."""
+    df = np.asarray(col.df, np.int64).copy()
+    if not col.terms:
+        return df
+    terms = np.asarray(col.terms)
+    for other in reader.segments:
+        ocol = other.seg.text_fields.get(field)
+        if ocol is None or ocol is col or not ocol.terms:
+            continue
+        oterms = np.asarray(ocol.terms)
+        pos = np.minimum(np.searchsorted(oterms, terms), len(oterms) - 1)
+        hit = oterms[pos] == terms
+        df[hit] += np.asarray(ocol.df, np.int64)[pos[hit]]
+    return df
+
+
+def _host_impact_column(reader, dseg: DeviceSegment, field: str,
+                        cfg: ImpactPlaneConfig, k1: float, b: float,
+                        doc_count: int, avgdl: float):
+    """The host quantized column of one segment, cached ON the immutable
+    host Segment (reader swaps keep it). A cached column is reused while the
+    reader's statistics have drifted less than one quantization step from
+    its snapshot; beyond that the segment requantizes (a new
+    ``quant_gen``)."""
+    host = dseg.seg
+    col = host.text_fields.get(field)
+    if col is None:
+        return None
+    cache = host.__dict__.setdefault("_impact_cache", {})
+    ckey = (field, cfg.bits, cfg.block_rows, float(k1), float(b))
+    icol = cache.get(ckey)
+    if icol is not None:
+        if icol.drift_bound(doc_count, avgdl) <= icol.scale:
+            return icol
+        quant_gen = icol.quant_gen + 1
+    else:
+        quant_gen = 0
+    icol = build_impact_column(
+        col, df=_impact_global_df(reader, field, col), doc_count=doc_count,
+        avgdl=avgdl, k1=k1, b=b, bits=cfg.bits, block_rows=cfg.block_rows,
+        quant_gen=quant_gen)
+    cache[ckey] = icol
+    return icol
+
+
+def impact_pack_for(reader, field: str, cfg: ImpactPlaneConfig,
+                    k1: float = 1.2, b: float = 0.75) -> _ImpactPack | None:
+    """The impact pack of ``field`` for this reader, built at first use and
+    cached on the reader: each segment's host column (built, or reused from
+    the host segment) goes to the device once (DeviceReader.fetch_impacts).
+    None when no segment carries the field."""
+    packs = reader.__dict__.setdefault("_impact_packs", {})
+    pkey = (field, cfg.bits, cfg.block_rows, float(k1), float(b))
+    pack = packs.get(pkey)
+    if pack is not None:
+        return pack
+    st = reader.text_stats(field)
+    if st.docs_with_field <= 0:
+        return None
+    pack = _ImpactPack(field, cfg)
+    for dseg in reader.segments:
+        icol = _host_impact_column(reader, dseg, field, cfg, k1, b,
+                                   st.doc_count, st.avgdl)
+        if icol is None:
+            continue
+        dev = reader.fetch_impacts(dseg, field, icol)
+        text = dseg.text[field]
+        n_blocks = icol.qimp.shape[0] // icol.block_rows
+        pack.segs.append({
+            "uterms": text.uterms, "trailing_pad": text.trailing_pad,
+            "live": dseg.live, "qimp": dev.qimp, "block_max": dev.block_max,
+            "scale": float(icol.scale), "col": icol,
+            "host": dseg.seg.text_fields[field],
+            "np_docs": int(icol.qimp.shape[0]),
+            "doc_base": int(dseg.doc_base), "n_blocks": int(n_blocks)})
+        pack.total_blocks += int(n_blocks)
+        pack.bound_per_term = max(pack.bound_per_term, icol.bound_per_term)
+        if dev.block_max is None:
+            pack.can_prune = False
+    if not pack.segs:
+        return None
+    pack.scales = torch.tensor([s["scale"] for s in pack.segs],
+                               dtype=torch.float32, device=reader.device)
+    packs[pkey] = pack
+    return pack
+
+
+def verify_impact_cursor(pack: _ImpactPack, terms: list, boost: float,
+                         search_after) -> tuple | None:
+    """Admit a score-order ``search_after`` cursor to the impact lane only
+    when this quantization produced it: the cursor doc's quantized score,
+    rebuilt on the host from the pack's columns in the lane's arithmetic
+    (the integer sum, then ``f32(qsum) · (f32(scale) · f32(boost))``), must
+    equal the cursor score bit for bit as f32. A cursor of the exact scorer
+    (or of another quantization generation) essentially never does; a
+    score-only cursor carries nothing to check. → (score, doc) for the
+    continuation, or None (the batch declines: ``cross-lane-cursor``)."""
+    if len(search_after) != 2:
+        return None
+    doc = int(search_after[1])
+    want = np.float32(float(search_after[0]))
+    for s in pack.segs:
+        base = s["doc_base"]
+        if not base <= doc < base + s["np_docs"]:
+            continue
+        row = doc - base
+        ut = np.asarray(s["host"].uterms[row])
+        qi = s["col"].qimp[row].astype(np.int64)
+        qsum = 0
+        for term in terms:
+            tid = s["host"].tid(term)
+            if tid >= 0:
+                qsum += int(qi[ut == tid].sum())
+        scale_boost = np.float32(np.float32(s["scale"]) * np.float32(boost))
+        got = np.float32(np.float32(qsum) * scale_boost)
+        return (float(want), doc) if got == want else None
+    return None
+
+
+def _impact_query_inputs(pack: _ImpactPack, term_lists: list, boosts: list,
+                         cursors: list, device):
+    """The batch's per-segment term ids ([B, T] int32, -1 for a term the
+    segment lacks and past a query's own terms), boosts [B] f32 and cursors
+    (cs [B] f32, +inf for none; cd [B] int32, -1)."""
+    b = len(term_lists)
+    t = max(max(len(terms) for terms in term_lists), 1)
+    qtids = []
+    for s in pack.segs:
+        arr = np.full((b, t), -1, np.int32)
+        for bi, terms in enumerate(term_lists):
+            for ti, term in enumerate(terms):
+                arr[bi, ti] = s["host"].tid(term)
+        qtids.append(torch.from_numpy(arr).to(device))
+    cs = np.asarray([np.float32(c[0]) if c is not None else np.float32(np.inf)
+                     for c in cursors], np.float32)
+    cd = np.asarray([c[1] if c is not None else -1 for c in cursors],
+                    np.int32)
+    return (qtids, torch.tensor(boosts, dtype=torch.float32, device=device),
+            torch.from_numpy(cs).to(device), torch.from_numpy(cd).to(device))
+
+
+def _eager_reader_topk(pack: _ImpactPack, qtids, boosts, cs, cd, k: int):
+    """The eager arm over the reader: per segment K6 then K2, then the
+    cross-segment merge (K2). → (top_scores [B, k], top_docs [B, k] global,
+    count [B])."""
+    ts_list, td_list = [], []
+    counts = None
+    for i, s in enumerate(pack.segs):
+        ts, td, cnt = blockmax_ops.eager_segment_topk(
+            s["uterms"], s["qimp"], s["live"], qtids[i],
+            pack.scales[i] * boosts, k, s["doc_base"], cs, cd,
+            trailing_pad=s["trailing_pad"])
+        ts_list.append(ts)
+        td_list.append(td)
+        counts = cnt if counts is None else counts + cnt
+    top_s, top_d = topk_ops.merge_top_k_batch_body(
+        ts_list, td_list, k, [s["doc_base"] for s in pack.segs])
+    return top_s, top_d, counts
+
+
+def _impact_result(out: dict, packed: bool):
+    """The lane's result as it leaves for the drain: with ``packed`` one
+    ``[B, 2k+1]`` f32 tensor (scores ‖ doc ids ‖ count, as the exact arm
+    packs it) with the sweep's block counters as two more columns when the
+    arm swept; else the dict."""
+    if not packed:
+        return out
+    cols = [topk_ops.pack_batch_result_body(out["top_scores"],
+                                            out["top_docs"], out["count"])]
+    cols += [out[name].to(torch.float32)[:, None]
+             for name in ("blocks_scored", "blocks_skipped") if name in out]
+    return torch.cat(cols, dim=1)
+
+
+def run_impact_batch(pack: _ImpactPack, term_lists: list, boosts: list,
+                     cursors: list, *, k: int, packed: bool = False):
+    """Eager quantized-impact scoring of B queries over the whole reader:
+    per segment one K6 launch for the batch and one K2 top-k, then the K2
+    merge. → {"top_scores", "top_docs", "count"} (exact hit counts: the
+    match mask is the exact scorer's OR mask), or packed (_impact_result)."""
+    dev = pack.scales.device
+    qtids, boosts_t, cs, cd = _impact_query_inputs(pack, term_lists, boosts,
+                                                   cursors, dev)
+    ts, td, count = _eager_reader_topk(pack, qtids, boosts_t, cs, cd, int(k))
+    return _impact_result({"top_scores": ts, "top_docs": td, "count": count},
+                          packed)
+
+
+def run_impact_pruned(pack: _ImpactPack, term_lists: list, boosts: list,
+                      cursors: list, *, k: int, packed: bool = False):
+    """Block-max pruned top-k of B queries: per segment, in segment order,
+    the block bounds and the sweep order (torch ops) and one K7 launch,
+    the running top-k carried across segments so earlier segments prune
+    later ones. Adds per-query ``blocks_scored`` / ``blocks_skipped``;
+    ``count`` counts the matches in SCORED blocks only (the lane admits the
+    sweep only when no request tracks its total)."""
+    if not pack.can_prune:
+        raise ValueError("pack has segments without block maxima")
+    dev = pack.scales.device
+    qtids, boosts_t, cs, cd = _impact_query_inputs(pack, term_lists, boosts,
+                                                   cursors, dev)
+    carry = blockmax_ops.pruned_carry_init(len(term_lists), int(k), dev)
+    for i, s in enumerate(pack.segs):
+        carry = blockmax_ops.pruned_segment_topk(
+            carry, s["uterms"], s["qimp"], s["live"], s["block_max"],
+            qtids[i], pack.scales[i] * boosts_t, int(k), s["doc_base"], cs,
+            cd, trailing_pad=s["trailing_pad"])
+    ts, td, scored, skipped, matched = carry
+    return _impact_result({"top_scores": ts, "top_docs": td,
+                           "count": matched, "blocks_scored": scored,
+                           "blocks_skipped": skipped}, packed)
+
+
+def run_impact_rescore(pack: _ImpactPack, term_lists: list, boosts: list,
+                       sec_term_lists: list, sec_boosts: list, windows: list,
+                       qws: list, rws: list, score_mode: str, *, k: int,
+                       packed: bool = False):
+    """The impact → rescore arm: the eager arm's top-k (k already widened to
+    the largest window) as candidates; each segment scores the candidates
+    that live in it against the rescore query's terms (a row gather and the
+    impact sum), summed across segments; then QueryRescorer's window combine
+    and re-sort (blockmax.rescore_window, the reference's f32 op order).
+    Both stages score in the quantized domain."""
+    dev = pack.scales.device
+    b = len(term_lists)
+    none = [None] * b
+    qtids, boosts_t, cs, cd = _impact_query_inputs(pack, term_lists, boosts,
+                                                   none, dev)
+    qtids2, boosts2_t, _, _ = _impact_query_inputs(pack, sec_term_lists,
+                                                   sec_boosts, none, dev)
+    top_s, top_d, counts = _eager_reader_topk(pack, qtids, boosts_t, cs, cd,
+                                              int(k))
+    sec = torch.zeros(top_s.shape, dtype=torch.float32, device=dev)
+    hit = torch.zeros(top_s.shape, dtype=torch.bool, device=dev)
+    for i, s in enumerate(pack.segs):
+        qsum, h = blockmax_ops.rescore_gather(s["uterms"], s["qimp"], top_d,
+                                              qtids2[i], s["doc_base"])
+        sec = sec + qsum.to(torch.float32) * \
+            (pack.scales[i] * boosts2_t)[:, None]
+        hit = hit | h
+    new_s, new_d = blockmax_ops.rescore_window(
+        top_s, top_d, sec, hit,
+        torch.tensor(windows, dtype=torch.int32, device=dev),
+        torch.tensor(qws, dtype=torch.float32, device=dev),
+        torch.tensor(rws, dtype=torch.float32, device=dev), score_mode)
+    return _impact_result({"top_scores": new_s, "top_docs": new_d,
+                           "count": counts}, packed)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-K1 (BM25 scan) and K3 (exact-phrase scan) must be bit-identical to their
+K1 (BM25 scan), K3 (exact-phrase scan), K6 (quantized-impact scan) and K7
+(block-max sweep: top-k and block counters) must be bit-identical to their
 plain versions; K2 (stable top-k) must return the same ids and scores, ties
 included. K4 (int8 cosine) and K5 (MaxSim, f32 and int8 tokens) sum their
 dot products in another order than the plain versions' matrix products, so
@@ -16,9 +17,10 @@ import numpy as np
 import pytest
 import torch
 
-from elasticsearch_tpu_torch.index.segment import quantize_vectors
+from elasticsearch_tpu_torch.index.segment import (
+    TextFieldColumn, build_impact_column, quantize_vectors)
 from elasticsearch_tpu_torch.ops import (
-    lexical, maxsim, phrase, topk, vector)
+    blockmax, lexical, maxsim, phrase, topk, vector)
 
 pytestmark = pytest.mark.cuda
 
@@ -618,3 +620,231 @@ def test_knn_lane_on_the_card_matches_the_cpu(cuda, tmp_path):
                                                atol=1e-5)
                     assert set(g.doc_ids[:15].tolist()) <= \
                         set(w.doc_ids.tolist())
+
+
+def _impact_segment(rng, n, u, vocab, bits, block_rows):
+    """One segment's impact column (built as the lane builds it) with a term
+    (id 0) whose impacts quantize to 0 (df = n: idf ~ 0), dead rows, and
+    its (uterms, qimp, live, block_max) as card tensors."""
+    uterms, utf, doc_len = _segment(rng, n, u, vocab)
+    df = np.zeros(vocab, np.int64)
+    np.add.at(df, uterms[uterms >= 0], 1)
+    df[0] = n
+    col = TextFieldColumn(terms=[str(i) for i in range(vocab)],
+                          tokens=np.zeros((1, 1), np.int32), uterms=uterms,
+                          utf=utf, doc_len=doc_len, df=df,
+                          total_tokens=int(doc_len.sum()))
+    icol = build_impact_column(col, df=df, doc_count=n,
+                               avgdl=float(doc_len.mean()), bits=bits,
+                               block_rows=block_rows)
+    live = rng.random(n) > 0.05
+    return icol, [torch.from_numpy(a).to(cuda_dev())
+                  for a in (uterms, icol.qimp, live, icol.block_max)]
+
+
+def cuda_dev():
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _impact_queries(rng, b, t, vocab):
+    qtids = rng.integers(0, vocab, size=(b, t)).astype(np.int32)
+    qtids[0, 0] = 0                          # the zero-quantized term
+    if t > 1:
+        qtids[-1, -1] = -1
+        qtids[1 % b, 1] = qtids[1 % b, 0]    # a repeated term
+    return torch.from_numpy(qtids).to(cuda_dev())
+
+
+@pytest.mark.parametrize("bits,trailing_pad", [(8, True), (16, False),
+                                               (16, True)])
+def test_impact_scan_bit_identical_to_plain(cuda, bits, trailing_pad):
+    """K6 at an odd shape: B = 3, N = 100,003, T = 5, a cursor on one
+    query, dead rows and a term quantized to 0."""
+    rng = np.random.default_rng(bits)
+    n, vocab = 100_003, 300
+    _, (uterms, qimp, live, _) = _impact_segment(rng, n, 24, vocab, bits,
+                                                 1 << 30)
+    qtids = _impact_queries(rng, 3, 5, vocab)
+    sb = torch.tensor([0.37, 1.5, 0.02], device=cuda)
+    cs = torch.tensor([float("inf"), 30.0, float("inf")], device=cuda)
+    cd = torch.tensor([-1, 5000, -1], dtype=torch.int32, device=cuda)
+    before = blockmax.IMPACT_SCAN.launches
+    got_s, got_v = blockmax.impact_scores_batch(
+        uterms, qimp, qtids, sb, live, cs, cd, 7, trailing_pad=trailing_pad)
+    torch.cuda.synchronize()
+    assert blockmax.IMPACT_SCAN.launches == before + 1
+    want_s, want_v = blockmax.impact_scores_batch_plain(
+        uterms, qimp, qtids, sb, live, cs, cd, 7)
+    assert torch.equal(got_v, want_v)
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+    assert bool(want_v.any()) and bool((want_s[0][want_v[0]] >= 0).all())
+
+
+def _sweep_case(rng, bits, k, carry_in, vocab=200):
+    """Two segments' sweeps on the card and in the plain version; the
+    second segment takes the first one's carry."""
+    n, r = 8192, 256
+    b = 4
+    qtids = _impact_queries(rng, b, 3, vocab)
+    sb = torch.tensor([0.5, 1.0, 2.0, 0.125], device=cuda_dev())
+    cs = torch.full((b,), float("inf"), device=cuda_dev())
+    cd = torch.full((b,), -1, dtype=torch.int32, device=cuda_dev())
+    got = want = carry_in
+    before = blockmax.BLOCKMAX_SWEEP.launches
+    for base in (0, n):
+        icol, (uterms, qimp, live, bmx) = _impact_segment(
+            rng, n, 24, vocab, bits, r)
+        ub_i = blockmax.block_bounds(bmx, qtids)
+        ub_f, order = blockmax.sweep_order(ub_i, sb)
+        args = (uterms, qimp, live, ub_i, ub_f, order, qtids, sb, cs, cd, k,
+                base)
+        got = blockmax.blockmax_sweep(got, *args, trailing_pad=True)
+        want = blockmax.blockmax_sweep_plain(want, *args)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert blockmax.BLOCKMAX_SWEEP.launches == before + 2
+    return got
+
+
+@pytest.mark.parametrize("bits,k,vocab", [(8, 1, 200), (16, 10, 200),
+                                          (16, 1000, 200), (8, 1000, 5000)])
+def test_blockmax_sweep_matches_plain(cuda, bits, k, vocab):
+    """K7 against its plain version: top-k, scored, skipped and matched
+    equal; k = 1, 10 and 1000, over a vocabulary of 5000 above every
+    query's matches; a carry from a first segment into the second."""
+    rng = np.random.default_rng(100 + k)
+    out = _sweep_case(rng, bits, k, blockmax.pruned_carry_init(4, k, cuda),
+                      vocab)
+    assert (out[2] + out[3] == 2 * 32).all()
+    if vocab == 5000:
+        assert (out[1][:, -1] == -1).all()       # fewer matches than k
+
+
+@pytest.mark.parametrize("b,u,trailing_pad", [(1, 24, True), (3, 150, True),
+                                              (40, 150, False),
+                                              (140, 100, True)])
+def test_blockmax_sweep_any_cluster_size(cuda, b, u, trailing_pad):
+    """K7 at batch sizes that give a query a cluster of 8, 8, 4 and 1
+    thread blocks on an H100's 132 SMs (one or two 2048-row slices a thread
+    block), rows longer than 64 cells (their later windows), with and
+    without the first-pad stop: equal to its plain version."""
+    rng = np.random.default_rng(b)
+    n, r, k, vocab = 16384, 4096, 10, 400
+    _, (uterms, qimp, live, bmx) = _impact_segment(rng, n, u, vocab, 16, r)
+    qtids = _impact_queries(rng, b, 3, vocab)
+    sb = torch.from_numpy(rng.uniform(0.1, 2.0, b).astype(np.float32)).to(
+        cuda)
+    cs = torch.full((b,), float("inf"), device=cuda)
+    cd = torch.full((b,), -1, dtype=torch.int32, device=cuda)
+    ub_i = blockmax.block_bounds(bmx, qtids)
+    ub_f, order = blockmax.sweep_order(ub_i, sb)
+    args = (uterms, qimp, live, ub_i, ub_f, order, qtids, sb, cs, cd, k, 0)
+    carry = blockmax.pruned_carry_init(b, k, cuda)
+    got = blockmax.blockmax_sweep(carry, *args, trailing_pad=trailing_pad)
+    want = blockmax.blockmax_sweep_plain(carry, *args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert int(want[2].sum()) > 0 and int(want[4].sum()) > 0
+
+
+def test_blockmax_sweep_skips_every_block_under_a_high_carry(cuda):
+    rng = np.random.default_rng(7)
+    k = 3
+    high = (torch.full((4, k), 1e9, device=cuda),
+            torch.arange(4 * k, dtype=torch.int32, device=cuda).view(4, k),
+            torch.zeros(4, dtype=torch.int32, device=cuda),
+            torch.zeros(4, dtype=torch.int32, device=cuda),
+            torch.zeros(4, dtype=torch.int32, device=cuda))
+    out = _sweep_case(rng, 16, k, high)
+    assert out[2].tolist() == [0] * 4 and out[3].tolist() == [64] * 4
+    assert torch.equal(out[1], high[1])
+
+
+def test_impact_kernels_refuse_what_they_do_not_take(cuda):
+    rng = np.random.default_rng(3)
+    _, (uterms, qimp, live, bmx) = _impact_segment(rng, 1024, 8, 50, 16, 64)
+    qtids = _impact_queries(rng, 2, 2, 50)
+    one = torch.ones(2, device=cuda)
+    cd = torch.full((2,), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        blockmax.impact_scores_batch(uterms, qimp.to(torch.int32), qtids,
+                                     one, live, one, cd)
+    with pytest.raises(ValueError):
+        blockmax.impact_scores_batch(uterms, qimp, qtids, one, live[:-1],
+                                     one, cd)
+    with pytest.raises(ValueError):
+        blockmax.impact_scores_batch(uterms, qimp, torch.zeros(
+            (2, 128), dtype=torch.int32, device=cuda), one, live, one, cd)
+    ub_i = blockmax.block_bounds(bmx, qtids)
+    ub_f, order = blockmax.sweep_order(ub_i, one)
+    carry = blockmax.pruned_carry_init(2, 4, cuda)
+    with pytest.raises(ValueError):
+        blockmax.blockmax_sweep(carry, uterms[:1000], qimp[:1000],
+                                live[:1000], ub_i, ub_f, order, qtids, one,
+                                one, cd, 4)
+    with pytest.raises(TypeError):
+        blockmax.blockmax_sweep(carry, uterms, qimp, live, ub_i, ub_f,
+                                order.long(), qtids, one, one, cd, 4)
+
+
+def test_impact_lane_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The impact lane's eager arm (K6 + K2), pruned arm (K7) and rescore
+    arm through query_phase_batch on the card return, bit for bit, what
+    the plain versions return on the CPU."""
+    from elasticsearch_tpu_torch.index.device_reader import DeviceReader
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.search import segment_exec
+    from elasticsearch_tpu_torch.search.phase import (
+        ShardSearcher, parse_search_request)
+    rng = np.random.default_rng(31)
+    ms = MapperService()
+    ms.merge("_doc", {"properties": {"body": {"type": "text"}}})
+    eng = Engine(tmp_path / "e", ms)
+    for i in range(3000):
+        eng.index(str(i), {"body": " ".join(
+            f"w{min(int(x), 60)}" for x in rng.zipf(1.3, 9))})
+        if i == 1500:
+            eng.refresh()
+    eng.refresh()
+    eng.delete("7")
+    eng.refresh()
+    view = eng.acquire_searcher()
+    rescore = {"window_size": 24, "query": {
+        "rescore_query": {"match": {"body": "w3 w4"}},
+        "query_weight": 0.7, "rescore_query_weight": 1.5,
+        "score_mode": "total"}}
+    bodies = [{"query": {"match": {"body": " ".join(
+        f"w{x}" for x in rng.integers(1, 40, 3))}}, "size": 20}
+        for _ in range(8)]
+    batches = {"eager": bodies,
+               "pruned": [dict(b, track_total_hits=False) for b in bodies],
+               "rescore": [dict(b, rescore=rescore) for b in bodies]}
+    for bits in (8, 16):
+        name = f"card_impact{bits}"
+        segment_exec.configure_impact_plane(name, {
+            "index.search.impact_plane": True,
+            "index.search.impact.bits": bits,
+            "index.search.impact.block_rows": 128})
+        on_cpu = ShardSearcher(0, DeviceReader(view, device="cpu"), ms,
+                               index_name=name)
+        on_card = ShardSearcher(0, DeviceReader(view, device=cuda), ms,
+                                index_name=name)
+        for arm, batch in batches.items():
+            want = on_cpu.query_phase_batch(
+                [parse_search_request(b) for b in batch])
+            k6, k7 = (blockmax.IMPACT_SCAN.launches,
+                      blockmax.BLOCKMAX_SWEEP.launches)
+            got = on_card.query_phase_batch(
+                [parse_search_request(b) for b in batch])
+            assert blockmax.IMPACT_SCAN.launches == k6 + (
+                0 if arm == "pruned" else 2)
+            assert blockmax.BLOCKMAX_SWEEP.launches == k7 + (
+                2 if arm == "pruned" else 0)
+            for g, w in zip(got, want):
+                assert g.total == w.total
+                np.testing.assert_array_equal(g.doc_ids, w.doc_ids)
+                np.testing.assert_array_equal(g.scores.view(np.int32),
+                                              w.scores.view(np.int32))

@@ -1,7 +1,9 @@
 """The port stands alone: serving searches through it (a match, a bool with a
-match_phrase, a function_score, and on the knn lane a dense knn in f32 and
-int8, a hybrid and a rank_vectors MaxSim) loads neither JAX nor the JAX
-package, and its entry points never fall back to the CPU on their own."""
+match_phrase, a function_score, on the knn lane a dense knn in f32 and int8,
+a hybrid and a rank_vectors MaxSim, and on the impact lane the eager, pruned
+and rescore arms) loads neither JAX nor the JAX package, its entry points
+never fall back to the CPU on their own, and its CUDA sources include no
+header of torch or of the JAX package's native code."""
 
 import json
 import os
@@ -21,7 +23,8 @@ from elasticsearch_tpu_torch.mapping import MapperService
 from elasticsearch_tpu_torch.search.phase import (
     ShardSearcher, parse_search_request)
 
-from elasticsearch_tpu_torch.search.segment_exec import configure_knn_plane
+from elasticsearch_tpu_torch.search.segment_exec import (
+    configure_impact_plane, configure_knn_plane, impact_index_stats)
 
 ms = MapperService()
 ms.merge("_doc", {"properties": {
@@ -55,6 +58,18 @@ knn_ids = [ids_of({"knn": knn}), ids_of({"knn": knn}, searcher_int8),
                            "k": 3}})]
 
 
+configure_impact_plane("imp_idx", {"index.search.impact_plane": True,
+                                   "index.search.impact.block_rows": 2})
+searcher_imp = ShardSearcher(0, reader, ms, index_name="imp_idx")
+impact_ids = [
+    ids_of({"query": {"match": {"body": "quick dog"}}}, searcher_imp),
+    ids_of({"query": {"match": {"body": "quick dog"}},
+            "track_total_hits": False}, searcher_imp),
+    ids_of({"query": {"match": {"body": "quick"}}, "rescore": {
+        "window_size": 5, "query": {"rescore_query": {
+            "match": {"body": "fox"}}, "rescore_query_weight": 9.0}}},
+        searcher_imp)]
+impact_admissions = impact_index_stats("imp_idx")["admissions"]
 match_ids = ids_of({"query": {"match": {"body": "quick dog"}}})
 phrase_ids = ids_of({"query": {"bool": {
     "must": [{"match": {"body": "dog"}}],
@@ -72,6 +87,7 @@ except RuntimeError:
 print(json.dumps({
     "ids": [match_ids, phrase_ids, fs_ids],
     "knn_ids": knn_ids,
+    "impact_ids": impact_ids, "impact_admissions": impact_admissions,
     "leaked": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "elasticsearch_tpu")),
@@ -91,6 +107,9 @@ def test_port_serves_without_jax_or_the_jax_package(tmp_path):
     assert got["ids"] == [["2", "1", "0"], ["2", "1"], ["0", "1", "2"]]
     assert got["knn_ids"] == [["1", "2", "0"], ["1", "2", "0"],
                               ["0", "1", "2"], ["1", "2", "0"]]
+    assert got["impact_ids"] == [["2", "1", "0"], ["2", "1", "0"],
+                                 ["0", "2"]]
+    assert got["impact_admissions"] == 3
     assert got["leaked"] == []
     assert got["no_card_refused"]
 
@@ -115,4 +134,24 @@ def test_no_port_source_imports_jax_or_the_jax_package():
                 if name.split(".")[0] in ("jax", "jaxlib",
                                           "elasticsearch_tpu"):
                     bad.append(f"{path.relative_to(REPO)}: {name}")
+    assert bad == []
+
+
+def test_cuda_sources_have_a_plain_c_interface():
+    """Every kernel source includes only CUDA's and the C library's
+    headers: nothing of torch (the kernels bind through ctypes) and nothing
+    of the JAX package."""
+    import re
+    sources = sorted((REPO / "elasticsearch_tpu_torch" / "csrc").glob("*.cu"))
+    assert {p.name for p in sources} >= {"impact_scan.cu",
+                                         "blockmax_sweep.cu"}
+    bad = []
+    for path in sources:
+        text = path.read_text()
+        for inc in re.findall(r'#include\s*[<"]([^>"]+)[>"]', text):
+            if inc.split("/")[0] in ("torch", "ATen", "c10", "pybind11") or \
+                    "elasticsearch_tpu" in inc or "jax" in inc:
+                bad.append(f"{path.name}: {inc}")
+        if not re.search(r'extern "C"', text):
+            bad.append(f"{path.name}: no extern \"C\" entry point")
     assert bad == []
