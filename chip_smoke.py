@@ -86,6 +86,32 @@ no result line:
             rescore arm bit-equal to a numpy recompute.
 19. profile — one eager and one pruned impact batch under torch.profiler,
             with the lane's host planning alone.
+20. K2 past one block's k — after the MaxSim index and the impact columns
+            are released: K2 at k = 20,000 and 65,536 over 2^20-entry rows
+            against its plain version (tie-heavy scores, explicit ids), timed
+            at k = 20,000.
+21. config 5 set-up — BASELINE config 5's corpus (bench.py:1116-1210): the
+            corpus cut into 8 single-segment shards of 2^18 docs, one Engine
+            and ShardSearcher each, with ``rank`` and bench.py's 16-value
+            ``cat`` keyword column; the checked requests scored in float64
+            on every shard with its own df and avgdl.
+22. agg kernels — K8 (ordinal, histogram and ranges modes) and K9 against
+            their plain versions on shard 0 under a request's mask (cat, the
+            rank histogram at interval 5, bench-style ranges) and at odd
+            shapes (N = 100,003, a 50,000-ord vocabulary, epoch-millis dates
+            at 1h with docs on the edges, a ``to: 0`` range, an empty mask),
+            timed beside the plain versions, their bounds and torch.bincount.
+23. config 5 — pages at from 500, size 500 of the 4-term match, the shards
+            run concurrently (query_phase_batch), then per request
+            controller.merge_responses; held against the float64 per-shard
+            scoring merged in the coordinator's order.
+24. config 5 + aggs — size 10 with a terms agg over cat, extended_stats,
+            histogram, range and value_count over rank, through query_phase
+            on each shard and merge_responses' reduce; K8 and K9 launched,
+            no host collector, no host mask; held against numpy. Then one
+            page at from 20,000 (every shard's K2 at k = 20,100), untimed.
+25. profile — one config-5 batch and one agg batch under torch.profiler,
+            with the host planning and the coordinator's merge.
 
 The last lines are one JSON object of per-kernel numbers, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -99,8 +125,10 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -119,6 +147,8 @@ K4_SOURCE = "elasticsearch_tpu_torch/csrc/int8_cosine.cu"
 K5_SOURCE = "elasticsearch_tpu_torch/csrc/maxsim.cu"
 K6_SOURCE = "elasticsearch_tpu_torch/csrc/impact_scan.cu"
 K7_SOURCE = "elasticsearch_tpu_torch/csrc/blockmax_sweep.cu"
+K8_SOURCE = "elasticsearch_tpu_torch/csrc/agg_counts.cu"
+K9_SOURCE = "elasticsearch_tpu_torch/csrc/agg_stats.cu"
 K1_REPLACES = "elasticsearch_tpu/ops/lexical.py:16"
 K2_REPLACES = "elasticsearch_tpu/ops/topk.py:27"
 K3_REPLACES = "elasticsearch_tpu/ops/phrase.py:59"
@@ -127,6 +157,8 @@ K5_REPLACES = "elasticsearch_tpu/ops/maxsim.py:67"
 K5_INT8_REPLACES = "elasticsearch_tpu/ops/maxsim.py:136"
 K6_REPLACES = "elasticsearch_tpu/ops/blockmax.py:54"
 K7_REPLACES = "elasticsearch_tpu/ops/blockmax.py:152"
+K8_REPLACES = "elasticsearch_tpu/ops/aggs_ops.py:18"
+K9_REPLACES = "elasticsearch_tpu/ops/aggs_ops.py:79"
 # config 4 (bench.py:703-717): 768-d unit vectors, k = num_candidates = 100
 VEC_DIMS = 768
 KNN_K = 100
@@ -135,6 +167,19 @@ KNN_K = 100
 MAXSIM_DIMS = 128
 MAXSIM_TOKENS = 32
 MAXSIM_CHECK_QUERIES = 4
+# config 5 (bench.py:1116-1210, 1286-1291): 8 shards, a page at from 500 of
+# size 500 (every shard's top-1000), 4 batches; with aggs 2 batches of
+# size-10 requests; the requests held against float64; the deep page
+C5_SHARDS = 8
+C5_CATS = [f"cat{i:02d}" for i in range(16)]
+C5_FROM, C5_SIZE, C5_BATCHES, C5_AGG_BATCHES, C5_CHECK = 500, 500, 4, 2, 8
+C5_AGGS = {"by_cat": {"terms": {"field": "cat", "size": 8}},
+           "st": {"extended_stats": {"field": "rank"}},
+           "hi": {"histogram": {"field": "rank", "interval": 5}},
+           "rg": {"range": {"field": "rank", "ranges": [
+               {"to": 25}, {"from": 25, "to": 75}, {"from": 75}]}},
+           "vc": {"value_count": {"field": "cat"}}}
+DEEP_FROM, DEEP_SIZE = 20_000, 100
 # index names whose knn-lane settings the smoke registers
 INT8_INDEX = "smoke_knn_int8"
 WEIGHTED_INDEX = "smoke_knn_weighted"
@@ -371,7 +416,7 @@ def phase_build():
     from elasticsearch_tpu_torch.ops import cuda_build
     sources = [Path(src).name for src in (K1_SOURCE, K2_SOURCE, K3_SOURCE,
                                           K4_SOURCE, K5_SOURCE, K6_SOURCE,
-                                          K7_SOURCE)]
+                                          K7_SOURCE, K8_SOURCE, K9_SOURCE)]
     t0 = time.perf_counter()
     built = cuda_build.build_libraries(sources)
     log(f"build: {len(sources)} sources in "
@@ -403,7 +448,9 @@ def phase_build():
         "T = 4); blockmax_sweep 41 KiB static (the running top-k and its "
         "merge buffer, 1024 keys of 8 bytes each, a 2048-key candidate "
         "list, 1024 entries of the visiting order and bounds, the query's "
-        "terms), its candidate lists read across the cluster")
+        "terms), its candidate lists read across the cluster; agg_counts a "
+        "4-byte count a bucket (up to 12,288 buckets, else global atomics); "
+        "agg_stats 288 B static")
 
 
 def phrase_pairs(rng, tokens, lens, n):
@@ -762,13 +809,15 @@ def path_kernels():
     """The launch counter of every hand kernel, by its name in the kernels
     line (K5's f32 and int8 instantiations have one each)."""
     from elasticsearch_tpu_torch.ops import (
-        blockmax, lexical, maxsim, phrase, topk, vector)
+        aggs_ops, blockmax, lexical, maxsim, phrase, topk, vector)
     return {"bm25_scan": lexical.BM25_SCAN, "stable_topk": topk.TOPK,
             "phrase_scan": phrase.PHRASE_SCAN,
             "int8_cosine": vector.INT8_COSINE, "maxsim": maxsim.MAXSIM,
             "maxsim_int8": maxsim.MAXSIM_INT8,
             "impact_scan": blockmax.IMPACT_SCAN,
-            "blockmax_sweep": blockmax.BLOCKMAX_SWEEP}
+            "blockmax_sweep": blockmax.BLOCKMAX_SWEEP,
+            "agg_counts": aggs_ops.AGG_COUNTS,
+            "agg_stats": aggs_ops.AGG_STATS}
 
 
 def drive(torch, searcher, batches):
@@ -1105,7 +1154,6 @@ def phase_profile(torch, args, data, label, bodies, searcher=None,
     it): device time by kernel, the busy share of the batch, and the host
     planning of the batch alone (a pure knn request plans no query; the
     impact lane's planning is ``plan``, called with the batch)."""
-    from torch.profiler import ProfilerActivity, profile
     from elasticsearch_tpu_torch.search import query_dsl, segment_exec
     searcher = searcher or data["searcher"]
     reader = searcher.reader
@@ -1124,7 +1172,18 @@ def phase_profile(torch, args, data, label, bodies, searcher=None,
             for query in queries:
                 segment_exec._plan(seg, searcher.ctx, query, None, flags)
     plan_ms = (time.perf_counter() - t0) * 1e3
-    plan_gc = GC.take()
+    return profile_batch(torch, label, lambda: check(
+        searcher.query_phase_batch(batch) is not None,
+        f"query_phase_batch declined the profiled {label} batch"),
+        plan_ms, GC.take(), len(batch))
+
+
+def profile_batch(torch, label, run, plan_ms, plan_gc, size,
+                  extra=None) -> dict:
+    """``run`` (one batch of ``size`` requests) twice under torch.profiler,
+    the first unrecorded: device time by kernel, the busy share of the
+    batch; ``extra()`` adds to the line."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     # the batch twice: a warm-up step the profiler does not record (its own
     # start-up cost lands there), then the recorded step
@@ -1136,8 +1195,7 @@ def phase_profile(torch, args, data, label, bodies, searcher=None,
                      p.key_averages())) as prof:
         for _ in range(2):
             t0 = time.perf_counter()
-            check(searcher.query_phase_batch(batch) is not None,
-                  f"query_phase_batch declined the profiled {label} batch")
+            run()
             wall_ms = (time.perf_counter() - t0) * 1e3
             batch_gc = GC.take()
             prof.step()
@@ -1164,27 +1222,34 @@ def phase_profile(torch, args, data, label, bodies, searcher=None,
             f"batch {batch_gc}")
         return {"wall_ms": wall_ms, "plan_ms": plan_ms, "busy_ms": None}
     by_kernel = {"K1": ("bm25_scan_kernel",),
-                 "K2": ("chunk_topk_kernel", "merge_candidates_kernel"),
+                 "K2": ("chunk_topk_kernel", "merge_candidates_kernel",
+                        "split_candidates_kernel", "select_run_kernel",
+                        "sort_tiles_kernel", "merge_runs_kernel",
+                        "write_run_kernel"),
                  "K3": ("phrase_scan_kernel",),
                  "K4": ("int8_cosine_kernel",), "K5": ("maxsim_kernel",),
                  "K6": ("impact_scan_kernel",),
                  "K7": ("blockmax_sweep_kernel",),
+                 "K8": ("agg_counts_kernel",),
+                 "K9": ("agg_stats_partial_kernel", "agg_stats_final_kernel"),
                  "cuBLAS": ("gemm", "xmma", "cutlass")}
     parts = {}
     for kname, keys in by_kernel.items():
         sel = [r for r in rows if any(k in r[2] for k in keys)]
         parts[kname] = (sum(r[0] for r in sel), sum(r[1] for r in sel))
     other = busy_ms - sum(v[0] for v in parts.values())
-    log(f"profile {label}: one batch of {len(batch)}: wall {wall_ms:.3f} ms, "
+    log(f"profile {label}: one batch of {size}: wall {wall_ms:.3f} ms, "
         f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
         f"host planning alone {plan_ms:.3f} ms; "
         + ", ".join(f"{k} {v[0]:.3f} ms ({v[1]} kernels)"
                     for k, v in parts.items())
         + f", element-wise and copies {other:.3f} ms; GC: planning "
-        f"{plan_gc}, recorded batch {batch_gc}")
+        f"{plan_gc}, recorded batch {batch_gc}"
+        + (extra() if extra is not None else ""))
     for dev_ms, count, key in rows[:8]:
         log(f"profile:   {dev_ms:9.3f} ms  x{count:<4d} {key[:90]}")
-    return {"wall_ms": wall_ms, "plan_ms": plan_ms, "busy_ms": busy_ms}
+    return {"wall_ms": wall_ms, "plan_ms": plan_ms, "busy_ms": busy_ms,
+            "parts": parts}
 
 
 def phase_elementwise(torch, args, data) -> None:
@@ -2347,6 +2412,784 @@ def impact_plan(torch, data, pruned: bool):
     return plan
 
 
+# --------------------------------------------------------------------------
+# BASELINE config 5: 8-shard query_then_fetch through the coordinator, with
+# aggregations (K8, K9), and a page past one block's k (K2)
+# --------------------------------------------------------------------------
+
+def release_lane_state(torch, data, mdata) -> None:
+    """Drop the MaxSim index and the impact lane's device columns before the
+    8-shard corpus goes on the card, so it holds one extra corpus copy at
+    most."""
+    mdata.clear()
+    for key in ("impact_searcher", "impact_pack"):
+        data.pop(key, None)
+    for seg in data["reader"].segments:
+        seg.impacts.clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"released the MaxSim index and the impact columns: "
+        f"{torch.cuda.memory_allocated()} B allocated on the card; "
+        f"{reader_bytes(data['reader'])}")
+
+
+def phase_config5_setup(torch, args, data) -> dict:
+    """bench.py's config-5 corpus (bench.py:1116-1210): the smoke's corpus
+    cut into 8 contiguous single-segment shards, one Engine and
+    ShardSearcher a shard, each segment with the ``rank`` column and
+    bench.py's ``cat`` keyword column (16 values from a generator of its
+    own, bench.py:552-554); then the float64 scoring of the checked
+    requests on every shard with the shard's own df and avgdl
+    (query_then_fetch: no DFS)."""
+    from elasticsearch_tpu_torch.index.device_reader import (
+        dd_split, device_reader_for)
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.index.segment import (
+        KeywordFieldColumn, NumericFieldColumn, Segment, doc_count_bucket)
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.search.phase import ShardSearcher
+    import tempfile
+    n_docs = len(data["lens"])
+    per_shard = -(-n_docs // C5_SHARDS)
+    cat = np.random.default_rng(4242).integers(0, 16, n_docs).astype(
+        np.int32)
+    ms = MapperService()
+    ms.merge("_doc", {"properties": {
+        "body": {"type": "text", "analyzer": "whitespace"},
+        "rank": {"type": "double"}, "cat": {"type": "keyword"}}})
+    t0 = time.perf_counter()
+    shards = []
+    for si in range(C5_SHARDS):
+        lo = si * per_shard
+        hi = min(lo + per_shard, n_docs)
+        rows = hi - lo
+        np_rows = doc_count_bucket(rows)
+
+        def spad(a, fill):
+            out = np.full((np_rows,) + a.shape[1:], fill, a.dtype)
+            out[:rows] = a[lo:hi]
+            return out
+        sut = data["uterms"][lo:hi]
+        seg_df = np.zeros(len(data["df"]), np.int64)
+        np.add.at(seg_df, sut[sut >= 0], 1)
+        seg = Segment.from_packed_text(
+            0, "body", terms=data["term_names"], tokens=None,
+            uterms=spad(data["uterms"], -1), utf=spad(data["utf"], 0.0),
+            doc_len=spad(data["lens"], 0), df=seg_df, num_docs=rows,
+            ids=[str(lo + i) for i in range(rows)] + [""] * (np_rows - rows))
+        seg.numeric_fields["rank"] = NumericFieldColumn(
+            values=spad(data["rank"], 0.0),
+            exists=spad(np.ones(n_docs, bool), False))
+        seg.keyword_fields["cat"] = KeywordFieldColumn(
+            vocab=list(C5_CATS), ords=spad(cat[:, None], -1))
+        eng = Engine(Path(tempfile.mkdtemp(prefix="chip_smoke_s5_")), ms)
+        eng.install_segment(seg, track_versions=False)
+        shards.append({"lo": lo, "hi": hi, "df": seg_df, "engine": eng,
+                       "searcher": ShardSearcher(
+                           si, device_reader_for(eng), ms)})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = data["qtids"][:C5_CHECK]
+    cpu = [cpu_scores(data["uterms"][sh["lo"]:sh["hi"]],
+                      data["utf"][sh["lo"]:sh["hi"]],
+                      data["lens"][sh["lo"]:sh["hi"]], sh["df"], rows)
+           for sh in shards]
+    rank_hi, rank_lo = dd_split(data["rank"])
+    log(f"config 5: {C5_SHARDS} single-segment shards of {per_shard} docs "
+        f"(cat: {len(C5_CATS)} values) packed on the card in {setup_s:.1f} "
+        f"s; shard 0 {reader_bytes(shards[0]['searcher'].reader)}; "
+        f"{torch.cuda.memory_allocated()} B allocated on the card; float64 "
+        f"per-shard scoring of {C5_CHECK} requests in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"shards": shards, "per_shard": per_shard, "cat": cat,
+            "pool": ThreadPoolExecutor(C5_SHARDS),
+            # per checked request, per shard: (float64 scores, matched)
+            "cpu": [[(c[qi], c[qi] > 0) for c in cpu]
+                    for qi in range(len(rows))],
+            "rank": data["rank"], "rank_hi": rank_hi, "rank_lo": rank_lo}
+
+
+def c5_searchers(c5):
+    return [s["searcher"] for s in c5["shards"]]
+
+
+def c5_reqs(data, n, **body):
+    from elasticsearch_tpu_torch.search.phase import parse_search_request
+    return [parse_search_request({"query": {"match": {"body": t}}, **body})
+            for t in data["texts"][:n]]
+
+
+def c5_batch(c5, batch):
+    """One batch through config 5: every shard's query phase, the shards run
+    concurrently as bench.py runs them (a thread pool; without aggs the
+    batched arm, with aggs query_phase one request at a time, as the
+    reference serves aggs), then per request the coordinator's
+    merge_responses (sort_docs, the fetch phase on the shards owning the
+    page, the aggregation reduce). → (responses, host merge ms)."""
+    from elasticsearch_tpu_torch.search.controller import merge_responses
+    searchers = c5_searchers(c5)
+    if batch[0].aggs:
+        per_shard = list(c5["pool"].map(
+            lambda s: [s.query_phase(r) for r in batch], searchers))
+    else:
+        per_shard = list(c5["pool"].map(
+            lambda s: s.query_phase_batch(batch), searchers))
+    check(all(r is not None for r in per_shard),
+          "a config-5 shard declined the batch")
+    t0 = time.perf_counter()
+    out = [merge_responses("msmarco", req, [r[qi] for r in per_shard],
+                           searchers, 0.0, req.aggs)
+           for qi, req in enumerate(batch)]
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def c5_drive(torch, c5, batches):
+    """Every launch counter set to 0, the batches through c5_batch, the
+    counters read just after. → (responses, batch ms, merge ms, wall s,
+    launches)."""
+    counters = path_kernels()
+    torch.cuda.synchronize()
+    GC.take()
+    for kern in counters.values():
+        kern.launches = 0
+    results, per_batch, merge_ms = [], [], []
+    t_all = time.perf_counter()
+    for batch in batches:
+        t0 = time.perf_counter()
+        out, m_ms = c5_batch(c5, batch)
+        per_batch.append((time.perf_counter() - t0) * 1e3)
+        merge_ms.append(m_ms)
+        results.append(out)
+    wall = time.perf_counter() - t_all
+    launches = {name: kern.launches for name, kern in counters.items()}
+    return results, per_batch, merge_ms, wall, launches
+
+
+def check_c5_page(label, c5, resp, qi, frm, size, k_shard, tol=1e-5):
+    """A merged page against the float64 per-shard scoring of request
+    ``qi``: each shard's top ``k_shard`` by (score desc, position asc),
+    merged by (score desc, shard asc, position asc) — the _hit_comparator
+    order — and cut to [frm, frm + size). Totals exact, every hit within
+    ``tol`` of its float64 score, the page's scores within ``tol`` of the
+    float64 page's, and tie-tolerant recall 1.0: a hit outside the float64
+    page counts when its float64 score equals a boundary score of that
+    page within ``tol``. → recall."""
+    per_shard = c5["cpu"][qi]
+    total = int(sum(m.sum() for _, m in per_shard))
+    check(resp["hits"]["total"] == total,
+          f"{label} request {qi}: total {resp['hits']['total']} != float64 "
+          f"matches {total}")
+    cand = []
+    for si, (s64, m64) in enumerate(per_shard):
+        idx = np.nonzero(m64)[0]
+        idx = idx[np.lexsort((idx, -s64[idx]))][:k_shard]
+        cand.extend((-s64[row], si, pos, row) for pos, row in enumerate(idx))
+    cand.sort()
+    page = cand[frm:frm + size]
+    hits = resp["hits"]["hits"]
+    check(len(hits) == len(page), f"{label} request {qi}: {len(hits)} hits "
+          f"on the page, float64 {len(page)}")
+    if not page:
+        return 1.0
+    want = np.array([-c[0] for c in page])
+    got = np.array([h["_score"] for h in hits])
+    check(np.allclose(got, want, rtol=tol, atol=tol),
+          f"{label} request {qi}: page scores disagree with the float64 page")
+    page_rows = {(c[1], c[3]) for c in page}
+    ok = 0
+    for h, score in zip(hits, got):
+        si, row = divmod(int(h["_id"]), c5["per_shard"])
+        s64 = per_shard[si][0][row]
+        check(abs(s64 - score) <= tol + tol * abs(s64),
+              f"{label} request {qi}: hit {h['_id']} scores {score}, float64 "
+              f"{s64}")
+        ok += (si, row) in page_rows or abs(s64 - want.min()) <= tol or \
+            abs(s64 - want.max()) <= tol
+    recall = ok / len(hits)
+    check(recall == 1.0, f"{label} request {qi}: tie-tolerant page recall "
+          f"{recall}")
+    return recall
+
+
+def agg_inputs(torch, data, c5):
+    """Shard 0's columns and one request's pre-post_filter mask, as the
+    device collect gets them."""
+    from elasticsearch_tpu_torch.search import query_dsl, segment_exec
+    searcher = c5["shards"][0]["searcher"]
+    seg = searcher.reader.segments[0]
+    query = query_dsl.parse_query({"match": {"body": data["texts"][0]}})
+    mask = segment_exec.run_segment(seg, searcher.ctx, query, k=10,
+                                    want_arrays=True)["agg_mask"]
+    col = seg.numeric["rank"]
+    return seg.keyword["cat"].ords, mask, col.hi, col.lo, col.exists
+
+
+def dd_cuda(torch, values, dev):
+    from elasticsearch_tpu_torch.index.device_reader import dd_split
+    hi, lo = dd_split(values)
+    return torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
+
+
+def histogram_base(row, interval):
+    """_d_histogram_common's base bucket and bucket count from a K9 row."""
+    from elasticsearch_tpu_torch.index.device_reader import dd_split
+    first = np.floor((row[1] + row[2]) / interval)
+    last = np.floor((row[3] + row[4]) / interval)
+    bhi, blo = dd_split(np.float64(first * interval))
+    return float(bhi), float(blo), int(last - first + 1)
+
+
+def check_k8(torch, got, want, what):
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"K8 counts differ from the plain "
+          f"version ({what})")
+
+
+def check_k9(torch, aggs_ops, args, what):
+    """K9 twice (the same bits both runs) against its plain version: count
+    and extrema bit-equal, sums within 1e-6 relative → max abs err of the
+    sums."""
+    got = aggs_ops.dd_stats(*args)
+    again = aggs_ops.dd_stats(*args)
+    want = aggs_ops.dd_stats_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"K9 gave other bits on a second run "
+          f"({what})")
+    check(torch.equal(got[:5], want[:5]), f"K9 count or extrema differ from "
+          f"the plain version ({what}): {got[:5].tolist()} vs "
+          f"{want[:5].tolist()}")
+    check(torch.allclose(got[5:], want[5:], rtol=1e-6, atol=0.0),
+          f"K9 sums beyond 1e-6 of the plain version ({what}): "
+          f"{got[5:].tolist()} vs {want[5:].tolist()}")
+    return got, float((got[5:] - want[5:]).abs().max())
+
+
+def phase_agg_kernels(torch, args, data, c5) -> list[dict]:
+    """K8 (three modes) and K9 against their plain versions on one config-5
+    shard segment (the cat ordinals, the rank histogram at interval 5, the
+    bench-style ranges, under a real request's mask) and at odd shapes, each
+    timed beside its plain version, its bound and a library call where one
+    computes the same function."""
+    from elasticsearch_tpu_torch.ops import aggs_ops
+    ords, mask, hi, lo, exists = agg_inputs(torch, data, c5)
+    dev = mask.device
+    n = mask.shape[0]
+    n_mask = int(mask.sum())
+    n_ctx = int((mask & exists).sum())
+
+    # ---- K8 ordinal mode: the terms agg over cat --------------------------
+    got = aggs_ops.ord_counts(ords, mask, len(C5_CATS))
+    check_k8(torch, got, aggs_ops.ord_value_counts(ords, mask, len(C5_CATS)),
+             "ordinal, cat")
+    sel = ords[:, 0][mask & (ords[:, 0] >= 0)]
+    ord_t = {
+        "ms": timed(torch, "K8 ordinal", lambda: aggs_ops.ord_counts(
+            ords, mask, len(C5_CATS)), reps=100),
+        "plain_ms": timed(torch, "K8 ordinal plain",
+                          lambda: aggs_ops.ord_value_counts(
+                              ords, mask, len(C5_CATS)), reps=20),
+        "library_ms": timed(torch, "K8 ordinal torch.bincount (ords masked "
+                            "beforehand)", lambda: torch.bincount(
+                                sel, minlength=len(C5_CATS)), reps=100)}
+    ord_t["bound_ms"], ord_t["bound_by"] = bound(
+        n + n_mask * 4 + len(C5_CATS) * 4, n)
+
+    # ---- K9: the extended_stats over rank ---------------------------------
+    stats, k9_err = check_k9(torch, aggs_ops, (hi, lo, exists, mask),
+                             "rank under the mask")
+    k9 = {
+        "ms": timed(torch, "K9", lambda: aggs_ops.dd_stats(
+            hi, lo, exists, mask), reps=100),
+        "plain_ms": timed(torch, "K9 plain", lambda: aggs_ops.dd_stats_plain(
+            hi, lo, exists, mask), reps=20)}
+    k9["bound_ms"], k9["bound_by"] = bound(n + n_mask + n_ctx * 8 + 64,
+                                           6 * n_ctx)
+
+    # ---- K8 histogram mode: rank at interval 5 -----------------------------
+    bhi, blo, nb = histogram_base(stats.cpu().numpy(), 5.0)
+    h_args = (hi, lo, exists, mask, bhi, blo, 5.0, nb)
+    check_k8(torch, aggs_ops.dd_histogram_counts(*h_args),
+             aggs_ops.histogram_counts_dd(*h_args), "histogram, rank / 5")
+    hist_t = {
+        "ms": timed(torch, "K8 histogram", lambda: aggs_ops.dd_histogram_counts(
+            *h_args), reps=100),
+        "plain_ms": timed(torch, "K8 histogram plain",
+                          lambda: aggs_ops.histogram_counts_dd(*h_args),
+                          reps=20),
+        "library_ms": None, "library_null": "no single torch call: "
+        "torch.histc buckets f32 values, not the double-double index"}
+    hist_t["bound_ms"], hist_t["bound_by"] = bound(
+        n + n_mask + n_ctx * 8 + nb * 4, 4 * n_ctx)
+
+    # ---- K8 ranges mode: bench-style ranges, and a `to: 0` one ------------
+    bounds = [(-np.inf, 25.0), (25.0, 75.0), (75.0, np.inf), (-np.inf, 0.0)]
+    dd, strict = aggs_ops.range_bounds_dd(bounds)
+    dd, strict = torch.from_numpy(dd).to(dev), torch.from_numpy(strict).to(dev)
+    r_args = (hi, lo, exists, mask, dd, strict)
+    check_k8(torch, aggs_ops.dd_range_counts(*r_args),
+             aggs_ops.dd_range_counts_plain(*r_args), "ranges, rank")
+    range_t = {
+        "ms": timed(torch, "K8 ranges", lambda: aggs_ops.dd_range_counts(
+            *r_args), reps=100),
+        "plain_ms": timed(torch, "K8 ranges plain",
+                          lambda: aggs_ops.dd_range_counts_plain(*r_args),
+                          reps=20),
+        "library_ms": None, "library_null": "no single torch call counts "
+        "overlapping double-double ranges"}
+    range_t["bound_ms"], range_t["bound_by"] = bound(
+        n + n_mask + n_ctx * 8 + len(bounds) * 21, 4 * len(bounds) * n_ctx)
+
+    # ---- odd shapes -------------------------------------------------------
+    rng = np.random.default_rng(args.seed + 5)
+    odd = min(100_003, n)
+    check_k8(torch, aggs_ops.ord_counts(ords[:odd], mask[:odd], 16),
+             aggs_ops.ord_value_counts(ords[:odd], mask[:odd], 16),
+             f"ordinal, N={odd}")
+    check_k9(torch, aggs_ops, (hi[:odd], lo[:odd], exists[:odd], mask[:odd]),
+             f"N={odd}")
+    big = torch.from_numpy(rng.integers(-1, 50_000, (n, 1)).astype(
+        np.int32)).to(dev)
+    check_k8(torch, aggs_ops.ord_counts(big, mask, 50_000),
+             aggs_ops.ord_value_counts(big, mask, 50_000),
+             "ordinal, a 50,000-ord vocabulary (global atomics)")
+    # 4 hours: the bucket index's f32 arithmetic is exact below 2^24 ms
+    millis = 1.5e12 + rng.integers(0, 4, odd) * 3_600_000.0 + np.where(
+        rng.random(odd) < 0.3, 0.0, rng.integers(1, 3_600_000, odd))
+    dhi, dlo = dd_cuda(torch, millis, dev)
+    dex = torch.ones(odd, dtype=torch.bool, device=dev)
+    dstats, _ = check_k9(torch, aggs_ops, (dhi, dlo, dex, mask[:odd]),
+                         "epoch-millis dates")
+    dbhi, dblo, dnb = histogram_base(dstats.cpu().numpy(), 3_600_000.0)
+    d_args = (dhi, dlo, dex, mask[:odd], dbhi, dblo, 3_600_000.0, dnb)
+    d_got = aggs_ops.dd_histogram_counts(*d_args)
+    check_k8(torch, d_got, aggs_ops.histogram_counts_dd(*d_args),
+             "1h buckets of epoch-millis dates, docs on the edges")
+    on_edge = np.floor(millis[mask[:odd].cpu().numpy()] / 3_600_000.0)
+    check(np.array_equal(np.bincount((on_edge - on_edge.min()).astype(
+        np.int64), minlength=dnb), d_got.cpu().numpy()),
+        "K8 1h buckets differ from float64 buckets of the dates")
+    d_dd, d_strict = aggs_ops.range_bounds_dd(
+        [(-np.inf, 0.0), (float(millis[0]), float(millis[0]) + 3.6e6),
+         (float(millis[0]), np.inf)])
+    d_dd = torch.from_numpy(d_dd).to(dev)
+    d_strict = torch.from_numpy(d_strict).to(dev)
+    check_k8(torch, aggs_ops.dd_range_counts(dhi, dlo, dex, mask[:odd], d_dd,
+                                             d_strict),
+             aggs_ops.dd_range_counts_plain(dhi, dlo, dex, mask[:odd], d_dd,
+                                            d_strict),
+             "ranges of dates, `to: 0`, a bound on a stored value")
+    empty = torch.zeros_like(mask)
+    check_k8(torch, aggs_ops.ord_counts(ords, empty, 16),
+             torch.zeros(16, dtype=torch.int32, device=dev), "empty mask")
+    check_k8(torch, aggs_ops.dd_histogram_counts(hi, lo, exists, empty, bhi,
+                                                 blo, 5.0, nb),
+             torch.zeros(nb, dtype=torch.int32, device=dev), "empty mask")
+    check_k9(torch, aggs_ops, (hi, lo, exists, empty), "empty mask")
+    log(f"K8 agg_counts [N={n}, {n_mask} rows in the mask]: equal to plain "
+        f"in every mode (ordinal over 16 cat ords: kernel_ms="
+        f"{ord_t['ms']:.4f} plain_ms={ord_t['plain_ms']:.4f} library_ms="
+        f"{ord_t['library_ms']:.4f} (torch.bincount on ordinals masked "
+        f"beforehand) bound_ms={ord_t['bound_ms']:.6f}; histogram rank/5, "
+        f"{nb} buckets: kernel_ms={hist_t['ms']:.4f} plain_ms="
+        f"{hist_t['plain_ms']:.4f} bound_ms={hist_t['bound_ms']:.6f}; "
+        f"{len(bounds)} ranges: kernel_ms={range_t['ms']:.4f} plain_ms="
+        f"{range_t['plain_ms']:.4f} bound_ms={range_t['bound_ms']:.6f}), "
+        f"and at N={odd}, a 50,000-ord vocabulary, epoch-millis dates at 1h "
+        f"with docs on bucket edges, a `to: 0` range and an empty mask")
+    log(f"K9 agg_stats [N={n}, {n_ctx} rows in context]: count and extrema "
+        f"bit-equal to plain, sums within {k9_err:.3e} (rtol 1e-6), the same "
+        f"bits on a second run; kernel_ms={k9['ms']:.4f} plain_ms="
+        f"{k9['plain_ms']:.4f} bound_ms={k9['bound_ms']:.6f} library_ms=null "
+        f"(no single torch call gives the count, double-double extrema and "
+        f"sums); also at N={odd}, on epoch-millis dates and an empty mask")
+    k8 = {"name": "agg_counts", "route": "cuda", "source": K8_SOURCE,
+          "replaces": K8_REPLACES, "launches": 0, "max_abs_err": 0.0,
+          **ord_t, "shape": {"N": n, "masked": n_mask, "ords": 16},
+          "modes": {"ordinal": ord_t,
+                    "histogram": {**hist_t, "buckets": nb},
+                    "ranges": {**range_t, "ranges": len(bounds)}}}
+    k9_entry = {"name": "agg_stats", "route": "cuda", "source": K9_SOURCE,
+                "replaces": K9_REPLACES, "launches": 0,
+                "max_abs_err": k9_err, **k9, "library_ms": None,
+                "library_null": "no single torch call gives the count, the "
+                "double-double extrema and the sums",
+                "shape": {"N": n, "in_context": n_ctx}}
+    return [k8, k9_entry]
+
+
+def phase_topk_large(torch, args, data) -> dict:
+    """K2 at k = 20,000 and 65,536 over 2^20-entry rows against its plain
+    version (continuous and tie-heavy scores, explicit ids), K2 at k =
+    20,000 timed beside the plain version, torch.topk and its bound."""
+    from elasticsearch_tpu_torch.ops import topk
+    dev = data["reader"].device
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    m = 1 << 20
+    scores = torch.randn((4, m), generator=gen, device=dev)
+    mask = torch.rand((4, m), generator=gen, device=dev) < 0.9
+    ids = torch.randperm(1 << 24, generator=gen, device=dev)[:4 * m].view(
+        4, m).to(torch.int32)
+    errs = []
+    for k in (20_000, 65_536):
+        errs.append(check_k2(torch, topk, scores, k, f"k = {k}",
+                             mask=mask)[1])
+        check_k2(torch, topk, torch.round(scores * 2), k,
+                 f"k = {k}, tie-heavy", mask=mask)
+        check_k2(torch, topk, scores, k, f"k = {k}, explicit ids", ids=ids)
+    k = 20_000
+    masked = torch.where(mask, scores, float("-inf"))
+    res = topk.select_top_k(scores, k, mask=mask)
+    out = {"shape": {"R": 4, "M": m, "k": k}, "max_abs_err": max(errs),
+           "ms": timed(torch, "K2 k = 20,000", lambda: topk.select_top_k(
+               scores, k, mask=mask), reps=20),
+           "plain_ms": timed(torch, "K2 k = 20,000 plain",
+                             lambda: topk.select_top_k_plain(
+                                 scores, k, mask=mask), reps=5),
+           "library_ms": timed(torch, "K2 k = 20,000 torch.topk",
+                               lambda: torch.topk(masked, k, dim=1),
+                               reps=20)}
+    out["bound_ms"], out["bound_by"] = bound(
+        nbytes(scores) + nbytes(mask) + sum(nbytes(t) for t in res),
+        scores.numel())
+    log(f"K2 stable_topk past one block's k [R=4, M={m}]: equal to plain at "
+        f"k = 20,000 and 65,536 (continuous, tie-heavy, explicit ids); at k "
+        f"= {k}: kernel_ms={out['ms']:.4f} plain_ms={out['plain_ms']:.4f} "
+        f"library_ms={out['library_ms']:.4f} (torch.topk, tie order "
+        f"undefined) bound_ms={out['bound_ms']:.4f}")
+    return out
+
+
+def phase_config5(torch, args, data, c5, name, smi_line) -> dict:
+    """BASELINE config 5: bench.py's page at from 500, size 500 of a
+    4-term match (every shard collects its top-1000), batches through the
+    8 shards and the coordinator's merge, held against the float64
+    per-shard scoring."""
+    reqs = c5_reqs(data, C5_BATCHES * args.batch,
+                   **{"from": C5_FROM, "size": C5_SIZE})
+    batches = [reqs[i:i + args.batch] for i in range(0, len(reqs), args.batch)]
+    results, per_batch, merge_ms, wall, launches = c5_drive(torch, c5,
+                                                            batches)
+    for kname in ("bm25_scan", "stable_topk"):
+        check(launches[kname] > 0, f"config 5: kernel {kname} was not "
+              f"launched on its path")
+    recalls = [check_c5_page("config 5", c5, results[0][qi], qi, C5_FROM,
+                             C5_SIZE, C5_FROM + C5_SIZE)
+               for qi in range(C5_CHECK)]
+    n = len(reqs)
+    stats = {"qps": n / wall, "p50_ms": statistics.median(per_batch),
+             "merge_ms_per_request": sum(merge_ms) / n, "launches": launches}
+    log(f"config 5 (8 shards, from {C5_FROM}, size {C5_SIZE}): launches "
+        f"{launches}; {stats['qps']:.2f} queries/s, p50 "
+        f"{stats['p50_ms']:.3f} ms per batch of {args.batch} (batches: "
+        f"{', '.join(f'{x:.3f}' for x in per_batch)} ms); the coordinator's "
+        f"host merge (sort_docs + fetch_phase) "
+        f"{', '.join(f'{x:.3f}' for x in merge_ms)} ms a batch, "
+        f"{stats['merge_ms_per_request']:.3f} ms a request; first "
+        f"{C5_CHECK} requests vs float64 per-shard scoring: totals exact, "
+        f"scores within 1e-5, tie-tolerant page recall {min(recalls)}; "
+        f"{GC.take()} — on {name} ({smi_line})")
+    return stats
+
+
+class SyncCounter:
+    """Counts the device→host reads of CUDA tensors (Tensor.cpu, .item,
+    int(), float()) made while it is entered, from any thread."""
+
+    NAMES = ("cpu", "item", "__int__", "__float__")
+
+    def __init__(self, torch):
+        self.cls = torch.Tensor
+        self.count = 0
+        self._lock = threading.Lock()
+        self._own = {}
+
+    def __enter__(self):
+        for name in self.NAMES:
+            self._own[name] = self.cls.__dict__.get(name)
+            orig = getattr(self.cls, name)
+
+            def counted(t, *a, _orig=orig, **kw):
+                if t.is_cuda:
+                    with self._lock:
+                        self.count += 1
+                return _orig(t, *a, **kw)
+            setattr(self.cls, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for name, own in self._own.items():
+            if own is None:
+                delattr(self.cls, name)
+            else:
+                setattr(self.cls, name, own)
+
+
+def check_c5_aggs(label, c5, resp, qi) -> int:
+    """One request's reduced aggregations against numpy over the host
+    columns of the docs the float64 scoring matches: terms, histogram and
+    range buckets and counts, and count, min and max exact (min and max of
+    the column's double-double values, hi + lo, which the device reduces);
+    sum and avg within 1e-5 and variance and std_deviation within 1e-4 of
+    float64. Histogram buckets follow the reference's f32 arithmetic on
+    (hi, lo). → the docs whose bucket differs from float64 floor(v / 5)."""
+    from elasticsearch_tpu_torch.index.device_reader import dd_split
+    rows = np.concatenate([sh["lo"] + np.nonzero(m)[0] for sh, (_, m) in
+                           zip(c5["shards"], c5["cpu"][qi])])
+    aggs = resp["aggregations"]
+    hi, lo = c5["rank_hi"][rows], c5["rank_lo"][rows]
+    v = hi.astype(np.float64) + lo
+    true = c5["rank"][rows]
+    cats = np.bincount(c5["cat"][rows], minlength=len(C5_CATS))
+    order = sorted(range(len(C5_CATS)), key=lambda i: (-cats[i], C5_CATS[i]))
+    want_terms = [(C5_CATS[i], int(cats[i])) for i in order if cats[i]][:8]
+    check([(b["key"], b["doc_count"]) for b in aggs["by_cat"]["buckets"]]
+          == want_terms, f"{label} request {qi}: terms buckets differ")
+    check(aggs["by_cat"]["sum_other_doc_count"] ==
+          len(rows) - sum(c for _, c in want_terms),
+          f"{label} request {qi}: terms sum_other_doc_count differs")
+    st = aggs["st"]
+    check((st["count"], st["min"], st["max"]) == (len(rows), v.min(),
+                                                  v.max()),
+          f"{label} request {qi}: count/min/max {st['count']}, {st['min']}, "
+          f"{st['max']} vs {len(rows)}, {v.min()}, {v.max()}")
+    var = float(np.var(true))
+    for key, want, rtol in (("sum", true.sum(), 1e-5),
+                            ("avg", true.mean(), 1e-5),
+                            ("variance", var, 1e-4),
+                            ("std_deviation", np.sqrt(var), 1e-4)):
+        check(abs(st[key] - want) <= rtol * abs(want),
+              f"{label} request {qi}: {key} {st[key]} vs float64 {want}")
+    first = np.floor(v.min() / 5.0)
+    bhi, blo = dd_split(np.float64(first * 5.0))
+    rel = (hi - np.float32(bhi)) + (lo - np.float32(blo))
+    idx = np.floor(rel / np.float32(5.0)).astype(np.int64)
+    counts = np.bincount(idx)
+    want_h = [(float(first * 5.0 + 5.0 * i), int(c))
+              for i, c in enumerate(counts) if c]
+    check([(b["key"], b["doc_count"]) for b in aggs["hi"]["buckets"]] ==
+          want_h, f"{label} request {qi}: histogram buckets differ")
+    moved = int((np.floor(true / 5.0) - first != idx).sum())
+    bounds = [(None, 25.0), (25.0, 75.0), (75.0, None)]
+    want_r = []
+    for frm, to in bounds:
+        ok = np.ones(len(rows), bool)
+        if frm is not None:
+            fh, fl = dd_split(np.float64(frm))
+            ok &= (hi > fh) | ((hi == fh) & (lo >= fl))
+        if to is not None:
+            th, tl = dd_split(np.float64(to))
+            ok &= (hi < th) | ((hi == th) & (lo < tl))
+        want_r.append(int(ok.sum()))
+    check([b["doc_count"] for b in aggs["rg"]["buckets"]] == want_r,
+          f"{label} request {qi}: range counts differ")
+    check(aggs["vc"]["value"] == len(rows),
+          f"{label} request {qi}: value_count differs")
+    return moved
+
+
+def phase_config5_aggs(torch, args, data, c5, name, smi_line) -> dict:
+    """Config 5 with size 10 and bench.py's terms agg over cat plus
+    extended_stats, histogram, range and value_count over the same shards
+    and queries: query_phase one request at a time on each shard (the
+    reference serves aggs so), then merge_responses reduces them. K8 and K9
+    must have launched, no node may have gone to the host collectors and
+    no full mask to the host (DeviceAggState.np_mask is wrapped throughout;
+    the wrapper runs only if the mask is made). The device→host reads are
+    counted on one more batch after the timed ones, so the timed window
+    runs without SyncCounter's wrappers."""
+    from elasticsearch_tpu_torch.search import aggregations
+    reqs = c5_reqs(data, C5_AGG_BATCHES * args.batch, size=10, aggs=C5_AGGS)
+    batches = [reqs[i:i + args.batch] for i in range(0, len(reqs), args.batch)]
+    before = dict(aggregations.DEVICE_AGG_STATS)
+    materialized = []
+    orig = aggregations.DeviceAggState.np_mask
+
+    def np_mask(state):
+        materialized.append(1)
+        return orig(state)
+    aggregations.DeviceAggState.np_mask = np_mask
+    try:
+        results, per_batch, merge_ms, wall, launches = c5_drive(
+            torch, c5, batches)
+        with SyncCounter(torch) as syncs:
+            c5_batch(c5, batches[0])
+            torch.cuda.synchronize()
+    finally:
+        aggregations.DeviceAggState.np_mask = orig
+    after = aggregations.DEVICE_AGG_STATS
+    for kname in ("bm25_scan", "stable_topk", "agg_counts", "agg_stats"):
+        check(launches[kname] > 0, f"config 5 + aggs: kernel {kname} was not "
+              f"launched on its path")
+    check(after["host_fallbacks"] == before["host_fallbacks"],
+          "config 5 + aggs: a node went to the host collectors")
+    check(not materialized, "config 5 + aggs: a full mask went to the host")
+    n = len(reqs)
+    moved = [check_c5_aggs("config 5 + aggs", c5, results[0][qi], qi)
+             for qi in range(C5_CHECK)]
+    for qi in range(C5_CHECK):
+        check_c5_page("config 5 + aggs", c5, results[0][qi], qi, 0, 10, 10)
+    stats = {"qps": n / wall, "p50_ms": statistics.median(per_batch),
+             "syncs_per_request": syncs.count / len(batches[0]),
+             "merge_ms_per_request": sum(merge_ms) / n, "launches": launches}
+    log(f"config 5 + aggs (8 shards, size 10, {len(C5_AGGS)} aggs): launches "
+        f"{launches}; {stats['qps']:.2f} queries/s, p50 "
+        f"{stats['p50_ms']:.3f} ms per batch of {args.batch} (batches: "
+        f"{', '.join(f'{x:.3f}' for x in per_batch)} ms); device->host reads "
+        f"{stats['syncs_per_request']:.2f} a request (counted on one more, "
+        f"untimed batch), host merge and reduce {stats['merge_ms_per_request']:.3f} ms a request; "
+        f"device collects {after['device_collects'] - before['device_collects']}"
+        f" ({len(batches) + 1} batches), host collectors 0, host masks 0; first {C5_CHECK} requests vs "
+        f"numpy: buckets, counts, min, max exact, sums within 1e-5, variance "
+        f"within 1e-4, hits vs float64; docs whose f32 histogram bucket "
+        f"differs from float64 floor(v / 5): {moved}; {GC.take()} — on "
+        f"{name} ({smi_line})")
+    return stats
+
+
+K2_STAGES = ("chunk_topk_kernel", "split_candidates_kernel",
+             "select_run_kernel", "sort_tiles_kernel", "merge_runs_kernel",
+             "write_run_kernel")
+
+
+def k2_stages(torch, fn, calls: int = 5) -> dict:
+    """``calls`` calls of ``fn`` under torch.profiler, after a warm-up step
+    it does not record → per K2 large-k stage, (device ms a launch,
+    launches recorded); {} when the profiler reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    recorded = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                                  active=1),
+                 on_trace_ready=lambda p: recorded.append(
+                     p.key_averages())) as prof:
+        for _ in range(2):
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out = {}
+    for ev in (recorded[0] if recorded else []):
+        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+        for stage in K2_STAGES:
+            if stage in ev.key and dev_us > 0:
+                ms, n = out.get(stage, (0.0, 0))
+                out[stage] = (ms + dev_us / 1e3, n + ev.count)
+    return {stage: (ms / n, n) for stage, (ms, n) in out.items()}
+
+
+def stage_text(stages: dict) -> str:
+    return ", ".join(f"{name} {ms:.4f} ({n:g})"
+                     for name, (ms, n) in stages.items()) or "not measured"
+
+
+def phase_deep_page(torch, args, data, c5) -> dict:
+    """One request at from 20,000, size 100 through config 5: every shard
+    runs K2 at k = 20,100 over its 262,144 rows and again in its merge of
+    that one segment's 20,100 candidates; untimed, held against the float64
+    per-shard scoring. K2's inputs on the path are recorded as it runs and
+    each call is then held against K2's plain version on them; the segment
+    call of shard 0 is timed beside its plain version, torch.topk and its
+    bound. → K2's launches and the timing."""
+    from elasticsearch_tpu_torch.ops import topk
+    reqs = c5_reqs(data, 1, **{"from": DEEP_FROM, "size": DEEP_SIZE})
+    k = DEEP_FROM + DEEP_SIZE
+    calls, lock = [], threading.Lock()
+    orig = topk.select_top_k
+
+    def recorded(scores, kk, mask=None, ids=None):
+        if kk > topk.CHUNK:
+            keep = tuple(None if t is None else t.clone()
+                         for t in (scores, mask, ids))
+            with lock:
+                calls.append((kk, *keep))
+        return orig(scores, kk, mask=mask, ids=ids)
+    topk.select_top_k = recorded
+    try:
+        topk.TOPK.launches = 0
+        out, _ = c5_batch(c5, reqs)
+        launches = topk.TOPK.launches
+    finally:
+        topk.select_top_k = orig
+    check(launches > 0, "deep page: K2 was not launched")
+    recall = check_c5_page("deep page", c5, out[0], 0, DEEP_FROM, DEEP_SIZE,
+                           DEEP_FROM + DEEP_SIZE)
+    # the segment calls ([1, 262,144], the shard's mask) and the merges
+    # ([1, 20,100], explicit ids: one full chunk and one of 3,716 entries)
+    seg_calls = [c for c in calls if c[2] is not None]
+    merge_calls = [c for c in calls if c[3] is not None]
+    check(len(seg_calls) == C5_SHARDS and len(merge_calls) == C5_SHARDS and
+          len(calls) == 2 * C5_SHARDS and all(c[0] == k for c in calls),
+          f"deep page: K2 calls past one block's k were "
+          f"{[(c[0], tuple(c[1].shape)) for c in calls]}, not a segment "
+          f"call and a merge at k = {k} on each of {C5_SHARDS} shards")
+    errs = [check_k2(torch, topk, sc, kk, f"the deep page's "
+                     f"{'segment' if mk is not None else 'merge'} call "
+                     f"{i} [{sc.shape[0]}, {sc.shape[1]}]", mask=mk,
+                     ids=ids)[1]
+            for i, (kk, sc, mk, ids) in enumerate(calls)]
+    _, scores, mask, _ = seg_calls[0]
+    masked = torch.where(mask, scores, float("-inf"))
+    res = topk.select_top_k(scores, k, mask=mask)
+    timing = {"shape": {"R": scores.shape[0], "M": scores.shape[1], "k": k},
+              "max_abs_err": max(errs),
+              "ms": timed(torch, "K2 deep page", lambda: topk.select_top_k(
+                  scores, k, mask=mask), reps=20),
+              "plain_ms": timed(torch, "K2 deep page plain",
+                                lambda: topk.select_top_k_plain(
+                                    scores, k, mask=mask), reps=20),
+              "library_ms": timed(torch, "K2 deep page torch.topk",
+                                  lambda: torch.topk(masked, k, dim=1),
+                                  reps=20)}
+    timing["bound_ms"], timing["bound_by"] = bound(
+        nbytes(scores) + nbytes(mask) + sum(nbytes(t) for t in res),
+        scores.numel())
+    timing["stages_ms"] = k2_stages(torch, lambda: topk.select_top_k(
+        scores, k, mask=mask))
+    _, m_scores, _, m_ids = merge_calls[0]
+    timing["merge_stages_ms"] = k2_stages(torch, lambda: topk.select_top_k(
+        m_scores, k, ids=m_ids))
+    merge_shapes = sorted({tuple(c[1].shape) for c in merge_calls})
+    log(f"deep page (from {DEEP_FROM}, size {DEEP_SIZE}, every shard's k = "
+        f"{k}): {len(out[0]['hits']['hits'])} hits of "
+        f"{out[0]['hits']['total']}, K2 launches {launches}; vs float64 "
+        f"per-shard scoring: total exact, scores within 1e-5, tie-tolerant "
+        f"page recall {recall}; K2 equal to plain on all {len(calls)} of "
+        f"its calls on the path ({len(seg_calls)} segment calls "
+        f"[1, {scores.shape[1]}] under the shard's mask, {len(merge_calls)} "
+        f"merges {merge_shapes} with explicit ids); shard 0's segment call: "
+        f"kernel_ms={timing['ms']:.4f} plain_ms={timing['plain_ms']:.4f} "
+        f"library_ms={timing['library_ms']:.4f} (torch.topk, tie order "
+        f"undefined) bound_ms={timing['bound_ms']:.4f}; device ms a launch "
+        f"(launches recorded in 5 calls) by stage, segment call {stage_text(timing['stages_ms'])}"
+        f", merge call {stage_text(timing['merge_stages_ms'])}")
+    return {"launches": launches, "deep_page": timing}
+
+
+def phase_c5_profile(torch, data, c5, label, batch) -> dict:
+    """One config-5 batch under torch.profiler (after an unrecorded warm-up
+    run of it): device time by kernel, busy share, the host planning of the
+    batch on every shard alone and the coordinator's host merge."""
+    from elasticsearch_tpu_torch.search import segment_exec
+    flags = {"min_score": False, "search_after": False}
+    GC.take()
+    t0 = time.perf_counter()
+    for s in c5_searchers(c5):
+        for req in batch:
+            segment_exec._plan(s.reader.segments[0], s.ctx, req.query, None,
+                               flags)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    merges = []
+    return profile_batch(torch, label, lambda: merges.append(
+        c5_batch(c5, batch)[1]), plan_ms, GC.take(), len(batch),
+        extra=lambda: f"; coordinator host merge {merges[-1]:.3f} ms")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1 << 21,
@@ -2435,6 +3278,32 @@ def main(argv=None) -> int:
             data, data["q_pruned"][:PRUNED_BATCH], PRUNED_K,
             track_total_hits=False), searcher=data["impact_searcher"],
             plan=impact_plan(torch, data, pruned=True))
+        # config 5 and aggregations
+        release_lane_state(torch, data, mdata)
+        kernels[1]["large_k"] = phase_topk_large(torch, args, data)
+        c5 = phase_config5_setup(torch, args, data)
+        k89 = phase_agg_kernels(torch, args, data, c5)
+        kernels.extend(k89)
+        stats5 = phase_config5(torch, args, data, c5, name, smi_line)
+        stats5a = phase_config5_aggs(torch, args, data, c5, name, smi_line)
+        kernels[1]["large_k"].update(phase_deep_page(torch, args, data, c5))
+        by_config.update({"5": stats5, "5-aggs": stats5a})
+        for kern in kernels:
+            kern["launches_by_config"] = {
+                cfg: st["launches"][kern["name"]]
+                for cfg, st in by_config.items()}
+        for kern in k89:
+            kern["launches"] = stats5a["launches"][kern["name"]]
+        phase_c5_profile(torch, data, c5, "config 5", c5_reqs(
+            data, args.batch, **{"from": C5_FROM, "size": C5_SIZE}))
+        prof = phase_c5_profile(torch, data, c5, "config 5 + aggs", c5_reqs(
+            data, args.batch, size=10, aggs=C5_AGGS))
+        # the device time of one launch on the path, beside the wrapper's
+        # event-timed call (K9 is two kernels a launch)
+        for kern, key, per_launch in ((k89[0], "K8", 1), (k89[1], "K9", 2)):
+            dev_ms, kernels_run = prof.get("parts", {}).get(key, (0.0, 0))
+            kern["device_ms"] = dev_ms * per_launch / kernels_run \
+                if kernels_run else None
     except Exception as e:                  # noqa: BLE001 — report, then fail
         traceback.print_exc()
         print(f"[chip_smoke] FAILED: {type(e).__name__}: {e}",

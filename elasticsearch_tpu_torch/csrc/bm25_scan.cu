@@ -66,6 +66,11 @@ constexpr int kStride = kRun + 1;    // staging stride: conflict-free
 constexpr int kMaxSlots = 512;       // (query, term) pairs per table
 constexpr int kMaxGroup = 64;        // queries per block
 constexpr unsigned kFull = 0xffffffffu;
+// The limit each launch sets is the most any call may take (sm_90's opt-in
+// shared memory a block), not this call's size: shards call from several
+// threads, and a smaller limit set by another thread between this call's
+// setting and its launch would refuse the launch.
+constexpr int kSmemOptIn = 232448;
 
 // Shared-memory layout, computed alike on the host (for its size) and in the
 // kernel. Per block: the table's keys, each pair's slot and weight, the
@@ -308,7 +313,8 @@ extern "C" int bm25_scan_launch(const void* uterms, const void* utf,
     return (int)cudaErrorInvalidValue;
   const Layout l = make_layout(n_queries, n_terms, nmatch != nullptr);
   cudaError_t err = cudaFuncSetAttribute(
-      bm25_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
+      bm25_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemOptIn);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&device);

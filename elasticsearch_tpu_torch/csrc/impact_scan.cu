@@ -60,6 +60,11 @@ constexpr int kMaxSlots = 512;       // (query, term) pairs per table
 constexpr int kMaxGroup = 64;        // queries per block
 constexpr int kMaxTerms = 255;
 constexpr unsigned kFull = 0xffffffffu;
+// The limit each launch sets is the most any call may take (sm_90's opt-in
+// shared memory a block), not this call's size: shards call from several
+// threads, and a smaller limit set by another thread between this call's
+// setting and its launch would refuse the launch.
+constexpr int kSmemOptIn = 232448;
 
 struct Layout {
   int qg, hbits;
@@ -265,7 +270,7 @@ int launch(const void* uterms, const void* qimp, const void* live, int n_docs,
   const Layout l = make_layout(n_queries, n_terms);
   cudaError_t err = cudaFuncSetAttribute(
       impact_scan_kernel<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      l.bytes);
+      kSmemOptIn);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&device);

@@ -71,6 +71,11 @@ constexpr int kStageWin = 3;         // 32-position windows staged a row
 constexpr int kStagePos = kStageWin * 32;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kEmpty = ~0ull;  // no (term, term) key
+// The limit each launch sets is the most any call may take (sm_90's opt-in
+// shared memory a block), not this call's size: shards call from several
+// threads, and a smaller limit set by another thread between this call's
+// setting and its launch would refuse the launch.
+constexpr int kSmemOptIn = 232448;
 
 struct Deltas {
   int d[kMaxTerms];
@@ -339,7 +344,7 @@ extern "C" int phrase_scan_launch(const void* tokens, const void* extent,
   const Layout l = make_layout(n_queries, n_terms);
   cudaError_t err = cudaFuncSetAttribute(
       phrase_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      l.bytes);
+      kSmemOptIn);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0, per_sm = 0;
   err = cudaGetDevice(&device);

@@ -424,15 +424,10 @@ __device__ uint32_t select_top(const Keys& keys, uint32_t k, uint32_t slack,
   return k;
 }
 
-// Sort the nsel gathered keys (descending) and write the row's k results.
-// kpad is a power of two and a multiple of 32.
+// Bitonic sort of kpad keys in shared memory, descending; key 0 (padding)
+// sinks below every real key. kpad is a power of two and a multiple of 32.
 template <int THREADS>
-__device__ void sort_and_write(uint64_t* sbuf, int kpad, uint32_t nsel, int k,
-                               const float* rs, const int32_t* ri, float* os,
-                               int32_t* oi) {
-  for (int i = nsel + threadIdx.x; i < kpad; i += THREADS) sbuf[i] = 0ull;
-  __syncthreads();
-  // bitonic sort, descending; key 0 (padding) sinks below every real key.
+__device__ void bitonic_sort_desc(uint64_t* sbuf, int kpad) {
   // Strides of 32 and more go through shared memory, the smaller ones
   // through warp shuffles in registers, one barrier for all of them.
   for (int size = 2; size <= kpad; size <<= 1) {
@@ -465,16 +460,32 @@ __device__ void sort_and_write(uint64_t* sbuf, int kpad, uint32_t nsel, int k,
     }
     __syncthreads();
   }
-  for (int j = threadIdx.x; j < k; j += THREADS) {
-    if ((uint32_t)j < nsel) {
-      const uint32_t pos = 0xFFFFFFFFu - (uint32_t)(sbuf[j] & 0xFFFFFFFFull);
-      os[j] = rs[pos];
-      oi[j] = ri ? ri[pos] : (int32_t)pos;
-    } else {
-      os[j] = -CUDART_INF_F;
-      oi[j] = -1;
-    }
+}
+
+// The result of one key: its entry's score and id, or (-inf, -1) for key 0.
+__device__ __forceinline__ void write_key(uint64_t key, const float* rs,
+                                          const int32_t* ri, float* os,
+                                          int32_t* oi) {
+  if (key) {
+    const uint32_t pos = 0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull);
+    *os = rs[pos];
+    *oi = ri ? ri[pos] : (int32_t)pos;
+  } else {
+    *os = -CUDART_INF_F;
+    *oi = -1;
   }
+}
+
+// Sort the nsel gathered keys (descending) and write the row's k results.
+template <int THREADS>
+__device__ void sort_and_write(uint64_t* sbuf, int kpad, uint32_t nsel, int k,
+                               const float* rs, const int32_t* ri, float* os,
+                               int32_t* oi) {
+  for (int i = nsel + threadIdx.x; i < kpad; i += THREADS) sbuf[i] = 0ull;
+  __syncthreads();
+  bitonic_sort_desc<THREADS>(sbuf, kpad);
+  for (int j = threadIdx.x; j < k; j += THREADS)
+    write_key((uint32_t)j < nsel ? sbuf[j] : 0ull, rs, ri, os + j, oi + j);
 }
 
 // Stage 1: one block per (row, chunk). With `cand` NULL the row is a single
@@ -624,19 +635,222 @@ merge_candidates_kernel(const float* __restrict__ scores,
   if (threadIdx.x == 0) out_count[row] = (int32_t)sh.eligible;
 }
 
+// ---- k above the one-block sort (k > chunk) --------------------------------
+// Stage 1 then sends every eligible key of its chunk to the candidates (a
+// chunk holds fewer than k), building the row histogram as before. Stage 2,
+// many blocks per row, each over a slice of the candidates: every block
+// takes the bin of the row's k-th key from the row histogram, sends the keys
+// above that bin straight to the row's run buffer of `run_len` keys (a
+// multiple of kTile) and lists the bin's own keys in a second buffer. Stage
+// 3, one block per row, resolves the bin list by radix passes until the
+// boundary holds exactly the keys wanted and appends them to the run, the
+// rest of the run zero. Stage 4 sorts the run in kTile-key tiles in shared
+// memory with the bitonic sort, a block a tile; stage 5 merges sorted runs
+// pairwise in device memory, each thread placing kMergeItems outputs after a
+// merge-path binary search of its first one, until one run is left; stage 6
+// writes its first k keys.
+
+constexpr int kTile = 2048;          // keys a tile-sorting block sorts
+constexpr int kTileThreads = 512;
+constexpr int kSplitKeys = kUnroll * kRowThreads;  // candidates a stage-2
+                                                   // block reads
+constexpr int kMergeItems = 8;       // outputs a merging thread places
+// per row of the candidate state: keys in the run, keys in the bin list
+constexpr int kRunFill = 1;
+constexpr int kBinFill = 2;
+
+// Stage 2 for a large k: one block per (row, slice of kSplitKeys candidates).
+__global__ void __launch_bounds__(kRowThreads)
+split_candidates_kernel(int k, int64_t cap, int slices, int run_len,
+                        const uint64_t* __restrict__ cand,
+                        uint32_t* __restrict__ state,
+                        uint64_t* __restrict__ runs,
+                        uint64_t* __restrict__ bins) {
+  __shared__ uint32_t hist[kBins];
+  __shared__ SelectShared sh;
+  const int64_t row = blockIdx.x / slices;
+  const int first = (blockIdx.x % slices) * kSplitKeys;
+  uint32_t* rstate = state + row * kRowState;
+  const int n_row = (int)rstate[0];
+  if (first >= n_row) return;  // the whole block: a slice past the fill
+  for (int i = threadIdx.x; i < kBins; i += kRowThreads)
+    hist[i] = rstate[kHistAt + i];
+  __syncthreads();
+  Radix st{0ull, 0, (uint32_t)k};
+  descend<kRowThreads>(hist, st, kBits, sh);
+  const KeyArray<kRowThreads, kUnroll> keys{
+      cand + row * cap + first, min(kSplitKeys, n_row - first)};
+  uint64_t* run = runs + row * run_len;
+  if (sh.total <= (uint32_t)k) {  // every eligible key is wanted
+    emit(keys, [](uint64_t key) { return key != 0ull; }, run,
+         &rstate[kRunFill]);
+    return;
+  }
+  const Radix bin = st;
+  emit(keys, [&](uint64_t key) { return above(key, bin); }, run,
+       &rstate[kRunFill], [&](uint64_t key) { return under(key, bin); },
+       bins + row * cap, &rstate[kBinFill], (uint32_t)cap);
+}
+
+// Stage 3 for a large k: one block per row over its boundary bin's list.
+__global__ void __launch_bounds__(kRowThreads)
+select_run_kernel(int k, int64_t cap, int run_len,
+                  const uint64_t* __restrict__ bins,
+                  const uint32_t* __restrict__ state,
+                  uint64_t* __restrict__ runs,
+                  int32_t* __restrict__ out_count) {
+  __shared__ uint32_t hist[kBins];
+  __shared__ SelectShared sh;
+  const int64_t row = blockIdx.x;
+  const uint32_t* rstate = state + row * kRowState;
+  for (int i = threadIdx.x; i < kBins; i += kRowThreads)
+    hist[i] = rstate[kHistAt + i];
+  if (threadIdx.x == 0) {
+    sh.lo = ~0ull;
+    sh.hi = 0ull;
+  }
+  __syncthreads();
+  Radix st{0ull, 0, (uint32_t)k};
+  uint32_t cnt = descend<kRowThreads>(hist, st, kBits, sh);
+  const uint32_t total = sh.total;
+  uint64_t* run = runs + row * run_len;
+  uint32_t n = total;
+  if (total > (uint32_t)k) {
+    // the k - rank keys above the bin are in the run; the bin's cnt keys
+    // are listed, and the rank best of them complete the run
+    if (threadIdx.x == 0) sh.n = (uint32_t)k - st.rank;
+    __syncthreads();
+    const KeyArray<kRowThreads, kUnroll> kept{bins + row * cap, (int)cnt};
+    if (cnt != st.rank) narrow(kept, st, sh);
+    while (cnt != st.rank && st.pbits < 64)
+      cnt = radix_pass<kRowThreads>(kept, st, hist, sh);
+    emit(kept, [&](uint64_t key) { return picked(key, st); }, run, &sh.n);
+    n = (uint32_t)k;
+  }
+  __syncthreads();
+  for (int i = n + threadIdx.x; i < run_len; i += kRowThreads) run[i] = 0ull;
+  if (threadIdx.x == 0) out_count[row] = (int32_t)total;
+}
+
+// Stage 4: one block per (row, tile of kTile keys), sorted in place.
+__global__ void __launch_bounds__(kTileThreads)
+sort_tiles_kernel(int run_len, uint64_t* __restrict__ runs) {
+  __shared__ uint64_t sbuf[kTile];
+  const int tiles = run_len / kTile;
+  uint64_t* tile = runs + (int64_t)(blockIdx.x / tiles) * run_len +
+                   (int64_t)(blockIdx.x % tiles) * kTile;
+  for (int i = threadIdx.x; i < kTile; i += kTileThreads) sbuf[i] = tile[i];
+  __syncthreads();
+  bitonic_sort_desc<kTileThreads>(sbuf, kTile);
+  for (int i = threadIdx.x; i < kTile; i += kTileThreads) tile[i] = sbuf[i];
+}
+
+// Stage 5: merge the descending runs of `width` keys of src pairwise into
+// runs of 2 x width in dst (a lone last run is copied).
+__global__ void merge_runs_kernel(int rows, int run_len, int width,
+                                  const uint64_t* __restrict__ src,
+                                  uint64_t* __restrict__ dst) {
+  const int per_row = run_len / kMergeItems;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (int64_t)rows * per_row) return;
+  const int64_t row = t / per_row;
+  const int o = (int)(t % per_row) * kMergeItems;
+  const int start = o / (2 * width) * (2 * width);
+  const uint64_t* a = src + row * run_len + start;
+  const int la = min(width, run_len - start);
+  const uint64_t* b = a + la;
+  const int lb = max(0, min(width, run_len - start - width));
+  const int d = o - start;
+  // i: keys of a among the first d outputs (a first on equal keys)
+  int lo = max(0, d - lb), hi = min(d, la);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] >= b[d - 1 - mid])
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  int i = lo, j = d - lo;
+  uint64_t* out = dst + row * run_len + o;
+#pragma unroll
+  for (int e = 0; e < kMergeItems; ++e) {
+    const bool take_a = i < la && (j >= lb || a[i] >= b[j]);
+    out[e] = take_a ? a[i++] : b[j++];
+  }
+}
+
+// Stage 6: the first k keys of each row's run → results.
+__global__ void write_run_kernel(int k, int run_len, int m,
+                                 const uint64_t* __restrict__ runs,
+                                 const float* __restrict__ scores,
+                                 const int32_t* __restrict__ ids,
+                                 float* __restrict__ out_scores,
+                                 int32_t* __restrict__ out_ids) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t row = blockIdx.y;
+  if (j >= k) return;
+  write_key(runs[row * run_len + j], scores + row * m,
+            ids ? ids + row * m : nullptr, out_scores + row * k + j,
+            out_ids + row * k + j);
+}
+
+// Stages 2-6 for k > chunk; `cand` holds 2 x rows x cap keys (the
+// candidates, then the boundary-bin lists) and `runs` 2 x rows x run_len.
+cudaError_t large_k(const float* scores, const int32_t* ids, int rows, int m,
+                    int k, int64_t cap, uint64_t* cand, uint32_t* state,
+                    uint64_t* runs, float* out_scores, int32_t* out_ids,
+                    int32_t* out_count, cudaStream_t s) {
+  const int run_len = (k + kTile - 1) / kTile * kTile;
+  const int tiles = run_len / kTile;
+  const int slices = (int)((cap + kSplitKeys - 1) / kSplitKeys);
+  uint64_t* bins = cand + (int64_t)rows * cap;
+  uint64_t* src = runs;
+  uint64_t* dst = runs + (int64_t)rows * run_len;
+  split_candidates_kernel<<<(unsigned)rows * slices, kRowThreads, 0, s>>>(
+      k, cap, slices, run_len, cand, state, src, bins);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  select_run_kernel<<<rows, kRowThreads, 0, s>>>(k, cap, run_len, bins, state,
+                                                 src, out_count);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  sort_tiles_kernel<<<(unsigned)rows * tiles, kTileThreads, 0, s>>>(run_len,
+                                                                    src);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t threads = (int64_t)rows * (run_len / kMergeItems);
+  for (int width = kTile; width < run_len; width *= 2) {
+    merge_runs_kernel<<<(unsigned)((threads + 255) / 256), 256, 0, s>>>(
+        rows, run_len, width, src, dst);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    uint64_t* t = src;
+    src = dst;
+    dst = t;
+  }
+  write_run_kernel<<<dim3((unsigned)((k + 255) / 256), (unsigned)rows), 256,
+                     0, s>>>(k, run_len, m, src, scores, ids, out_scores,
+                             out_ids);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // `chunk` entries per stage-1 block (a multiple of 4). A row of more than
 // `chunk` entries needs `cand` ([rows, ceil(m / chunk) * min(2k, chunk)]
-// 64-bit keys) and `state` ([rows, 4 + 4096] zeroed 32-bit counters).
+// 64-bit keys) and `state` ([rows, 4 + 4096] zeroed 32-bit counters); with
+// k > chunk as well, `cand` twice that ([2, rows, ceil(m / chunk) * chunk])
+// and `runs` ([2, rows, ceil(k / 2048) * 2048] 64-bit keys).
 extern "C" int topk_launch(const void* scores, const void* mask,
                            const void* ids, int rows, int m, int k, int kpad,
-                           int chunk, void* cand, void* state,
+                           int chunk, void* cand, void* state, void* runs,
                            void* out_scores, void* out_ids, void* out_count,
                            void* stream) {
   const int chunks = (m + chunk - 1) / chunk;
   const bool split = chunks > 1;
-  if (split && (cand == nullptr || state == nullptr))
+  const bool large = split && k > chunk;
+  if ((split && (cand == nullptr || state == nullptr)) ||
+      (large && runs == nullptr))
     return (int)cudaErrorInvalidValue;
   const int vec = m % 4 == 0 && (uintptr_t)scores % 16 == 0 &&
                   (uintptr_t)mask % 4 == 0 && (uintptr_t)ids % 16 == 0;
@@ -647,9 +861,13 @@ extern "C" int topk_launch(const void* scores, const void* mask,
   size_t smem1 = stage + kBins * sizeof(uint32_t);
   if (!split)
     smem1 += (kList1 + (size_t)kpad) * sizeof(uint64_t);
+  // the limit is the most any call may take (beside the static
+  // SelectShared), not this call's size: shards call from several threads,
+  // and a smaller limit set by another thread between this setting and the
+  // launch would refuse the launch
   cudaError_t err = cudaFuncSetAttribute(
       chunk_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem1);
+      kSmemMax - (int)sizeof(SelectShared));
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(chunk_topk_kernel,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -663,6 +881,12 @@ extern "C" int topk_launch(const void* scores, const void* mask,
       (int32_t*)out_count);
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return (int)err;
+  if (large)
+    return (int)large_k((const float*)scores, (const int32_t*)ids, rows, m,
+                        k, (int64_t)chunks * chunk, (uint64_t*)cand,
+                        (uint32_t*)state, (uint64_t*)runs,
+                        (float*)out_scores, (int32_t*)out_ids,
+                        (int32_t*)out_count, (cudaStream_t)stream);
 
   // the boundary-bin list takes what shared memory the block has left
   const size_t smem2 = kSmemMax - sizeof(SelectShared);

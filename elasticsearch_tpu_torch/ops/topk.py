@@ -9,9 +9,13 @@ port selects with its own stable kernel K2 (``csrc/topk.cu``) on CUDA
 tensors and with :func:`select_top_k_plain` (a stable sort) on CPU tensors.
 K2 cuts a row longer than :data:`CHUNK` entries over many blocks, each
 sending on its chunk's top-k candidates, and one block per row then selects
-among them; a row of at most :data:`CHUNK` entries takes one block.
-Within a segment position order is doc order; across segments concatenated
-in segment order it is TopDocs.merge's order.
+among them; a row of at most :data:`CHUNK` entries takes one block. A k
+above :data:`CHUNK` (a deep page: ``from + size`` past 16384) selects the
+row's k best candidates into a buffer in device memory (many blocks a row
+split the candidates at the bin of the k-th key, one block resolves that
+bin), sorts it in :data:`TILE`-key tiles, a block a tile, and merges the
+tiles pairwise, so K2 takes any k, as ``lax.top_k`` does. Within a segment position order is doc order; across
+segments concatenated in segment order it is TopDocs.merge's order.
 """
 
 from __future__ import annotations
@@ -25,26 +29,25 @@ from elasticsearch_tpu_torch.ops import cuda_build
 
 NEG_INF = float("-inf")
 
-#: largest k K2 takes: its sort buffer of next_pow2(k) 64-bit keys must fit
-#: one block's shared memory (16384 × 8 B = 128 KB of the H100's 227 KB,
-#: beside a single-chunk row's 64 KB of staged scores).
-#: Elasticsearch's default index.max_result_window is 10000.
-MAX_K = 16384
-
 #: entries per K2 block. A block stages its chunk in shared memory as 4-byte
 #: words (64 KiB, beside a 16 KiB histogram: two blocks per SM), so a row of
 #: 2^20 docs is read once by 64 blocks and a batch of 64 such rows fills the
 #: card's 132 SMs many times over. A row of at most CHUNK entries (the
 #: cross-segment merge, [B, segments x k]) is one chunk: its single block
 #: selects, sorts and writes, with no candidate buffer and no second launch.
+#: It is also the largest k one block sorts in shared memory (16384 × 8 B =
+#: 128 KB of the H100's 227 KB).
 CHUNK = 16384
+#: keys a block sorts for k above CHUNK (kTile in csrc/topk.cu): small
+#: enough that a deep page's tiles sort on many SMs at once
+TILE = 2048
 
 TOPK = cuda_build.CudaKernel(
     "stable_topk", "topk.cu", "topk_launch",
     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p])
+     ctypes.c_void_p, ctypes.c_void_p])
 
 
 def select_top_k(scores, k: int, mask=None, ids=None):
@@ -52,7 +55,7 @@ def select_top_k(scores, k: int, mask=None, ids=None):
 
     Args:
       scores: [R, M] f32
-      k:      results per row (1 ≤ k ≤ MAX_K; rows shorter than k pad)
+      k:      results per row (k ≥ 1; rows shorter than k pad)
       mask:   [R, M] bool or None (all set)
       ids:    [R, M] int32 or None — the id each entry reports; None means
               its position 0..M-1
@@ -62,8 +65,8 @@ def select_top_k(scores, k: int, mask=None, ids=None):
     count [R] int32 of eligible entries): the k best eligible entries by
     (score desc, position asc), padded with (-inf, -1).
     """
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"top-k: k must be in [1, {MAX_K}], got {k}")
+    if k < 1:
+        raise ValueError(f"top-k: k must be at least 1, got {k}")
     if scores.device.type == "cpu":
         return select_top_k_plain(scores, k, mask, ids)
     return _topk_cuda(scores, k, mask, ids)
@@ -122,7 +125,7 @@ def _topk_cuda(scores, k: int, mask, ids):
     # the sort buffer: a power of two, at least a warp's 32 keys
     kpad = max(32, 1 << (min(k, m) - 1).bit_length())
     chunks = -(-m // CHUNK)
-    cand = state = None
+    cand = state = runs = None
     if chunks > 1:
         # each chunk's candidates (its top-k and the rest of its k-th key's
         # radix bin: at most 2k keys), and per row the keys used and the
@@ -130,9 +133,18 @@ def _topk_cuda(scores, k: int, mask, ids):
         cand = torch.empty((rows, chunks * min(2 * k, CHUNK)),
                            dtype=torch.int64, device=dev)
         state = torch.zeros((rows, 4 + 4096), dtype=torch.int32, device=dev)
+        if k > CHUNK:
+            # every eligible key, then the boundary bin's keys; the row's k
+            # best keys, sorted in TILE-key tiles and merged pairwise between
+            # the two halves of runs
+            cand = torch.empty((2, rows, chunks * CHUNK), dtype=torch.int64,
+                               device=dev)
+            runs = torch.empty((2, rows, -(-k // TILE) * TILE),
+                               dtype=torch.int64, device=dev)
     p = cuda_build.ptr
     TOPK.launch(dev, p(scores), p(mask), p(ids), rows, m, k, kpad, CHUNK,
-                p(cand), p(state), p(top_scores), p(top_ids), p(count))
+                p(cand), p(state), p(runs), p(top_scores), p(top_ids),
+                p(count))
     return top_scores, top_ids, count
 
 

@@ -1,8 +1,9 @@
 """SearchPhaseController — cross-shard reduce at the coordinator.
 
-Counterpart of ``elasticsearch_tpu/search/controller.py``, without the
-aggregation and suggest reductions (not ported yet: a request carrying
-either is refused).
+Counterpart of ``elasticsearch_tpu/search/controller.py``, with the
+aggregation reduce (``search/aggregations.reduce_aggs``) and without the
+suggest reduce (not ported yet: a request carrying ``suggest`` is refused
+at parse time).
 
 Reference: core/search/controller/SearchPhaseController.java —
 ``sortDocs`` (:165, TopDocs.merge semantics), ``fillDocIdsToLoad`` (:289),
@@ -19,7 +20,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from elasticsearch_tpu_torch.common.errors import NotPortedError
+from elasticsearch_tpu_torch.search.aggregations import reduce_aggs
 from elasticsearch_tpu_torch.search.phase import ParsedSearchRequest, ShardQueryResult
 
 
@@ -127,6 +128,9 @@ def assemble_response(req: ParsedSearchRequest, payloads: list[dict],
     }
     if any(p.get("terminated_early") for p in payloads):
         response["terminated_early"] = True
+    if req.aggs:
+        response["aggregations"] = reduce_aggs(
+            req.aggs, [p["aggs"] for p in payloads])
     return response
 
 
@@ -189,5 +193,6 @@ def merge_responses(index_name: str | list, req: ParsedSearchRequest,
     if any(r.terminated_early for r in results):
         response["terminated_early"] = True
     if agg_nodes:
-        raise NotPortedError("aggregation reductions are not ported yet")
+        response["aggregations"] = reduce_aggs(
+            agg_nodes, [r.agg_partials for r in results])
     return response

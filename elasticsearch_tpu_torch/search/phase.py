@@ -23,9 +23,13 @@ fused with a ``query`` by RRF or a weighted sum) through the knn lane of
 quantized impact columns, as the JAX package's planner orders its arms: the
 impact → rescore arm (a batch carrying ``rescore``), then the impact arm
 (eager, or the block-max sweep when no request tracks its total), then the
-exact arm. An arm that declines hands the batch to the next. Aggregations,
-field sort, suggest, terminate_after, timeout, highlight, script fields and
-a ``rescore`` that the impact lane does not admit are refused with
+exact arm. An arm that declines hands the batch to the next; every arm
+declines a request carrying aggregations, which :meth:`ShardSearcher.
+query_phase` serves one at a time: per segment its masks stay on the card
+and ``search/aggregations`` collects each agg there (kernels K8 and K9) or,
+for the shapes the JAX package keeps on the host, over the host mask. Field
+sort, suggest, terminate_after, timeout, highlight, script fields and a
+``rescore`` that the impact lane does not admit are refused with
 :class:`NotPortedError`.
 """
 
@@ -42,6 +46,9 @@ from elasticsearch_tpu_torch.common.errors import (
 from elasticsearch_tpu_torch.index.device_reader import DeviceReader
 from elasticsearch_tpu_torch.ops import topk as topk_ops
 from elasticsearch_tpu_torch.search import query_dsl as q, segment_exec
+from elasticsearch_tpu_torch.search.aggregations import (
+    PIPELINE_AGGS, AggNode, DeviceAggState, ShardAggContext, collect,
+    collect_device, note_agg_stat, parse_aggs)
 from elasticsearch_tpu_torch.search.execute import (
     ExecutionContext, impact_terms)
 from elasticsearch_tpu_torch.search.query_dsl import parse_query
@@ -64,6 +71,7 @@ class ParsedSearchRequest:
     from_: int = 0
     size: int = 10
     sort: list = field(default_factory=list)       # [{"field": {"order": ...}}...]
+    aggs: list[AggNode] = field(default_factory=list)
     post_filter: q.Query | None = None
     min_score: float | None = None
     source_filter: Any = True                      # True | False | includes spec
@@ -99,9 +107,9 @@ def parse_search_request(body: dict | None) -> ParsedSearchRequest:
                              for k, v in s.items()})
     if body.get("knn") is not None:
         _check_knn_combination(body, req.sort)
-    for key in ("aggs", "aggregations", "suggest"):
-        if body.get(key):
-            raise NotPortedError(f"[{key}] is not ported yet")
+    if body.get("suggest"):
+        raise NotPortedError("[suggest] is not ported yet")
+    req.aggs = parse_aggs(body.get("aggs", body.get("aggregations")))
     if "post_filter" in body:
         req.post_filter = parse_query(body["post_filter"])
     if body.get("min_score") is not None:
@@ -206,12 +214,7 @@ def _top_k_window(reqs: list[ParsedSearchRequest], windows=()) -> int:
     """Hits a shard collects for the batch: the largest from + size (or
     rescore window)."""
     k = max(max(req.from_ + req.size, 1) for req in reqs)
-    k = max([k, *windows])
-    if k > topk_ops.MAX_K:
-        raise NotPortedError(
-            f"from + size (or the rescore window) [{k}] is above the "
-            f"port's top-k limit [{topk_ops.MAX_K}]")
-    return k
+    return max([k, *windows])
 
 
 @dataclass
@@ -250,7 +253,9 @@ class ShardSearcher:
     def query_phase(self, req: ParsedSearchRequest) -> ShardQueryResult:
         """One score-ordered request: the batched path with B = 1 when the
         request is eligible, else one pass per segment (post_filter,
-        min_score, search_after) and a merge of their candidates."""
+        min_score, search_after, aggregations) and a merge of their
+        candidates, the aggregations collected over the pre-post_filter
+        masks."""
         bad = _not_ported_features(req)
         if bad:
             raise NotPortedError(f"the query phase of {bad} is not ported "
@@ -268,22 +273,28 @@ class ShardSearcher:
         outs = [(seg, segment_exec.run_segment(
             seg, self.ctx, req.query, post_filter=req.post_filter,
             min_score=req.min_score,
-            search_after=None if req.sort else req.search_after, k=k))
+            search_after=None if req.sort else req.search_after, k=k,
+            want_arrays=bool(req.aggs)))
             for seg in self.reader.segments]
-        total = int(sum(int(o["count"]) for _, o in outs))
+        total = int(sum(o["count"] for _, o in outs))
+        # the partial-results modes that skip segments are refused above,
+        # so every segment contributes its masks
+        agg_partials = self._collect_aggs(
+            req, [o["agg_mask"] for _, o in outs],
+            [o["scores"] for _, o in outs]) if req.aggs else {}
         return self._finish_score_order(
             k, total, [o["top_scores"] for _, o in outs],
             [o["top_docs"] for _, o in outs],
-            [seg.doc_base for seg, _ in outs])
+            [seg.doc_base for seg, _ in outs], agg_partials)
 
     def query_phase_batch(self, reqs: list[ParsedSearchRequest]
                           ) -> list[ShardQueryResult] | None:
         """Batched query phase: execute B score-ordered requests as one
         scoring launch and one top-k launch per segment plus one batched
         cross-segment merge. Returns None when the batch is ineligible
-        (post_filter / min_score / search_after, or a feature not ported)
-        or the queries don't share one plan signature — the caller then
-        falls back to per-request :meth:`query_phase`.
+        (aggs / post_filter / min_score / search_after, or a feature not
+        ported) or the queries don't share one plan signature — the caller
+        then falls back to per-request :meth:`query_phase`.
 
         Implemented as launch + drain, as in the JAX package."""
         handle = self.query_phase_batch_launch(reqs)
@@ -320,7 +331,8 @@ class ShardSearcher:
     def _exact_batch_launch(self, reqs: list):
         """The exact batched arm: eligibility screen + one reader batch."""
         for req in reqs:
-            if _not_ported_features(req) or req.post_filter is not None \
+            if _not_ported_features(req) or req.aggs \
+                    or req.post_filter is not None \
                     or req.min_score is not None \
                     or req.search_after is not None or req.rescore:
                 return None
@@ -357,7 +369,8 @@ class ShardSearcher:
             return None
         specs = []
         for req in reqs:
-            if (_not_ported_features(req) or req.post_filter is not None
+            if (_not_ported_features(req) or req.aggs
+                    or req.post_filter is not None
                     or req.min_score is not None or req.rescore
                     or req.explain):
                 decline("ineligible-shape")
@@ -432,7 +445,8 @@ class ShardSearcher:
             return None
         specs, specs2, windows, qws, rws, modes = [], [], [], [], [], []
         for req in reqs:
-            if (len(req.rescore) != 1 or _not_ported_features(req)
+            if (len(req.rescore) != 1 or req.aggs
+                    or _not_ported_features(req)
                     or req.post_filter is not None
                     or req.min_score is not None or req.explain
                     or req.search_after is not None):
@@ -511,7 +525,7 @@ class ShardSearcher:
         QueryParsingError."""
         for r in reqs:
             self._validate_knn(r.knn)
-        if any(_not_ported_features(r) for r in reqs):
+        if any(_not_ported_features(r) or r.aggs for r in reqs):
             return None
         if not self.reader.segments:
             return ("empty", reqs)
@@ -589,7 +603,8 @@ class ShardSearcher:
             d_.astype(np.int32), s_.astype(np.float32), None, {}, self.reader)
 
     def _finish_score_order(self, k: int, total: int, seg_scores: list,
-                            seg_docs: list, bases: list) -> ShardQueryResult:
+                            seg_docs: list, bases: list,
+                            agg_partials: dict) -> ShardQueryResult:
         """Device merge of per-segment top-k → shard result."""
         if seg_scores:
             ms, md = topk_ops.merge_top_k_batch_body(
@@ -602,7 +617,43 @@ class ShardSearcher:
             ms, md = np.zeros(0, np.float32), np.zeros(0, np.int32)
         max_sc = float(ms[0]) if ms.size else None
         return ShardQueryResult(self.shard_id, total, max_sc, md, ms, None,
-                                {}, self.reader)
+                                agg_partials, self.reader)
+
+    # -- aggregations --------------------------------------------------------
+
+    def _collect_aggs(self, req: ParsedSearchRequest, masks: list,
+                      scores: list) -> dict:
+        """Run the top-level agg collectors over the (pre-post_filter)
+        masks. ``masks`` / ``scores`` are per-segment tensors on the reader's
+        device: the device path (collect_device) reduces there and copies
+        only bucket / scalar results; the shapes it does not serve go to the
+        numpy collectors, which materialize the host mask once, lazily."""
+        state = DeviceAggState(self.reader, masks, scores)
+        out = {}
+        np_ctx = None
+        for node in req.aggs:
+            if node.type in PIPELINE_AGGS:
+                continue
+            partial = collect_device(node, state)
+            if partial is None:
+                note_agg_stat("host_fallbacks")
+                if np_ctx is None:
+                    np_ctx = ShardAggContext(
+                        self.reader, self._filter_masks_np,
+                        scores=state.np_scores())
+                partial = collect(node, state.np_mask(), np_ctx)
+            out[node.name] = partial
+        return out
+
+    def _filter_masks_np(self, query: q.Query) -> np.ndarray:
+        """Filter-context mask of ``query`` over the reader (live rows),
+        computed on each call: the JAX package memoizes it per reader as
+        Lucene's filter cache does (IndicesQueryCache.java:48); the port
+        leaves that out until a workload repeats filter aggs."""
+        masks = [segment_exec.match_mask(seg, self.ctx, query)
+                 for seg in self.reader.segments]
+        return np.concatenate([m.cpu().numpy() for m in masks]) \
+            if masks else np.zeros(0, bool)
 
     # -- fetch phase ---------------------------------------------------------
 

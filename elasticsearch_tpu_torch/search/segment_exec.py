@@ -91,10 +91,13 @@ def _fetch_lazy(seg: DeviceSegment, ctx: ExecutionContext,
 
 
 def _build(view: DeviceSegment, consts, emit_q, emit_pf, refs, k: int,
-           batch: int) -> dict:
+           batch: int, want_arrays: bool = False) -> dict:
     """The batch body: emit + phase post-processing + top-k → {"count",
     "top_scores", "top_docs"}, each with a leading batch axis; top_docs are
-    segment-local."""
+    segment-local. ``want_arrays`` adds the aggregations' inputs: "scores",
+    "mask" (after post_filter and the cursor) and "agg_mask" (after
+    min_score, before post_filter — ES computes aggs on the main query's
+    result)."""
     em = EmitCtx(view, consts, batch)
     scores, mask = emit_q(em)
     mask = mask & view.live[None, :]
@@ -114,16 +117,19 @@ def _build(view: DeviceSegment, consts, emit_q, emit_pf, refs, k: int,
                                         (ids > last_doc))
         mask_post = mask_post & cont
     ts, td = topk_ops.top_k(scores, mask_post, min(k, view.padded_docs), 0)
-    return {"count": topk_ops.count_matches(mask_post), "top_scores": ts,
+    outs = {"count": topk_ops.count_matches(mask_post), "top_scores": ts,
             "top_docs": td}
+    if want_arrays:
+        outs.update(scores=scores, mask=mask_post, agg_mask=mask)
+    return outs
 
 
 def run_segment(seg: DeviceSegment, ctx: ExecutionContext, query,
                 *, k: int, post_filter=None, min_score=None,
-                search_after=None) -> dict:
+                search_after=None, want_arrays: bool = False) -> dict:
     """Execute one query against one segment → {"count", "top_scores",
-    "top_docs"} as device tensors without a batch axis; top_docs are
-    segment-local (caller adds seg.doc_base)."""
+    "top_docs"[, "scores", "mask", "agg_mask"]} as device tensors without a
+    batch axis; top_docs are segment-local (caller adds seg.doc_base)."""
     flags = {
         "min_score": min_score is not None,
         "_min_score": 0.0 if min_score is None else float(min_score),
@@ -138,8 +144,21 @@ def run_segment(seg: DeviceSegment, ctx: ExecutionContext, query,
     _fetch_lazy(seg, ctx, ct)
     consts = stack_consts([ct.values], ctx.reader.device) \
         if ct.values else []
-    outs = _build(seg, consts, emit_q, emit_pf, refs, int(k), 1)
+    outs = _build(seg, consts, emit_q, emit_pf, refs, int(k), 1,
+                  want_arrays)
     return {name: v[0] for name, v in outs.items()}
+
+
+def match_mask(seg: DeviceSegment, ctx: ExecutionContext, query):
+    """The filter-context match mask of ``query`` over one segment, live
+    rows only → [Np] bool on the segment's device (the counterpart of the
+    JAX package's ``SegmentExecutor.match_mask(query) & seg.live``)."""
+    ct = ConstTable()
+    emit = SegmentResolver(seg, ctx, ct).resolve_mask(query)
+    _fetch_lazy(seg, ctx, ct)
+    consts = stack_consts([ct.values], ctx.reader.device) \
+        if ct.values else []
+    return (emit(EmitCtx(seg, consts, 1)) & seg.live[None, :])[0]
 
 
 def _plan_segment_batch(seg: DeviceSegment, ctx: ExecutionContext,

@@ -2,11 +2,15 @@
 
 K1 (BM25 scan), K3 (exact-phrase scan), K6 (quantized-impact scan) and K7
 (block-max sweep: top-k and block counters) must be bit-identical to their
-plain versions; K2 (stable top-k) must return the same ids and scores, ties
-included. K4 (int8 cosine) and K5 (MaxSim, f32 and int8 tokens) sum their
-dot products in another order than the plain versions' matrix products, so
-they agree within 1e-5 absolute (unit vectors; K5 adds 1e-6 relative for
-sums of up to 150 token maxima). These tests need
+plain versions; K2 (stable top-k, also at k past one block's sort) must
+return the same ids and scores, ties included; K8 (aggregation bucket
+counts) must give equal counts. K4 (int8 cosine) and K5 (MaxSim, f32 and
+int8 tokens) sum their dot products in another order than the plain
+versions' matrix products, so they agree within 1e-5 absolute (unit
+vectors; K5 adds 1e-6 relative for sums of up to 150 token maxima). K9
+(masked double-double stats) must give the plain version's count and
+extrema bit for bit and its f32 sums within 1e-6 relative (a tree against
+torch's reduction order), the same bits on every run. These tests need
 an NVIDIA GPU and nvcc (the kernels have no CPU mode) and skip elsewhere.
 On a machine with a card, run them without the JAX test bootstrap:
 
@@ -20,7 +24,7 @@ import torch
 from elasticsearch_tpu_torch.index.segment import (
     TextFieldColumn, build_impact_column, quantize_vectors)
 from elasticsearch_tpu_torch.ops import (
-    blockmax, lexical, maxsim, phrase, topk, vector)
+    aggs_ops, blockmax, lexical, maxsim, phrase, topk, vector)
 
 pytestmark = pytest.mark.cuda
 
@@ -182,7 +186,7 @@ def _chunked_case(case, rng):
     if case == "max_k":
         m = 40000
         scores = np.round(rng.standard_normal((2, m)) * 3).astype(np.float32)
-        return scores, rng.random((2, m)) < 0.9, None, topk.MAX_K
+        return scores, rng.random((2, m)) < 0.9, None, topk.CHUNK
     if case == "signed_zeros":              # -0 ties +0, position asc
         m = 2 * c + 100
         scores = np.where(rng.random((2, m)) < 0.5, 0.0, -0.0).astype(
@@ -848,3 +852,288 @@ def test_impact_lane_on_the_card_matches_the_cpu(cuda, tmp_path):
                 np.testing.assert_array_equal(g.doc_ids, w.doc_ids)
                 np.testing.assert_array_equal(g.scores.view(np.int32),
                                               w.scores.view(np.int32))
+
+
+# ---------------------------------------------------------------------------
+# K2 past one block's k, K8 and K9
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k,levels,with_ids", [(20000, 0, False),
+                                               (65536, 0, False),
+                                               (20000, 3, False),
+                                               (65536, 2, True),
+                                               (40000, 0, True)])
+def test_stable_topk_large_k_matches_plain(cuda, k, levels, with_ids):
+    """k above topk.CHUNK over 2^20-entry rows: K2 selects the k best
+    candidates, sorts them in tiles and merges the tiles; tie-heavy scores
+    and explicit ids too, and a row with fewer eligible entries than k."""
+    rng = np.random.default_rng(k + levels)
+    m = 1 << 20
+    scores = rng.standard_normal((2, m)).astype(np.float32)
+    if levels:
+        scores = np.round(scores * levels).astype(np.float32)
+    mask = rng.random((2, m)) < 0.9
+    mask[1, : m - k // 2] = False              # row 1: fewer than k
+    ids = rng.permutation(1 << 24)[:2 * m].reshape(2, m).astype(np.int32) \
+        if with_ids else None
+    s, msk = torch.from_numpy(scores).to(cuda), torch.from_numpy(mask).to(cuda)
+    i = None if ids is None else torch.from_numpy(ids).to(cuda)
+    before = topk.TOPK.launches
+    got = topk.select_top_k(s, k, mask=msk, ids=i)
+    torch.cuda.synchronize()
+    assert topk.TOPK.launches == before + 1
+    want = topk.select_top_k_plain(s, k, mask=msk, ids=i)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("m,k,merge", [(262144, 20100, False),
+                                       (20100, 20100, True),
+                                       (20100 + 3, 20100, True)])
+def test_stable_topk_deep_page_shapes_match_plain(cuda, m, k, merge):
+    """The deep page's K2 calls: a shard segment's [1, 262,144] scores under
+    its mask at k = 20,100, and the shard's merge of those 20,100 candidates
+    (explicit ids, m = k: one full chunk and one of 3,716 entries), on
+    BM25-like scores with ties."""
+    rng = np.random.default_rng(m + k)
+    scores = np.round(rng.random((1, m)) ** 3 * 20 * 4096) / 4096
+    scores = scores.astype(np.float32)
+    mask = ids = None
+    if merge:
+        ids = rng.permutation(1 << 20)[:m].reshape(1, m).astype(np.int32)
+        ids[0, rng.random(m) < 0.05] = -1            # padding slots
+    else:
+        mask = torch.from_numpy(rng.random((1, m)) < 0.5).to(cuda)
+    s = torch.from_numpy(scores).to(cuda)
+    i = None if ids is None else torch.from_numpy(ids).to(cuda)
+    got = topk.select_top_k(s, k, mask=mask, ids=i)
+    want = topk.select_top_k_plain(s, k, mask=mask, ids=i)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kernel", ["stable_topk", "bm25_scan"])
+def test_kernels_launch_from_many_threads_at_once(cuda, kernel):
+    """Shards call the kernels from several threads at once, with shapes
+    that take different shared memory (K2: a row split over chunks and a
+    one-chunk row; K1: batches of 1 and 64 queries). Every launch must run
+    and equal the plain version: no thread may lower a limit another
+    thread's launch needs."""
+    from concurrent.futures import ThreadPoolExecutor
+    rng = np.random.default_rng(7)
+    if kernel == "stable_topk":
+        cases = []
+        for m in (262144, 10, 3000):
+            s = torch.from_numpy(rng.random((1, m)).astype(np.float32)).to(
+                cuda)
+            mask = torch.from_numpy(rng.random((1, m)) < 0.5).to(cuda)
+            cases.append(((s, 10), {"mask": mask}))
+        run, plain = topk.select_top_k, topk.select_top_k_plain
+    else:
+        vocab = 300
+        uterms, utf, doc_len = _segment(rng, 20000, 24, vocab)
+        cols = [torch.from_numpy(a).to(cuda) for a in (uterms, utf, doc_len)]
+        cases = []
+        for b, t in ((1, 4), (64, 4), (9, 11)):
+            q = [torch.from_numpy(a).to(cuda) for a in (
+                rng.integers(0, vocab, (b, t)).astype(np.int32),
+                rng.uniform(0.1, 5.0, (b, t)).astype(np.float32),
+                np.ones((b, t), np.float32),
+                rng.uniform(1.0, 40.0, b).astype(np.float32))]
+            cases.append(((*cols, *q[:3], 1.2, 0.75, q[3]), {}))
+        run, plain = lexical.bm25_match_batch, lexical.bm25_match_batch_plain
+    want = [plain(*a, **kw) for a, kw in cases]
+
+    def worker(i):
+        for j in range(40):
+            c = (i + j) % len(cases)
+            got = run(*cases[c][0], **cases[c][1])
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want[c]))
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(worker, range(8)))
+
+
+def _agg_columns(cuda, n, seed, num_ords=16, k=1, dates=False):
+    rng = np.random.default_rng(seed)
+    ords = rng.integers(-1, num_ords, (n, k)).astype(np.int32)
+    if dates:       # epoch millis, a third exactly on an hour's edge
+        values = 1.5e12 + rng.integers(0, 48, n) * 3_600_000.0 + np.where(
+            rng.random(n) < 0.3, 0.0, rng.integers(1, 3_600_000, n))
+    else:
+        values = rng.random(n) * 100.0
+    hi = values.astype(np.float32)
+    lo = (values - hi.astype(np.float64)).astype(np.float32)
+    exists = rng.random(n) < 0.95
+    mask = rng.random(n) < 0.6
+    t = lambda a: torch.from_numpy(a).to(cuda)   # noqa: E731
+    return {"ords": t(ords), "hi": t(hi), "lo": t(lo), "exists": t(exists),
+            "mask": t(mask), "values": values}
+
+
+@pytest.mark.parametrize("n,num_ords,k", [(262144, 16, 1), (100003, 16, 1),
+                                          (100003, 50000, 2), (7, 3, 3)])
+def test_agg_counts_ordinal_matches_plain(cuda, n, num_ords, k):
+    """Ordinal mode: a shared-memory histogram, and a 50,000-ord vocabulary
+    past it (global atomics)."""
+    c = _agg_columns(cuda, n, n + k, num_ords, k)
+    before = aggs_ops.AGG_COUNTS.launches
+    got = aggs_ops.ord_counts(c["ords"], c["mask"], num_ords)
+    torch.cuda.synchronize()
+    assert aggs_ops.AGG_COUNTS.launches == before + 1
+    assert torch.equal(got, aggs_ops.ord_value_counts(c["ords"], c["mask"],
+                                                       num_ords))
+    empty = torch.zeros_like(c["mask"])
+    assert int(aggs_ops.ord_counts(c["ords"], empty, num_ords).sum()) == 0
+
+
+@pytest.mark.parametrize("n,dates,interval,nb", [
+    (262144, False, 5.0, 20), (100003, False, 0.37, 271),
+    (100003, True, 3_600_000.0, 48), (100003, True, 1000.0, 10000)])
+def test_agg_counts_histogram_matches_plain(cuda, n, dates, interval, nb):
+    """dd-histogram mode, bucket index rounded as XLA's f32 ops: the rank
+    histogram at interval 5, an interval no power of two divides, and
+    epoch-millis dates at 1h with docs exactly on bucket edges (and 1 s
+    buckets up to the 10,000 the device path takes)."""
+    c = _agg_columns(cuda, n, n + nb, dates=dates)
+    vals = c["values"]
+    base = float(np.floor(vals.min() / interval) * interval)
+    bhi = np.float32(base)
+    blo = np.float32(base - np.float64(bhi))
+    args = (c["hi"], c["lo"], c["exists"], c["mask"], float(bhi), float(blo),
+            interval, nb)
+    got = aggs_ops.dd_histogram_counts(*args)
+    torch.cuda.synchronize()
+    want = aggs_ops.histogram_counts_dd(*args)
+    assert torch.equal(got, want)
+    assert int(got.sum()) > 0
+
+
+def test_agg_counts_ranges_matches_plain(cuda):
+    """Ranges mode: bench-style ranges, a `to: 0` range, overlaps, an upper
+    bound on a stored value, an empty mask."""
+    c = _agg_columns(cuda, 100003, 3)
+    v = float(c["values"][11])
+    bounds = [(-np.inf, 25.0), (25.0, 75.0), (75.0, np.inf), (-np.inf, 0.0),
+              (10.0, v), (v, 90.0), (-np.inf, np.inf)]
+    dd, strict = aggs_ops.range_bounds_dd(bounds)
+    dd, strict = torch.from_numpy(dd).to(cuda), torch.from_numpy(strict).to(
+        cuda)
+    for mask in (c["mask"], torch.zeros_like(c["mask"])):
+        args = (c["hi"], c["lo"], c["exists"], mask, dd, strict)
+        got = aggs_ops.dd_range_counts(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, aggs_ops.dd_range_counts_plain(*args))
+
+
+def _assert_stats_equal(got, want):
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(g[:5], w[:5])
+    np.testing.assert_allclose(g[5:], w[5:], rtol=1e-6)
+
+
+@pytest.mark.parametrize("n,dates", [(262144, False), (100003, True),
+                                     (1, False)])
+def test_agg_stats_matches_plain_and_repeats_its_bits(cuda, n, dates):
+    c = _agg_columns(cuda, n, n, dates=dates)
+    args = (c["hi"], c["lo"], c["exists"], c["mask"])
+    before = aggs_ops.AGG_STATS.launches
+    got = aggs_ops.dd_stats(*args)
+    again = aggs_ops.dd_stats(*args)
+    torch.cuda.synchronize()
+    assert aggs_ops.AGG_STATS.launches == before + 2
+    assert torch.equal(got, again)
+    _assert_stats_equal(got, aggs_ops.dd_stats_plain(*args))
+    empty = (c["hi"], c["lo"], c["exists"], torch.zeros_like(c["mask"]))
+    _assert_stats_equal(aggs_ops.dd_stats(*empty),
+                        aggs_ops.dd_stats_plain(*empty))
+    count = aggs_ops.dd_stats(None, None, c["exists"], c["mask"])
+    assert count[0] == (c["exists"] & c["mask"]).sum()
+
+
+def test_agg_stats_orders_signed_zeros_and_nan_as_plain(cuda):
+    hi = torch.tensor([0.0, -0.0, 3.5, -0.0, 2.0] * 300, device=cuda)
+    lo = torch.zeros_like(hi)
+    lo[1] = 1e-9
+    ex = torch.ones(hi.shape, dtype=torch.bool, device=cuda)
+    got = aggs_ops.dd_stats(hi, lo, ex, ex)
+    _assert_stats_equal(got, aggs_ops.dd_stats_plain(hi, lo, ex, ex))
+    hi[7] = float("nan")
+    g = aggs_ops.dd_stats(hi, lo, ex, ex).cpu().numpy()
+    w = aggs_ops.dd_stats_plain(hi, lo, ex, ex).cpu().numpy()
+    assert np.isnan(g[[1, 3]]).all() and np.isnan(w[[1, 3]]).all()
+    assert (g[2], g[4]) == (w[2], w[4]) == (np.inf, -np.inf)
+
+
+def test_agg_kernels_refuse_what_they_do_not_take(cuda):
+    c = _agg_columns(cuda, 100, 1)
+    with pytest.raises(TypeError):
+        aggs_ops.ord_counts(c["ords"].to(torch.int64), c["mask"], 16)
+    with pytest.raises(ValueError):
+        aggs_ops.dd_stats(c["hi"][:50], c["lo"], c["exists"], c["mask"])
+    with pytest.raises(ValueError):
+        aggs_ops.dd_histogram_counts(c["hi"], c["lo"], c["exists"],
+                                     c["mask"].cpu(), 0.0, 0.0, 1.0, 4)
+    with pytest.raises(ValueError):
+        aggs_ops.dd_range_counts(
+            c["hi"], c["lo"], c["exists"], c["mask"],
+            torch.zeros((2, 3), device=cuda),
+            torch.zeros(2, dtype=torch.uint8, device=cuda))
+
+
+def test_aggregations_on_the_card_match_the_cpu(cuda, tmp_path):
+    """query_phase with the device-eligible aggregations on the card (K8,
+    K9 launched, no host collector, no host mask) gives the CPU's partials:
+    counts and extrema equal, sums within 1e-5 relative."""
+    from elasticsearch_tpu_torch.index.device_reader import device_reader_for
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.search import aggregations
+    from elasticsearch_tpu_torch.search.phase import (
+        ShardSearcher, parse_search_request)
+    rng = np.random.default_rng(4)
+    ms = MapperService()
+    ms.merge("_doc", {"properties": {"body": {"type": "text"},
+                                     "cat": {"type": "keyword"},
+                                     "rank": {"type": "double"},
+                                     "when": {"type": "date"}}})
+    eng = Engine(tmp_path / "e", ms)
+    for i in range(500):
+        eng.index(str(i), {
+            "body": " ".join(rng.choice(["a", "b", "c", "d"],
+                                        size=int(rng.integers(1, 5)))),
+            "cat": f"cat{int(rng.integers(0, 16)):02d}",
+            "rank": float(rng.random() * 100.0),
+            "when": 1_500_000_000_000 + int(rng.integers(0, 20)) * 3_600_000})
+        if i == 250:
+            eng.refresh()
+    eng.refresh()
+    body = {"query": {"match": {"body": "a b"}}, "size": 10, "aggs": {
+        "tg": {"terms": {"field": "cat", "size": 8}},
+        "xs": {"extended_stats": {"field": "rank"}},
+        "hi": {"histogram": {"field": "rank", "interval": 5}},
+        "rg": {"range": {"field": "rank", "ranges": [
+            {"to": 25}, {"from": 25, "to": 75}, {"from": 75}]}},
+        "vc": {"value_count": {"field": "cat"}},
+        "dh": {"date_histogram": {"field": "when", "interval": "1h"}}}}
+    want = ShardSearcher(0, device_reader_for(eng, device="cpu"),
+                         ms).query_phase(parse_search_request(body))
+    card = ShardSearcher(0, device_reader_for(eng, device=cuda), ms)
+    before = (aggs_ops.AGG_COUNTS.launches, aggs_ops.AGG_STATS.launches,
+              aggregations.DEVICE_AGG_STATS["host_fallbacks"])
+    got = card.query_phase(parse_search_request(body))
+    assert aggs_ops.AGG_COUNTS.launches > before[0]
+    assert aggs_ops.AGG_STATS.launches > before[1]
+    assert aggregations.DEVICE_AGG_STATS["host_fallbacks"] == before[2]
+    assert got.total == want.total
+    np.testing.assert_array_equal(got.doc_ids, want.doc_ids)
+    for name, part in want.agg_partials.items():
+        g = got.agg_partials[name]
+        if name == "xs":
+            for key in ("count", "min", "max"):
+                assert g[key] == part[key]
+            for key in ("sum", "sum_sq"):
+                assert g[key] == pytest.approx(part[key], rel=1e-5)
+        else:
+            assert g == part, name

@@ -1,7 +1,8 @@
 """The port stands alone: serving searches through it (a match, a bool with a
 match_phrase, a function_score, on the knn lane a dense knn in f32 and int8,
-a hybrid and a rank_vectors MaxSim, and on the impact lane the eager, pruned
-and rescore arms) loads neither JAX nor the JAX package, its entry points
+a hybrid and a rank_vectors MaxSim, on the impact lane the eager, pruned
+and rescore arms, and aggregations reduced by the coordinator's merge)
+loads neither JAX nor the JAX package, its entry points
 never fall back to the CPU on their own, and its CUDA sources include no
 header of torch or of the JAX package's native code."""
 
@@ -23,6 +24,7 @@ from elasticsearch_tpu_torch.mapping import MapperService
 from elasticsearch_tpu_torch.search.phase import (
     ShardSearcher, parse_search_request)
 
+from elasticsearch_tpu_torch.search.controller import merge_responses
 from elasticsearch_tpu_torch.search.segment_exec import (
     configure_impact_plane, configure_knn_plane, impact_index_stats)
 
@@ -79,6 +81,15 @@ fs_ids = ids_of({"query": {"function_score": {
     "functions": [{"field_value_factor": {"field": "rank",
                                           "modifier": "log1p"}}],
     "boost_mode": "multiply"}}})
+agg_req = parse_search_request({
+    "query": {"match": {"body": "quick dog"}}, "size": 2,
+    "aggs": {"r": {"stats": {"field": "rank"}},
+             "h": {"histogram": {"field": "rank", "interval": 10}}}})
+merged = merge_responses("idx", agg_req, [searcher.query_phase(agg_req)],
+                         [searcher], 0.0, agg_req.aggs)
+agg_out = [merged["aggregations"]["r"]["count"],
+           [b["doc_count"] for b in merged["aggregations"]["h"]["buckets"]],
+           [h["_id"] for h in merged["hits"]["hits"]]]
 try:
     DeviceReader(eng.acquire_searcher())
     refused = False
@@ -88,6 +99,7 @@ print(json.dumps({
     "ids": [match_ids, phrase_ids, fs_ids],
     "knn_ids": knn_ids,
     "impact_ids": impact_ids, "impact_admissions": impact_admissions,
+    "agg_out": agg_out,
     "leaked": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "elasticsearch_tpu")),
@@ -110,6 +122,7 @@ def test_port_serves_without_jax_or_the_jax_package(tmp_path):
     assert got["impact_ids"] == [["2", "1", "0"], ["2", "1", "0"],
                                  ["0", "2"]]
     assert got["impact_admissions"] == 3
+    assert got["agg_out"] == [3, [1, 1, 1], ["2", "1"]]
     assert got["leaked"] == []
     assert got["no_card_refused"]
 
@@ -144,7 +157,8 @@ def test_cuda_sources_have_a_plain_c_interface():
     import re
     sources = sorted((REPO / "elasticsearch_tpu_torch" / "csrc").glob("*.cu"))
     assert {p.name for p in sources} >= {"impact_scan.cu",
-                                         "blockmax_sweep.cu"}
+                                         "blockmax_sweep.cu",
+                                         "agg_counts.cu", "agg_stats.cu"}
     bad = []
     for path in sources:
         text = path.read_text()

@@ -81,8 +81,12 @@ def test_select_top_k_counts_eligible_entries():
 
 
 def test_select_top_k_rejects_k_out_of_range():
-    with pytest.raises(ValueError):
-        topk.select_top_k(torch.zeros((1, 4)), topk.MAX_K + 1)
+    """k takes any value from 1 up (a k past the row pads)."""
+    for k in (0, -1):
+        with pytest.raises(ValueError):
+            topk.select_top_k(torch.zeros((1, 4)), k)
+    ts, ti, _ = topk.select_top_k(torch.zeros((1, 4)), topk.CHUNK + 1)
+    assert ts.shape == ti.shape == (1, topk.CHUNK + 1)
 
 
 def test_pack_unpack_round_trip_matches_jax():
