@@ -112,6 +112,34 @@ no result line:
             page at from 20,000 (every shard's K2 at k = 20,100), untimed.
 25. profile — one config-5 batch and one agg batch under torch.profiler,
             with the host planning and the coordinator's merge.
+26. percolate kernels — K10 against its plain version on ragged lanes (up
+            to B = 10,000 x Np = 128; NaN, -0.0, empty and dead rows) and
+            K1 and K3 at a percolate lane's shape (B = 4,096 x N = 128)
+            against theirs, each timed beside its bound (K10 beside
+            torch.amax).
+27. percolate — bench.py's registry (bench.py:1498-1531: seed 77, 200
+            words, reg_body's thirds, 12 probe docs of 6 words) at 1,000
+            and 10,000 registrations: a percolate per probe, then one
+            percolate_many of the 12; every registration's flag and score
+            on the first probes against a float64 recompute over the
+            one-doc index, probe 0 against percolate_serial; each call's
+            ms split into host resolve, the lanes and their card span, with
+            its launches and device→host reads.
+28. percolate, full features — a second registry of 10,000 (a quarter
+            sloppy match_phrase, a quarter bool, a group field) through one
+            percolate_many with score, sort, size, highlight, a terms agg
+            over group and a reg_filter, against the float64 recompute and
+            percolate_serial.
+29. sloppy phrase — K11 against its plain version on config 2's position
+            matrix at slop 1, 2 and 3 and at odd shapes, timed beside K3;
+            config 2's bool + match_phrase with slop 2 through
+            query_phase_batch against a float64 recompute; the highlighter
+            over the fetched hits of one batch.
+30. K7 past 1,024 (runs after phase 19, on the impact index) — the pruned
+            arm at k = 1,025, 10,000 and 20,000 bit-identical to the eager
+            arm; K7 against its plain version and timed at k = 10,000.
+31. profile — one percolate_many under torch.profiler: host planning
+            against card time.
 
 The last lines are one JSON object of per-kernel numbers, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -149,6 +177,8 @@ K6_SOURCE = "elasticsearch_tpu_torch/csrc/impact_scan.cu"
 K7_SOURCE = "elasticsearch_tpu_torch/csrc/blockmax_sweep.cu"
 K8_SOURCE = "elasticsearch_tpu_torch/csrc/agg_counts.cu"
 K9_SOURCE = "elasticsearch_tpu_torch/csrc/agg_stats.cu"
+K10_SOURCE = "elasticsearch_tpu_torch/csrc/percolate_reduce.cu"
+K11_SOURCE = "elasticsearch_tpu_torch/csrc/sloppy_phrase.cu"
 K1_REPLACES = "elasticsearch_tpu/ops/lexical.py:16"
 K2_REPLACES = "elasticsearch_tpu/ops/topk.py:27"
 K3_REPLACES = "elasticsearch_tpu/ops/phrase.py:59"
@@ -159,6 +189,8 @@ K6_REPLACES = "elasticsearch_tpu/ops/blockmax.py:54"
 K7_REPLACES = "elasticsearch_tpu/ops/blockmax.py:152"
 K8_REPLACES = "elasticsearch_tpu/ops/aggs_ops.py:18"
 K9_REPLACES = "elasticsearch_tpu/ops/aggs_ops.py:79"
+K10_REPLACES = "elasticsearch_tpu/ops/percolate.py:19"
+K11_REPLACES = "elasticsearch_tpu/ops/phrase.py:72"
 # config 4 (bench.py:703-717): 768-d unit vectors, k = num_candidates = 100
 VEC_DIMS = 768
 KNN_K = 100
@@ -319,11 +351,27 @@ def cpu_scores(uterms, utf, lens, df, qtids, k1=1.2, b=0.75):
     return out
 
 
-def cpu_phrase_scores(tokens, uterms, utf, lens, df, pairs, k1=1.2, b=0.75):
-    """float64 BM25 of the exact two-term phrase (a, b) for each pair: the
-    phrase frequency counted with numpy on the position rows of the docs
-    that hold both terms (overlapping occurrences each count), tf = that
-    frequency, idf = idf(a) + idf(b)."""
+def pair_freq(t, a, b_, slop=0):
+    """float64 frequency of the two-term phrase (a, b_) in each position row
+    of ``t``: each start position p holding a whose b_ sits at p + 1 + s for
+    a smallest s <= slop adds 1 / (1 + s) (overlapping occurrences each
+    count; slop 0 counts exact adjacencies)."""
+    n, length = t.shape
+    best = np.full((n, length), slop + 1, np.int16)     # slop + 1: no match
+    for s in range(slop, -1, -1):
+        if 1 + s < length:
+            hit = (t[:, :length - 1 - s] == a) & (t[:, 1 + s:] == b_)
+            best[:, :length - 1 - s][hit] = s
+    weight = np.append(1.0 / (1.0 + np.arange(slop + 1)), 0.0)
+    return weight[best].sum(axis=1)
+
+
+def cpu_phrase_scores(tokens, uterms, utf, lens, df, pairs, k1=1.2, b=0.75,
+                      slop=0):
+    """float64 BM25 of the two-term phrase (a, b) with ``slop`` for each
+    pair: the phrase frequency counted with numpy (:func:`pair_freq`) on the
+    position rows of the docs that hold both terms, tf = that frequency,
+    idf = idf(a) + idf(b)."""
     n_docs = tokens.shape[0]
     avgdl = float(lens.sum()) / n_docs
     post = postings(uterms, utf, np.asarray(pairs).reshape(-1))
@@ -331,8 +379,7 @@ def cpu_phrase_scores(tokens, uterms, utf, lens, df, pairs, k1=1.2, b=0.75):
     for a, b_ in pairs:
         rows = np.intersect1d(post[int(a)][0], post[int(b_)][0])
         t = tokens[rows]
-        freq = ((t[:, :-1] == a) & (t[:, 1:] == b_)).sum(axis=1).astype(
-            np.float64)
+        freq = pair_freq(t, a, b_, slop)
         norm = k1 * (1.0 - b + b * lens[rows].astype(np.float64) / avgdl)
         s = np.zeros(n_docs, np.float64)
         s[rows] = np.where(freq > 0, (cpu_idf(df, a, n_docs) +
@@ -416,7 +463,8 @@ def phase_build():
     from elasticsearch_tpu_torch.ops import cuda_build
     sources = [Path(src).name for src in (K1_SOURCE, K2_SOURCE, K3_SOURCE,
                                           K4_SOURCE, K5_SOURCE, K6_SOURCE,
-                                          K7_SOURCE, K8_SOURCE, K9_SOURCE)]
+                                          K7_SOURCE, K8_SOURCE, K9_SOURCE,
+                                          K10_SOURCE, K11_SOURCE)]
     t0 = time.perf_counter()
     built = cuda_build.build_libraries(sources)
     log(f"build: {len(sources)} sources in "
@@ -445,12 +493,15 @@ def phase_build():
         "and token counts); impact_scan the batch's term table, per query "
         "its scale x boost and cursor, and per warp a stamp and an impact "
         "per table slot and an 8-row output run (about 47 KiB at B = 64, "
-        "T = 4); blockmax_sweep 41 KiB static (the running top-k and its "
-        "merge buffer, 1024 keys of 8 bytes each, a 2048-key candidate "
-        "list, 1024 entries of the visiting order and bounds, the query's "
-        "terms), its candidate lists read across the cluster; agg_counts a "
-        "4-byte count a bucket (up to 12,288 buckets, else global atomics); "
-        "agg_stats 288 B static")
+        "T = 4); blockmax_sweep 25 KiB static (a 2048-key candidate list, "
+        "1024 entries of the visiting order and bounds, the query's terms; "
+        "its candidate lists read across the cluster) and 16 B x k dynamic "
+        "(the running top-k and its merge buffer) up to k = 12,288, a "
+        "global scratch slice a thread block past it; agg_counts a 4-byte "
+        "count a bucket (up to 12,288 buckets, else global atomics); "
+        "agg_stats 288 B static; percolate_reduce none (a warp a query "
+        "row); sloppy_phrase_scan K3's layout and table, an f32 "
+        "sum per (query, row) (45.875 KiB at B = 64, T = 2)")
 
 
 def phrase_pairs(rng, tokens, lens, n):
@@ -809,9 +860,11 @@ def path_kernels():
     """The launch counter of every hand kernel, by its name in the kernels
     line (K5's f32 and int8 instantiations have one each)."""
     from elasticsearch_tpu_torch.ops import (
-        aggs_ops, blockmax, lexical, maxsim, phrase, topk, vector)
+        aggs_ops, blockmax, lexical, maxsim, percolate, phrase, topk, vector)
     return {"bm25_scan": lexical.BM25_SCAN, "stable_topk": topk.TOPK,
             "phrase_scan": phrase.PHRASE_SCAN,
+            "sloppy_phrase_scan": phrase.SLOPPY_PHRASE_SCAN,
+            "percolate_reduce": percolate.PERCOLATE_REDUCE,
             "int8_cosine": vector.INT8_COSINE, "maxsim": maxsim.MAXSIM,
             "maxsim_int8": maxsim.MAXSIM_INT8,
             "impact_scan": blockmax.IMPACT_SCAN,
@@ -1048,6 +1101,8 @@ def phase_phrase_kernel(torch, args, data) -> dict:
             "replaces": K3_REPLACES, "launches": 0, "max_abs_err": err,
             "ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_b,
             "bound_by": k3_by, "library_ms": None,
+            "library_null": "no single torch call: a compare of shifted "
+                            "position rows, a count, then BM25",
             "shape": {"B": bsz, "N": n, "L": length, "T": t,
                       "deltas": list(deltas)}}
 
@@ -1232,6 +1287,8 @@ def profile_batch(torch, label, run, plan_ms, plan_gc, size,
                  "K7": ("blockmax_sweep_kernel",),
                  "K8": ("agg_counts_kernel",),
                  "K9": ("agg_stats_partial_kernel", "agg_stats_final_kernel"),
+                 "K10": ("percolate_reduce_kernel",),
+                 "K11": ("sloppy_phrase_kernel",),
                  "cuBLAS": ("gemm", "xmma", "cutlass")}
     parts = {}
     for kname, keys in by_kernel.items():
@@ -1701,6 +1758,8 @@ def phase_maxsim_kernel(torch, args, mdata) -> list[dict]:
                     "replaces": replaces, "launches": 0,
                     "max_abs_err": err, "ms": ms_, "plain_ms": plain_ms,
                     "bound_ms": k5_b, "bound_by": k5_by, "library_ms": None,
+                    "library_null": "no single torch call computes a masked "
+                                    "max-then-sum of dots",
                     "shape": {"B": b, "Qt": qt, "N": n, "T": t, "D": d}})
     # odd shapes: B = 3, N = 10,007, T = 5, D = 100, Qt = 3 with a qmask
     # hole, some docs without tokens
@@ -2895,9 +2954,9 @@ def phase_config5(torch, args, data, c5, name, smi_line) -> dict:
 
 class SyncCounter:
     """Counts the device→host reads of CUDA tensors (Tensor.cpu, .item,
-    int(), float()) made while it is entered, from any thread."""
+    int(), float(), bool()) made while it is entered, from any thread."""
 
-    NAMES = ("cpu", "item", "__int__", "__float__")
+    NAMES = ("cpu", "item", "__int__", "__float__", "__bool__")
 
     def __init__(self, torch):
         self.cls = torch.Tensor
@@ -3190,6 +3249,793 @@ def phase_c5_profile(torch, data, c5, label, batch) -> dict:
         extra=lambda: f"; coordinator host merge {merges[-1]:.3f} ms")
 
 
+# --------------------------------------------------------------------------
+# the percolator, sloppy phrases, K7 past k = 1024 (phases 26-31)
+# --------------------------------------------------------------------------
+
+# bench.py:1498-1531: seed 77, a 200-word vocabulary, 12 probe docs of 6
+# words, 1,000 and 10,000 registrations
+PERC_VOCAB = [f"pw{i:03d}" for i in range(200)]
+PERC_REGS = (1000, 10000)
+PERC_MAPPINGS = {"_doc": {"properties": {
+    "body": {"type": "text", "analyzer": "whitespace"},
+    "cat": {"type": "keyword"},
+    "rank": {"type": "double"}}}}
+# the full-feature registry: bench.py's mapping plus the `group` field
+PERC_FULL_MAPPINGS = {"_doc": {"properties": {
+    **PERC_MAPPINGS["_doc"]["properties"], "group": {"type": "keyword"}}}}
+PERC_FULL_REGS = 10000
+PERC_CHECK_PROBES = 3
+# full-feature items held against percolate_serial (10,000 eager queries
+# each)
+PERC_SERIAL_PROBES = 2
+# K1 and K3 at a percolate lane's shape: a group of registrations against a
+# one-doc segment's 128-row bucket
+PERC_LANE_B, PERC_LANE_N = 4096, 128
+SLOPPY_SLOP = 2
+K7_LARGE = (1025, 10_000, 20_000)
+
+
+def perc_bench_registry():
+    """bench.py's percolate generator (bench.py:1498-1531), draw for draw:
+    the 12 probe docs, then the 1,000 and the 10,000 registrations from the
+    same stream. → (probe docs, {n_regs: registrations})."""
+    prng = np.random.default_rng(77)
+    pv = PERC_VOCAB
+
+    def reg_body(i: int) -> dict:
+        w = pv[int(prng.integers(0, len(pv)))]
+        kind = i % 3
+        if kind == 0:
+            qq = {"match": {"body": f"{w} {pv[(i * 7) % len(pv)]}"}}
+        elif kind == 1:
+            qq = {"term": {"cat": w}}
+        else:
+            qq = {"range": {"rank": {"gte": int(prng.integers(0, 90))}}}
+        return {"query": qq, "group": f"g{i % 8}"}
+
+    pdocs = [{"body": " ".join(pv[int(j)] for j in
+                               prng.integers(0, len(pv), 6)),
+              "cat": pv[int(prng.integers(0, len(pv)))],
+              "rank": float(prng.integers(0, 100))} for _ in range(12)]
+    regs = {n: {f"q{i}": reg_body(i) for i in range(n)} for n in PERC_REGS}
+    return pdocs, regs
+
+
+def perc_full_registry(n: int):
+    """The full-feature registry: a quarter sloppy match_phrase (slop 1-3),
+    a quarter bool (a must match, a should sloppy phrase, a range filter),
+    bench.py's 2-term match and keyword term, and a ``group`` field."""
+    prng = np.random.default_rng([77, 28])
+    pv = PERC_VOCAB
+    regs = {}
+    for i in range(n):
+        w = pv[int(prng.integers(0, len(pv)))]
+        w2 = pv[(i * 7) % len(pv)]
+        kind = i % 4
+        if kind == 0:
+            qq = {"match_phrase": {"body": {"query": f"{w} {w2}",
+                                            "slop": 1 + i % 3}}}
+        elif kind == 1:
+            qq = {"bool": {
+                "must": [{"match": {"body": w}}],
+                "should": [{"match_phrase": {"body": {
+                    "query": f"{w} {w2}", "slop": 2}}}],
+                "filter": [{"range": {"rank": {
+                    "gte": int(prng.integers(0, 90))}}}]}}
+        elif kind == 2:
+            qq = {"match": {"body": f"{w} {w2}"}}
+        else:
+            qq = {"term": {"cat": w}}
+        regs[f"q{i}"] = {"query": qq, "group": f"g{i % 8}"}
+    return regs
+
+
+def perc_meta(name, mappings, regs):
+    """The duck-typed index metadata the percolator reads."""
+    import types
+    return types.SimpleNamespace(name=name, uuid=f"{name}-uuid", settings={},
+                                 mappings=mappings, percolators=regs,
+                                 version=1)
+
+
+def perc_oracle(regs, doc, k1=1.2, b=0.75) -> dict:
+    """float64 recompute of every registration against one probe doc: the
+    one-doc index's BM25 (N = 1, df = 1 for a term the doc holds, avgdl =
+    the doc's length), constant 1.0 for keyword terms and ranges, the
+    in-order sloppy phrase frequency. → {qid: score} of the matches."""
+    toks = doc["body"].split()
+    dl = len(toks)
+    idf = float(np.log1p(0.5 / 1.5))          # N = 1, df = 1
+    norm = k1 * (1.0 - b + b * dl / dl)
+
+    def bm25(terms):
+        hits = [t for t in terms if t in toks]
+        if not hits:
+            return None
+        return sum(idf * toks.count(t) * (k1 + 1.0) /
+                   (toks.count(t) + norm) for t in hits)
+
+    def phrase(text, slop):
+        a, b_ = text.split()
+        if a not in toks or b_ not in toks:
+            return None
+        freq = 0.0
+        for p, t in enumerate(toks):
+            if t != a:
+                continue
+            for s in range(slop + 1):
+                if p + 1 + s < dl and toks[p + 1 + s] == b_:
+                    freq += 1.0 / (1.0 + s)
+                    break
+        if freq == 0.0:
+            return None
+        return 2 * idf * freq * (k1 + 1.0) / (freq + norm)
+
+    def score(q):
+        kind, body = next(iter(q.items()))
+        if kind == "match":
+            return bm25(body["body"].split())
+        if kind == "term":
+            return 1.0 if doc["cat"] == body["cat"] else None
+        if kind == "range":
+            return 1.0 if doc["rank"] >= body["rank"]["gte"] else None
+        if kind == "match_phrase":
+            return phrase(body["body"]["query"], body["body"]["slop"])
+        must = score(body["must"][0])
+        if must is None or score(body["filter"][0]) is None:
+            return None
+        should = score(body["should"][0])
+        return must + (should or 0.0)
+
+    out = {}
+    for qid, reg in regs.items():
+        v = score(reg["query"])
+        if v is not None:
+            out[qid] = v
+    return out
+
+
+def check_perc_oracle(label, got, want, rtol=1e-5):
+    """Every registration's flag and score against the float64 oracle."""
+    ids = [m["_id"] for m in got["matches"]]
+    check(got["total"] == len(want) and set(ids) == set(want),
+          f"{label}: matched {got['total']} registrations, the float64 "
+          f"oracle {len(want)} ({len(set(ids) ^ set(want))} differ)")
+    for m in got["matches"]:
+        w = want[m["_id"]]
+        check(abs(m["_score"] - w) <= rtol * abs(w) + 1e-7,
+              f"{label}: registration {m['_id']} scored {m['_score']}, the "
+              f"float64 oracle {w}")
+
+
+class LaneTimer:
+    """Times ``segment_exec.run_percolate_lanes`` inside percolate calls:
+    its host clock (every lane's emit and launches, the one K10 launch, the
+    one device→host copy) and the card's span of it (CUDA events on the
+    stream); the rest of a call is the host's resolve and rendering."""
+
+    def __init__(self, torch):
+        from elasticsearch_tpu_torch.search import segment_exec
+        self.torch, self.mod = torch, segment_exec
+        self.host_ms = self.card_ms = 0.0
+        self.calls = self.lanes = self.rows = 0
+
+    def __enter__(self):
+        torch, orig = self.torch, self.mod.run_percolate_lanes
+        self._orig = orig
+
+        def timed_lanes(lanes):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = orig(lanes)
+            end.record()
+            end.synchronize()
+            self.host_ms += (time.perf_counter() - t0) * 1e3
+            self.card_ms += start.elapsed_time(end)
+            self.calls += 1
+            self.lanes += len(lanes)
+            self.rows += sum(o.shape[0] for o in out)
+            return out
+        self.mod.run_percolate_lanes = timed_lanes
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.run_percolate_lanes = self._orig
+
+
+def perc_call(torch, fn):
+    """One percolate call with every launch counter at 0 just before it and
+    read just after, its device→host reads counted, its lanes timed. →
+    (result, record: wall ms, host resolve ms, lanes ms, card span ms,
+    launches, reads, lanes, query rows)."""
+    counters = path_kernels()
+    torch.cuda.synchronize()
+    for kern in counters.values():
+        kern.launches = 0
+    with SyncCounter(torch) as sync, LaneTimer(torch) as lt:
+        t0 = time.perf_counter()
+        out = fn()
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = {k: v.launches for k, v in counters.items() if v.launches}
+    return out, {"wall_ms": wall, "resolve_ms": wall - lt.host_ms,
+                 "lanes_ms": lt.host_ms, "card_span_ms": lt.card_ms,
+                 "launches": launches, "reads": sync.count,
+                 "lanes": lt.lanes, "rows": lt.rows}
+
+
+def perc_line(rec) -> str:
+    return (f"{rec['wall_ms']:.3f} ms = host resolve and render "
+            f"{rec['resolve_ms']:.3f} + lanes {rec['lanes_ms']:.3f} (card "
+            f"span {rec['card_span_ms']:.3f}); {rec['lanes']} lanes, "
+            f"{rec['rows']} query rows; launches {rec['launches']}; "
+            f"device→host reads {rec['reads']}")
+
+
+def phase_percolate_kernels(torch, args, data) -> tuple[dict, dict, dict]:
+    """K10 against its plain version on ragged lanes, and K1 and K3 at a
+    percolate lane's shape (B = 4,096 x N = 128) against theirs, each timed
+    beside its bound. → (K10's kernel entry, K1's and K3's numbers at this
+    shape)."""
+    from elasticsearch_tpu_torch.ops import lexical, percolate, phrase
+    dev = data["reader"].device
+    rng = np.random.default_rng([args.seed, 26])
+
+    # ---- K10: ragged lanes, NaN, -0.0, empty and dead rows ---------------
+    def lanes_of(shapes):
+        out = []
+        for b, n in shapes:
+            sc = (rng.standard_normal((b, n)) * 4).astype(np.float32)
+            mk = rng.random((b, n)) < 0.02
+            lv = np.zeros(n, bool)
+            lv[:max(1, n // 64)] = True           # a one-doc bucket's live
+            lv[rng.random(n) < 0.3] = True
+            if b >= 5:
+                mk[0] = False                     # nothing matches
+                mk[1] = ~lv                       # only dead rows match
+                alive = np.flatnonzero(lv)[:2]
+                mk[2] = False
+                mk[2, alive] = True
+                sc[2, alive] = -0.0               # matches only at -0.0
+                sc[3, alive[0]] = np.nan          # NaN among the matches
+                mk[3, alive[0]] = True
+                sc[4] = np.nan                    # NaN outside them
+                mk[4] = False
+                mk[4, alive[-1]] = True
+                sc[4, alive[-1]] = 1.5
+            out.append(tuple(torch.from_numpy(x).to(dev)
+                             for x in (sc, mk, lv)))
+        return out
+
+    def check_k10(lanes, what):
+        got = percolate.percolate_reduce(lanes)
+        want = percolate.percolate_reduce_plain(lanes)
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        check(torch.equal(torch.isnan(got), nan) and torch.equal(
+            got[~nan].view(torch.int32), want[~nan].view(torch.int32)),
+            f"K10 differs from its plain version ({what})")
+        return got
+
+    odd = lanes_of([(10_000, 128), (1, 128), (1234, 128), (0, 128),
+                    (37, 256), (6, 7), (300, 130), (5, 1)])
+    got = check_k10(odd, "ragged lanes")
+    check(int(torch.isnan(got[:, 1]).sum()) >= 1 and
+          int(((got[:, 1] == 0) & torch.signbit(got[:, 1])).sum()) >= 1,
+          "K10's odd lanes hold no NaN or -0.0 result")
+    # the path's shape: one call of 10,000 registrations in three lanes
+    lanes = lanes_of([(3334, 128), (3333, 128), (3333, 128)])
+    check_k10(lanes, "three lanes of 10,000 queries")
+    rows = sum(s.shape[0] for s, _, _ in lanes)
+    k10_ms = timed(torch, "K10", lambda: percolate.percolate_reduce(lanes),
+                   reps=50)
+    k10_plain_ms = timed(torch, "K10 plain",
+                         lambda: percolate.percolate_reduce_plain(lanes),
+                         reps=20)
+    pre = torch.cat([torch.where(m & lv[None, :], s, float("-inf"))
+                     for s, m, lv in lanes])
+    k10_lib_ms = timed(torch, "K10 library (torch.amax on pre-masked "
+                       "scores)", lambda: torch.amax(pre, dim=1), reps=50)
+    k10_bytes = sum(s.shape[0] * s.shape[1] * 5 + s.shape[1]
+                    for s, _, _ in lanes) + 8 * rows
+    k10_b, k10_by = bound(k10_bytes, sum(s.numel() for s, _, _ in lanes))
+    log(f"K10 percolate_reduce [3 lanes, {rows} queries x Np = 128]: "
+        f"bit-identical to plain (NaN as NaN), also on 8 ragged lanes up to "
+        f"B = 10,000 (Np 1, 7, 128, 130, 256, a lane of no rows; empty, "
+        f"dead-only, -0.0-only and NaN rows); kernel_ms={k10_ms:.4f} "
+        f"plain_ms={k10_plain_ms:.4f} library_ms={k10_lib_ms:.4f} "
+        f"(torch.amax over scores masked to -inf beforehand) "
+        f"bound_ms={k10_b:.6f} ({k10_by}: {k10_bytes} B)")
+    k10 = {"name": "percolate_reduce", "route": "cuda", "source": K10_SOURCE,
+           "replaces": K10_REPLACES, "launches": 0, "max_abs_err": 0.0,
+           "ms": k10_ms, "plain_ms": k10_plain_ms, "bound_ms": k10_b,
+           "bound_by": k10_by, "library_ms": k10_lib_ms,
+           "shape": {"lanes": 3, "B": rows, "Np": 128}}
+
+    # ---- K1 at a lane's shape: B = 4,096 x N = 128 -----------------------
+    seg = data["reader"].segments[0]
+    col = seg.text["body"]
+    n = PERC_LANE_N
+    host_ut = data["uterms"][:n]
+    present = np.unique(host_ut[host_ut >= 0])
+    b = PERC_LANE_B
+    tids = torch.from_numpy(rng.choice(present, (b, 2)).astype(np.int32)).to(
+        dev)
+    idf = torch.from_numpy(rng.uniform(0.5, 9.0, (b, 2)).astype(
+        np.float32)).to(dev)
+    avgdl = torch.full((b,), float(data["lens"].mean()), device=dev)
+    p = data["searcher"].ctx.bm25
+    k1_args = (col.uterms[:n], col.utf[:n], col.doc_len[:n], tids, idf,
+               torch.ones_like(idf), p.k1, p.b, avgdl)
+    got_s, got_n, _ = check_k1(torch, lexical, k1_args, col.trailing_pad,
+                               f"a percolate lane's shape B={b}, N={n}")
+    k1_ms = timed(torch, "K1 at B=4096, N=128", lambda:
+                  lexical.bm25_match_batch(*k1_args,
+                                           trailing_pad=col.trailing_pad,
+                                           want_nmatch=False), reps=20)
+    k1_plain_ms = timed(torch, "K1 plain at B=4096, N=128", lambda:
+                        lexical.bm25_match_batch_plain(
+                            *k1_args, want_nmatch=False), reps=2, warmup=0)
+    read, flops = k1_work(torch, col.uterms[:n], col.doc_len[:n], tids,
+                          avgdl, int(got_n.sum()))
+    k1_b, k1_by = bound(read + nbytes(got_s), flops)
+    # ---- K3 at a lane's shape ----------------------------------------------
+    tok = col.tokens[:n]
+    host_tok = data["tokens"][:n]
+    pairs = phrase_pairs(rng, host_tok, data["lens"][:n], b)
+    qt = torch.from_numpy(pairs).to(dev)
+    sum_idf = idf.sum(dim=1)
+    ext = phrase.token_extent(tok)
+    k3_args = (tok, col.doc_len[:n], qt, (0, 1), sum_idf, p.k1, p.b, avgdl)
+    g3_s, g3_m = phrase.phrase_score_batch(*k3_args, extent=ext)
+    w3_s, w3_m = phrase.phrase_score_batch_plain(*k3_args)
+    torch.cuda.synchronize()
+    check(torch.equal(g3_m, w3_m) and torch.equal(
+        g3_s.view(torch.int32), w3_s.view(torch.int32)) and bool(
+        g3_m.any()), "K3 is not bit-identical to its plain version at a "
+        "percolate lane's shape")
+    k3_ms = timed(torch, "K3 at B=4096, N=128", lambda:
+                  phrase.phrase_score_batch(*k3_args, extent=ext), reps=20)
+    k3_plain_ms = timed(torch, "K3 plain at B=4096, N=128", lambda:
+                        phrase.phrase_score_batch_plain(*k3_args), reps=1,
+                        warmup=0)
+    ext_sum = int(ext.sum())
+    k3_bytes = (4 * ext_sum + nbytes(ext) + nbytes(col.doc_len[:n])
+                + nbytes(qt) + nbytes(sum_idf) + nbytes(avgdl)
+                + nbytes(g3_s) + nbytes(g3_m))
+    k3_b, k3_by = bound(k3_bytes, 8 * int(g3_m.sum()) + ext_sum)
+    log(f"K1 bm25_scan and K3 phrase_scan at a percolate lane's shape "
+        f"[B={b}, N={n}, T=2; {b // 64} query groups on grid y]: both "
+        f"bit-identical to plain (K1 with and without nmatch, "
+        f"{int((got_n > 0).sum())} hits; K3 {int(g3_m.sum())} (query, doc) "
+        f"pairs with the phrase); K1 kernel_ms={k1_ms:.4f} plain_ms="
+        f"{k1_plain_ms:.4f} bound_ms={k1_b:.6f} ({k1_by}); K3 kernel_ms="
+        f"{k3_ms:.4f} plain_ms={k3_plain_ms:.4f} bound_ms={k3_b:.6f} "
+        f"({k3_by})")
+    shape = {"B": b, "N": n, "T": 2}
+    return (k10,
+            {"ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_b,
+             "bound_by": k1_by, "shape": shape},
+            {"ms": k3_ms, "plain_ms": k3_plain_ms, "bound_ms": k3_b,
+             "bound_by": k3_by, "shape": shape})
+
+
+def phase_percolate_bench(torch, args, data, name, smi_line) -> dict:
+    """bench.py's percolate workload: 1,000 and 10,000 registrations, a
+    percolate per probe doc, then one percolate_many of the 12 probes;
+    every registration's flag and score on the first probes against the
+    float64 oracle, the first probe against percolate_serial."""
+    from elasticsearch_tpu_torch.search import percolator
+    dev = data["reader"].device
+    pdocs, regs_by_n = perc_bench_registry()
+    stats = {"launches": {k: 0 for k in path_kernels()}}
+    for n_regs in PERC_REGS:
+        regs = regs_by_n[n_regs]
+        meta = perc_meta(f"smoke_perc_{n_regs}", PERC_MAPPINGS, regs)
+        t0 = time.perf_counter()
+        reg = percolator.registry_for(meta, dev)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        st = reg.stats_dict()
+        log(f"percolate {n_regs}: registry built in {build_ms:.1f} ms "
+            f"(set-up: parse and plan every registration once; "
+            f"{st['shape_buckets']} shape buckets)")
+        recs, outs = [], []
+        for pi, d in enumerate(pdocs):
+            out, rec = perc_call(torch, lambda d=d: percolator.percolate(
+                meta, d, score=True, device=dev))
+            check(rec["launches"].get("percolate_reduce") == 1,
+                  f"percolate {n_regs} probe {pi}: launches "
+                  f"{rec['launches']}, not one K10")
+            for k_, v in rec["launches"].items():
+                stats["launches"][k_] += v
+            recs.append(rec)
+            outs.append(out)
+        for pi in range(PERC_CHECK_PROBES):
+            check_perc_oracle(f"percolate {n_regs} probe {pi}", outs[pi],
+                              perc_oracle(regs, pdocs[pi]))
+        t0 = time.perf_counter()
+        ser = percolator.percolate_serial(meta, pdocs[0], score=True,
+                                          device=dev)
+        serial_ms = (time.perf_counter() - t0) * 1e3
+        check([m["_id"] for m in ser["matches"]] ==
+              [m["_id"] for m in outs[0]["matches"]] and
+              ser["total"] == outs[0]["total"],
+              f"percolate {n_regs}: probe 0 differs from percolate_serial")
+        many, mrec = perc_call(torch, lambda: percolator.percolate_many(
+            meta, [{"doc": d, "score": True} for d in pdocs], device=dev))
+        check(mrec["launches"].get("percolate_reduce") == 1,
+              f"percolate_many {n_regs}: launches {mrec['launches']}, not "
+              f"one K10")
+        for k_, v in mrec["launches"].items():
+            stats["launches"][k_] += v
+        check(many == outs, f"percolate_many {n_regs}: an item differs from "
+              f"its own percolate call")
+        walls = [r["wall_ms"] for r in recs]
+        p50 = statistics.median(walls)
+        mid = sorted(recs, key=lambda r: r["wall_ms"])[len(recs) // 2]
+        log(f"percolate {n_regs}: {len(pdocs)} probes, p50 {p50:.3f} ms a "
+            f"call ({', '.join(f'{w:.1f}' for w in walls)}); the p50 call: "
+            f"{perc_line(mid)}; matches a probe "
+            f"{[o['total'] for o in outs]}; the first {PERC_CHECK_PROBES} "
+            f"probes' every registration held against the float64 oracle "
+            f"(flags exact, scores within 1e-5); probe 0 equal to "
+            f"percolate_serial ({serial_ms:.1f} ms, one query at a time) — "
+            f"on {name} ({smi_line})")
+        log(f"percolate_many {n_regs}: 12 probes in one call, "
+            f"{perc_line(mrec)}, {mrec['wall_ms'] / len(pdocs):.3f} ms a "
+            f"probe; every item equal to its own percolate call")
+        stats[n_regs] = {"p50_ms": p50, "many_ms": mrec["wall_ms"],
+                         "serial_ms": serial_ms, "build_ms": build_ms,
+                         "p50_call": mid, "many": mrec}
+    check(stats["launches"]["percolate_reduce"] > 0,
+          "the percolate path launched no K10")
+    return stats
+
+
+def phase_percolate_full(torch, args, data, name, smi_line) -> dict:
+    """A second registry of 10,000 (sloppy phrases, bool, a group field)
+    through percolate_many with score, sort, size, highlight, a terms agg
+    over group and a reg_filter; held against the float64 oracle and
+    percolate_serial on the first probes."""
+    from elasticsearch_tpu_torch.search import percolator
+    dev = data["reader"].device
+    pdocs, _ = perc_bench_registry()
+    regs = perc_full_registry(PERC_FULL_REGS)
+    meta = perc_meta("smoke_perc_full", PERC_FULL_MAPPINGS, regs)
+    t0 = time.perf_counter()
+    percolator.registry_for(meta, dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    hl = {"fields": {"body": {}}}
+    features = [{"score": True},
+                {"sort": True, "size": 25, "highlight": hl},
+                {"aggs": {"by_group": {"terms": {"field": "group"}}},
+                 "score": True},
+                {"reg_filter": {"term": {"group": "g3"}}, "score": True}]
+    items = [dict(features[i % len(features)], doc=d)
+             for i, d in enumerate(pdocs)]
+    out, rec = perc_call(torch, lambda: percolator.percolate_many(
+        meta, items, device=dev))
+    check(rec["launches"].get("percolate_reduce") == 1 and
+          rec["launches"].get("sloppy_phrase_scan", 0) > 0,
+          f"percolate full: launches {rec['launches']}: not one K10 and "
+          f"some K11")
+    for i, (it, got) in enumerate(zip(items, out)):
+        check("_exception" not in got, f"percolate full item {i}: "
+              f"{got.get('_exception')!r}")
+        want = perc_oracle(regs, it["doc"])
+        if "reg_filter" in it:
+            want = {q: v for q, v in want.items()
+                    if regs[q]["group"] == "g3"}
+        if i < 2 * len(features):
+            if it.get("score") and "size" not in it:
+                check_perc_oracle(f"percolate full item {i}", got, want)
+            else:
+                check(got["total"] == len(want) and {
+                    m["_id"] for m in got["matches"]} <= set(want),
+                    f"percolate full item {i}: total {got['total']}, "
+                    f"oracle {len(want)}")
+            if "aggs" in it:
+                counts = {}
+                for q in want:
+                    counts[regs[q]["group"]] = counts.get(
+                        regs[q]["group"], 0) + 1
+                buckets = {bk["key"]: bk["doc_count"] for bk in
+                           got["aggregations"]["by_group"]["buckets"]}
+                check(buckets == counts, f"percolate full item {i}: the "
+                      f"group agg {buckets} differs from numpy {counts}")
+            if it.get("sort"):
+                sc = [m["_score"] for m in got["matches"]]
+                check(sc == sorted(sc, reverse=True) and len(sc) == min(
+                    25, len(want)), f"percolate full item {i}: not sorted "
+                    f"by score, or not cut to its size")
+        if i < PERC_SERIAL_PROBES:
+            kw = {k: v for k, v in it.items() if k not in ("doc", "aggs")}
+            ser = percolator.percolate_serial(meta, it["doc"], device=dev,
+                                              **kw)
+            check([m["_id"] for m in ser["matches"]] ==
+                  [m["_id"] for m in got["matches"]] and all(
+                  abs(a.get("_score", 0) - b_.get("_score", 0)) <= 1e-6 *
+                  abs(b_.get("_score", 1)) and a.get("highlight") ==
+                  b_.get("highlight") for a, b_ in zip(got["matches"],
+                                                       ser["matches"])),
+                  f"percolate full item {i} differs from percolate_serial")
+    n_hl = sum("highlight" in m for r in out for m in r["matches"])
+    check(n_hl > 0, "percolate full: no match was highlighted")
+    log(f"percolate full {PERC_FULL_REGS}: registry built in {build_ms:.1f} "
+        f"ms; percolate_many of 12 probes with score, sort + size 25 + "
+        f"highlight, a group terms agg and a reg_filter: {perc_line(rec)}; "
+        f"matches {[r['total'] for r in out]}, {n_hl} highlighted; the "
+        f"first 8 items against the float64 oracle (sloppy phrases in "
+        f"order, bool, the agg's buckets), the first {PERC_SERIAL_PROBES} "
+        f"against percolate_serial — on {name} ({smi_line})")
+    return {"many_ms": rec["wall_ms"], "call": rec,
+            "launches": {k: rec["launches"].get(k, 0)
+                         for k in path_kernels()}}
+
+
+def sloppy_bodies(args, data, slop) -> list[dict]:
+    """Config 2's bodies with the should clause's phrase given ``slop``."""
+    out = []
+    for body in config2_bodies(args, data):
+        q = body["query"]["bool"]
+        text = q["should"][0]["match_phrase"]["body"]
+        out.append({"query": {"bool": {"must": q["must"], "should": [
+            {"match_phrase": {"body": {"query": text, "slop": slop}}}]}},
+            "size": body["size"]})
+    return out
+
+
+def phase_sloppy(torch, args, data, k3, name, smi_line) -> tuple[dict, dict]:
+    """K11 against its plain version on config 2's position matrix (slop 1,
+    2 and 3) and at odd shapes, timed beside K3; then config 2 with slop 2
+    through query_phase_batch against a float64 recompute; then the
+    highlighter on the fetched hits of one batch."""
+    from elasticsearch_tpu_torch.ops import phrase
+    from elasticsearch_tpu_torch.search import query_dsl
+    from elasticsearch_tpu_torch.search.highlight import highlight_hit
+    from elasticsearch_tpu_torch.search.phase import parse_search_request
+    from elasticsearch_tpu_torch.search.segment_exec import (
+        _plan_segment_batch)
+    searcher, reader = data["searcher"], data["reader"]
+    seg = reader.segments[0]
+    col = seg.text["body"]
+    tn = data["term_names"]
+    p = searcher.ctx.bm25
+    n, length = col.tokens.shape
+    per_slop = {}
+    for slop in (1, 2, 3):
+        queries = [query_dsl.parse_query({"match_phrase": {"body": {
+            "query": f"{tn[a]} {tn[b]}", "slop": slop}}})
+            for a, b in data["pairs"][:args.batch]]
+        plan = _plan_segment_batch(seg, searcher.ctx, queries, args.k)
+        tids, idfs, avgdl, _boost = plan["consts"]
+        a11 = (col.tokens, col.doc_len, tids, (0, 1), slop, idfs, p.k1,
+               p.b, avgdl)
+        got_s, got_m = phrase.sloppy_phrase_score_batch(
+            *a11, extent=col.tok_extent)
+        want_s, want_m = phrase.sloppy_phrase_score_batch_plain(*a11)
+        torch.cuda.synchronize()
+        check(torch.equal(got_m, want_m) and torch.equal(
+            got_s.view(torch.int32), want_s.view(torch.int32)),
+            f"K11 is not bit-identical to its plain version at config 2's "
+            f"shape, slop {slop}")
+        ms_ = timed(torch, f"K11 slop {slop}", lambda: (
+            phrase.sloppy_phrase_score_batch(*a11, extent=col.tok_extent)),
+            reps=20)
+        hits = int(got_m.sum())
+        per_slop[slop] = {"ms": ms_, "hits": hits, "args": a11,
+                          "exact_hits": None}
+        log(f"K11 sloppy_phrase_scan [B={tids.shape[0]}, N={n}, L={length}, "
+            f"T=2, slop {slop}]: bit-identical to plain ({hits} (query, doc) "
+            f"pairs match); kernel_ms={ms_:.4f}")
+    main = per_slop[SLOPPY_SLOP]
+    a11 = main["args"]
+    plain_ms = timed(torch, "K11 plain", lambda:
+                     phrase.sloppy_phrase_score_batch_plain(*a11), reps=1,
+                     warmup=0)
+    ext_sum = int(col.tok_extent.sum())
+    tids, idfs, avgdl = a11[2], a11[5], a11[8]
+    k11_bytes = (4 * ext_sum + nbytes(col.tok_extent) + nbytes(col.doc_len)
+                 + nbytes(tids) + nbytes(idfs) + nbytes(avgdl)
+                 + n * tids.shape[0] * 5)
+    k11_b, k11_by = bound(k11_bytes, 8 * main["hits"] + ext_sum)
+    # ---- odd shapes: B = 3, N off the run, holes, 5 terms, slop 3 --------
+    rng = np.random.default_rng([args.seed, 29])
+    n_odd = min(n, 100_003)
+    tok = col.tokens[:n_odd].clone()
+    lens = col.doc_len[:n_odd]
+    holes = torch.arange(0, n_odd, 5, device=tok.device)
+    tok[holes, (lens[holes] // 2).long()] = -1
+    ext = phrase.token_extent(tok)
+    row = tok[1].cpu().numpy()
+    ln = int((row >= 0).sum())
+    deltas = (0, 1, 3, 4, 6)
+    odd_tids = np.array([
+        [row[0], row[2], row[3], row[5], row[7]],      # 3 shifts of 1
+        [row[2]] * 5,                                  # repeated
+        [row[min(ln - 3 + d, ln - 1)] for d in deltas],   # past the end
+        [row[0], -1, row[3], row[4], row[6]]], np.int32)  # an absent term
+    qt = torch.from_numpy(odd_tids).to(tok.device)
+    o_idf = torch.from_numpy(rng.uniform(0.5, 9.0, (4, 5)).astype(
+        np.float32)).to(tok.device)
+    o_av = avgdl[:1].expand(4).contiguous()
+    for slop in (3, 8):
+        oa = (tok, lens, qt, deltas, slop, o_idf, p.k1, p.b, o_av)
+        g = phrase.sloppy_phrase_score_batch(*oa, extent=ext)
+        w = phrase.sloppy_phrase_score_batch_plain(*oa)
+        torch.cuda.synchronize()
+        check(torch.equal(g[1], w[1]) and torch.equal(
+            g[0].view(torch.int32), w[0].view(torch.int32)) and bool(
+            g[1][0].any()), f"K11 differs from its plain version at the odd "
+            f"shape, slop {slop}")
+    log(f"K11 sloppy_phrase_scan [B=4, N={n_odd}, T=5, deltas {deltas}, "
+        f"slop 3 and 8, holes in every fifth row, a shifted, a repeated, a "
+        f"past-the-end and an absent-term phrase]: bit-identical to plain")
+    log(f"K11 sloppy_phrase_scan at config 2's shape, slop {SLOPPY_SLOP}: "
+        f"kernel_ms={main['ms']:.4f} (slop 1 {per_slop[1]['ms']:.4f}, slop "
+        f"3 {per_slop[3]['ms']:.4f}; K3 exact {k3['ms']:.4f}, ratio "
+        f"{main['ms'] / max(k3['ms'], 1e-9):.3f}) plain_ms={plain_ms:.4f} "
+        f"bound_ms={k11_b:.4f} ({k11_by}: {k11_bytes} B) library_ms=null")
+    k11 = {"name": "sloppy_phrase_scan", "route": "cuda",
+           "source": K11_SOURCE, "replaces": K11_REPLACES, "launches": 0,
+           "max_abs_err": 0.0, "ms": main["ms"], "plain_ms": plain_ms,
+           "bound_ms": k11_b, "bound_by": k11_by, "library_ms": None,
+           "library_null": "no single torch call: shifted compares with a "
+                           "nearest-shift search, a weighted count, then "
+                           "BM25",
+           "shape": {"B": int(tids.shape[0]), "N": n, "L": length, "T": 2,
+                     "slop": SLOPPY_SLOP},
+           "ms_by_slop": {s: v["ms"] for s, v in per_slop.items()},
+           "k3_ms": k3["ms"]}
+
+    # ---- config 2 with slop 2 through query_phase_batch -------------------
+    bodies = sloppy_bodies(args, data, SLOPPY_SLOP)
+    batches = batches_of(args, bodies)
+    results, per_batch, wall, launches, peak = drive(torch, searcher,
+                                                     batches)
+    stats = report(f"config 2, slop {SLOPPY_SLOP} (bool + sloppy "
+                   f"match_phrase)", args, data, batches, per_batch, wall,
+                   launches, peak, name, smi_line,
+                   ("bm25_scan", "stable_topk", "sloppy_phrase_scan"))
+    check(launches["phrase_scan"] == 0, "the sloppy phrase ran K3")
+    nq = CHECK_QUERIES
+    t0 = time.perf_counter()
+    must = cpu_scores(data["uterms"], data["utf"], data["lens"], data["df"],
+                      data["qtids"][:nq, :2])
+    phr = cpu_phrase_scores(data["tokens"], data["uterms"], data["utf"],
+                            data["lens"], data["df"], data["pairs"][:nq],
+                            slop=SLOPPY_SLOP)
+    matched = [m > 0 for m in must]
+    cpu = [np.where(m, s + ph, 0.0) for m, s, ph in zip(matched, must, phr)]
+    recall = check_vs_cpu(f"config 2 slop {SLOPPY_SLOP}", args,
+                          results[0][:nq], cpu, matched,
+                          gid_to_orig(reader))
+    exact = cpu_phrase_scores(data["tokens"], data["uterms"], data["utf"],
+                              data["lens"], data["df"], data["pairs"][:nq])
+    n_sloppy = [int(((ph > 0) & m).sum()) for ph, m in zip(phr, matched)]
+    n_only = [int(((ph > 0) & (ex == 0) & m).sum())
+              for ph, ex, m in zip(phr, exact, matched)]
+    check(sum(n_only) > 0, "config 2 slop: no checked matched doc holds "
+          "its phrase only within the slop, so the check does not cover "
+          "the shifts")
+    log(f"config 2 slop {SLOPPY_SLOP}: first {nq} queries vs float64 CPU "
+        f"scoring with a numpy sloppy count ({time.perf_counter() - t0:.1f} "
+        f"s; matched docs with the phrase within the slop {n_sloppy}, of "
+        f"which not adjacent {n_only}): totals exact, scores within 1e-5, "
+        f"tie-tolerant recall@{args.k} = {recall}")
+    # ---- highlight the fetched hits of the first batch -----------------
+    orig_of = gid_to_orig(reader)
+    spec = {"fields": {"body": {}}}
+    t0 = time.perf_counter()
+    n_hits = n_marked = 0
+    for req, res in zip(batches[0], results[0]):
+        hits = searcher.fetch_phase(req, res, "msmarco",
+                                    list(range(min(10, len(res.doc_ids)))))
+        for pos, hit in enumerate(hits):
+            orig = int(orig_of[int(res.doc_ids[pos])])
+            row = data["tokens"][orig]
+            text = " ".join(tn[t] for t in row[row >= 0])
+            hl = highlight_hit(spec, {"body": text}, data["mapper"],
+                               req.query)
+            check(bool(hl) and "<em>" in hl["body"][0],
+                  f"hit {hit['_id']} of a sloppy request was not "
+                  f"highlighted")
+            n_hits += 1
+            n_marked += sum(f.count("<em>") for f in hl["body"])
+    hl_ms = (time.perf_counter() - t0) * 1e3
+    # the highlighter reads sources; this corpus keeps token rows, so each
+    # hit's text is rebuilt from its row
+    log(f"highlight: the top 10 hits of the first batch's {len(batches[0])} "
+        f"requests fetched and highlighted ({n_hits} hits, {n_marked} marks, "
+        f"every hit marked) in {hl_ms:.1f} ms on the host")
+    stats["highlight_ms"] = hl_ms
+    return k11, stats
+
+
+def phase_k7_large(torch, args, data, name, smi_line) -> dict:
+    """The pruned arm past k = 1024 on config 1's impact index: the block-max
+    sweep (K7) at k = 1,025, 10,000 and 20,000 through query_phase_batch,
+    bit-identical to the eager arm; K7 timed at k = 10,000."""
+    from elasticsearch_tpu_torch.ops import blockmax
+    searcher, pack = data["impact_searcher"], data["impact_pack"]
+    rows = data["qtids"][:8]
+    out = {}
+    for k in K7_LARGE:
+        pruned = batches_of(args, impact_bodies(data, rows, k,
+                                                track_total_hits=False))
+        eager = batches_of(args, impact_bodies(data, rows, k))
+        pr, _, wall_p, launches, _ = drive(torch, searcher, pruned)
+        check(launches["blockmax_sweep"] > 0 and
+              launches["impact_scan"] == 0,
+              f"K7 at k = {k}: the pruned arm did not run K7 alone")
+        ea, _, wall_e, launches_e, _ = drive(torch, searcher, eager)
+        check(launches_e["impact_scan"] > 0, f"K7 at k = {k}: the eager "
+              f"arm did not run K6")
+        for qi, (p_, e_) in enumerate(zip(pr[0], ea[0])):
+            check(np.array_equal(p_.doc_ids, e_.doc_ids) and np.array_equal(
+                p_.scores.view(np.int32), e_.scores.view(np.int32)),
+                f"K7 at k = {k}, query {qi}: not bit-identical to the eager "
+                f"arm")
+        hits = [len(r.doc_ids) for r in pr[0]]
+        out[k] = {"pruned_ms": wall_p * 1e3, "eager_ms": wall_e * 1e3,
+                  "hits": hits, "launches": launches["blockmax_sweep"]}
+        log(f"K7 past 1,024, k = {k}: 8 pruned requests bit-identical to "
+            f"the eager arm ({hits} hits); batch wall pruned "
+            f"{wall_p * 1e3:.3f} ms, eager {wall_e * 1e3:.3f} ms")
+    # K7 alone at k = 10,000 on segment 0 (the running top-k in shared
+    # memory: k <= K7_SMEM_K)
+    k = 10_000
+    qtids, boosts, _, _ = impact_inputs(torch, data, rows)
+    s0 = pack.segs[0]
+    carry = blockmax.pruned_carry_init(len(rows), k, qtids[0].device)
+    seg_args = sweep_args(torch, blockmax, s0, qtids[0],
+                          pack.scales[0] * boosts, k)
+    first = check_k7(torch, blockmax, carry, seg_args, "k = 10,000")
+    ms_ = timed(torch, "K7 at k = 10,000", lambda: blockmax.blockmax_sweep(
+        carry, *seg_args, trailing_pad=True), reps=5)
+    k7_bytes, k7_ops, union = sweep_work(torch, s0, seg_args, carry, first)
+    b_, by = bound(k7_bytes, k7_ops)
+    big = 20_000
+    carry_big = blockmax.pruned_carry_init(len(rows), big, qtids[0].device)
+    args_big = sweep_args(torch, blockmax, s0, qtids[0],
+                          pack.scales[0] * boosts, big)
+    check_k7(torch, blockmax, carry_big, args_big, "k = 20,000 (global "
+             "scratch)")
+    log(f"K7 blockmax_sweep [B=8, N={s0['uterms'].shape[0]}, config 1's "
+        f"4-term queries, k = {k}]: equal to plain (also k = {big}, past "
+        f"the shared-memory top-k); kernel_ms={ms_:.4f} bound_ms={b_:.4f} "
+        f"({by}: {k7_bytes} B, {k7_ops} compares over {union} blocks); "
+        f"blocks scored {int(first[2].sum())}, skipped "
+        f"{int(first[3].sum())}")
+    return {"by_k": out, "ms": ms_, "bound_ms": b_, "bound_by": by, "k": k,
+            "B": len(rows)}
+
+
+def phase_percolate_profile(torch, data, stats_p) -> dict:
+    """One percolate_many of the 12 probes against the 10,000 bench
+    registrations under torch.profiler: card time against the host's
+    resolve and render, which phase 27's call of the same items measured
+    (``stats_p``)."""
+    from elasticsearch_tpu_torch.search import percolator
+    dev = data["reader"].device
+    pdocs, regs_by_n = perc_bench_registry()
+    n_regs = PERC_REGS[-1]
+    meta = perc_meta(f"smoke_perc_{n_regs}", PERC_MAPPINGS,
+                     regs_by_n[n_regs])
+    items = [{"doc": d, "score": True} for d in pdocs]
+    rec = stats_p[n_regs]["many"]
+    return profile_batch(
+        torch, f"percolate_many, {n_regs} registrations x 12 probes",
+        lambda: percolator.percolate_many(meta, items, device=dev),
+        rec["resolve_ms"], GC.take(), len(items),
+        extra=lambda: f"; phase 27's call: host resolve and render "
+        f"{rec['resolve_ms']:.3f} ms, the lanes on the host clock "
+        f"{rec['lanes_ms']:.3f} ms ({rec['lanes']} lanes, {rec['rows']} "
+        f"query rows)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1 << 21,
@@ -3278,6 +4124,7 @@ def main(argv=None) -> int:
             data, data["q_pruned"][:PRUNED_BATCH], PRUNED_K,
             track_total_hits=False), searcher=data["impact_searcher"],
             plan=impact_plan(torch, data, pruned=True))
+        k67[1]["large_k"] = phase_k7_large(torch, args, data, name, smi_line)
         # config 5 and aggregations
         release_lane_state(torch, data, mdata)
         kernels[1]["large_k"] = phase_topk_large(torch, args, data)
@@ -3304,6 +4151,24 @@ def main(argv=None) -> int:
             dev_ms, kernels_run = prof.get("parts", {}).get(key, (0.0, 0))
             kern["device_ms"] = dev_ms * per_launch / kernels_run \
                 if kernels_run else None
+        # the percolator and sloppy phrases
+        k10, kernels[0]["percolate_shape"], k3["percolate_shape"] = \
+            phase_percolate_kernels(torch, args, data)
+        kernels.append(k10)
+        stats_p = phase_percolate_bench(torch, args, data, name, smi_line)
+        stats_pf = phase_percolate_full(torch, args, data, name, smi_line)
+        k11, stats_s = phase_sloppy(torch, args, data, k3, name, smi_line)
+        kernels.append(k11)
+        k10["launches"] = stats_p["launches"]["percolate_reduce"] + \
+            stats_pf["launches"]["percolate_reduce"]
+        k11["launches"] = stats_s["launches"]["sloppy_phrase_scan"]
+        by_config.update({"percolate": stats_p, "percolate-full": stats_pf,
+                          "2-sloppy": stats_s})
+        for kern in kernels:
+            kern["launches_by_config"] = {
+                cfg: st["launches"][kern["name"]]
+                for cfg, st in by_config.items()}
+        phase_percolate_profile(torch, data, stats_p)
     except Exception as e:                  # noqa: BLE001 — report, then fail
         traceback.print_exc()
         print(f"[chip_smoke] FAILED: {type(e).__name__}: {e}",

@@ -49,10 +49,13 @@
 //     line): unrolled wider, the kernel outgrew the instruction cache;
 //   * the visiting order and the bounds are staged in shared memory, so a
 //     run of skipped blocks costs no global load;
-//   * the running top-k lives in shared memory as 64-bit keys, (score
+//   * the running top-k and its merge buffer are 64-bit keys, (score
 //     descending, doc ascending) in one unsigned order: the score's bits
 //     mapped to an order-preserving integer and inverted, then the doc id.
-//     Keys are unique (doc ids are), so a merge is a rank computation;
+//     Keys are unique (doc ids are), so a merge is a rank computation. Both
+//     lists (2 * k keys) live in dynamic shared memory while they fit
+//     (k <= kSmemK); past that each CTA keeps them in its own slice of a
+//     global scratch buffer the caller allocates, so any k is served;
 //   * a row whose key is not below the k-th key cannot enter the top-k, so
 //     only the others are appended to the CTA's candidate list (a row equal
 //     in score to theta with a smaller doc id does enter: ties are kept).
@@ -78,7 +81,11 @@ constexpr int kWarps = 32;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 4;           // rows a warp loads at once
 constexpr int kPreload = 2;        // 32-cell windows of each loaded at once
-constexpr int kMaxK = 1024;        // ops/blockmax.K7_MAX_K
+constexpr int kSmemK = 12288;      // largest k whose lists fit in shared
+                                   // memory (ops/blockmax.K7_SMEM_K)
+// The dynamic shared-memory limit each launch sets: the most any call may
+// take (C3: a per-call limit races across threads).
+constexpr int kDynSmemMax = 2 * kSmemK * 8;
 constexpr int kSlice = 2048;       // rows a CTA scores between merges
 constexpr int kTile = 1024;        // visiting order staged at a time
 constexpr int kMaxCluster = 8;     // the portable cluster size
@@ -264,7 +271,9 @@ __device__ void sort_keys(uint64_t* a, int n) {
   }
 }
 
-template <typename Q>
+// kGlobalTop: the running top-k and its merge buffer live in `scratch`
+// (k > kSmemK), else in dynamic shared memory
+template <typename Q, bool kGlobalTop>
 __global__ void __launch_bounds__(kThreads, 1)
 blockmax_sweep_kernel(const int32_t* __restrict__ uterms,
                       const Q* __restrict__ qimp,
@@ -280,9 +289,9 @@ blockmax_sweep_kernel(const int32_t* __restrict__ uterms,
                       int trailing_pad, float* __restrict__ ts,
                       int32_t* __restrict__ td, int32_t* __restrict__ scored,
                       int32_t* __restrict__ skipped,
-                      int32_t* __restrict__ matched) {
-  __shared__ uint64_t s_top[kMaxK];   // the running top-k, ascending keys
-  __shared__ uint64_t s_tmp[kMaxK];
+                      int32_t* __restrict__ matched,
+                      uint64_t* __restrict__ scratch) {
+  extern __shared__ __align__(16) uint64_t s_dyn[];
   __shared__ uint64_t s_own[kSlice];  // this CTA's candidates of a slice
   __shared__ int32_t s_bi[kTile];     // staged order; -1: ub_i == 0
   __shared__ float s_ubf[kTile];
@@ -292,6 +301,11 @@ blockmax_sweep_kernel(const int32_t* __restrict__ uterms,
   __shared__ int s_cnt[kMaxCluster];  // every CTA's s_nk, for the merge
   __shared__ int s_matched;
 
+  // the running top-k (ascending keys) and the merge's buffer: in shared
+  // memory, or this CTA's slice of the global scratch when k > kSmemK
+  uint64_t* s_top =
+      kGlobalTop ? scratch + (int64_t)blockIdx.x * 2 * k : s_dyn;
+  uint64_t* s_tmp = s_top + k;
   cg::cluster_group cluster = cg::this_cluster();
   const int n_ctas = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -433,12 +447,14 @@ int cluster_size(int n_queries, cudaLaunchConfig_t cfg,
     int fits = kMaxCluster;
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
+    cfg.dynamicSmemBytes = kDynSmemMax;
     for (; fits > 1; fits >>= 1) {
       attr.val.clusterDim.x = fits;
       cfg.gridDim = dim3(fits);
       int active = 0;
-      if (cudaOccupancyMaxActiveClusters(&active, blockmax_sweep_kernel<Q>,
-                                         &cfg) == cudaSuccess &&
+      if (cudaOccupancyMaxActiveClusters(
+              &active, blockmax_sweep_kernel<Q, false>, &cfg) ==
+              cudaSuccess &&
           active > 0)
         break;
       cudaGetLastError();  // clear a refused query; try a smaller cluster
@@ -460,7 +476,11 @@ int launch(const void* uterms, const void* qimp, const void* live,
            int n_queries, int n_terms, const void* scale_boost,
            const void* cs, const void* cd, int k, int doc_base,
            int trailing_pad, void* ts, void* td, void* scored, void* skipped,
-           void* matched, cudaStream_t stream) {
+           void* matched, void* scratch, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      blockmax_sweep_kernel<Q, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kDynSmemMax);
+  if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
@@ -468,21 +488,24 @@ int launch(const void* uterms, const void* qimp, const void* live,
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = scratch != nullptr ? 0 : 2 * k * 8;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const int c = cluster_size<Q>(n_queries, cfg, attr[0]);
   attr[0].val.clusterDim.x = c;
   cfg.gridDim = dim3(n_queries * c);
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, blockmax_sweep_kernel<Q>, (const int32_t*)uterms, (const Q*)qimp,
+  e = cudaLaunchKernelEx(
+      &cfg,
+      scratch != nullptr ? blockmax_sweep_kernel<Q, true>
+                         : blockmax_sweep_kernel<Q, false>,
+      (const int32_t*)uterms, (const Q*)qimp,
       (const uint8_t*)live, n_unique, n_blocks, rows_per_block,
       (const int32_t*)ub_i, (const float*)ub_f, (const int32_t*)order,
       (const int32_t*)qtids, n_terms, (const float*)scale_boost,
       (const float*)cs, (const int32_t*)cd, k, doc_base, trailing_pad,
       (float*)ts, (int32_t*)td, (int32_t*)scored, (int32_t*)skipped,
-      (int32_t*)matched);
+      (int32_t*)matched, (uint64_t*)scratch);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -491,16 +514,18 @@ int launch(const void* uterms, const void* qimp, const void* live,
 
 // `bits` is 8 (qimp uint8) or 16 (qimp uint16); `live` is bool bytes. The
 // carry (ts, td, scored, skipped, matched) is read and updated in place.
+// `scratch` is NULL for k <= kSmemK; above it, 2 * k uint64 for each CTA of
+// the launch (n_queries * kMaxCluster CTAs at most).
 extern "C" int blockmax_sweep_launch(
     const void* uterms, const void* qimp, int bits, const void* live,
     int n_docs, int n_unique, int n_blocks, const void* ub_i,
     const void* ub_f, const void* order, const void* qtids, int n_queries,
     int n_terms, const void* scale_boost, const void* cs, const void* cd,
     int k, int doc_base, int trailing_pad, void* ts, void* td, void* scored,
-    void* skipped, void* matched, void* stream) {
+    void* skipped, void* matched, void* scratch, void* stream) {
   if (n_docs <= 0 || n_queries <= 0 || n_unique <= 0 || n_blocks <= 0 ||
-      n_docs % n_blocks || k < 1 || k > kMaxK || n_terms < 0 ||
-      n_terms > kMaxTerms)
+      n_docs % n_blocks || k < 1 || n_terms < 0 || n_terms > kMaxTerms ||
+      (k > kSmemK) != (scratch != nullptr))
     return (int)cudaErrorInvalidValue;
   const int rows_per_block = n_docs / n_blocks;
   cudaStream_t s = (cudaStream_t)stream;
@@ -509,13 +534,13 @@ extern "C" int blockmax_sweep_launch(
                            rows_per_block, ub_i, ub_f, order, qtids,
                            n_queries, n_terms, scale_boost, cs, cd, k,
                            doc_base, trailing_pad, ts, td, scored, skipped,
-                           matched, s);
+                           matched, scratch, s);
   if (bits == 16)
     return launch<uint16_t>(uterms, qimp, live, n_unique, n_blocks,
                             rows_per_block, ub_i, ub_f, order, qtids,
                             n_queries, n_terms, scale_boost, cs, cd, k,
                             doc_base, trailing_pad, ts, td, scored, skipped,
-                            matched, s);
+                            matched, scratch, s);
   return (int)cudaErrorInvalidValue;
 }
 

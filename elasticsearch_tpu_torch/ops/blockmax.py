@@ -15,7 +15,9 @@ Two hand kernels carry the lane on CUDA tensors:
 * K7 ``csrc/blockmax_sweep.cu`` (:func:`blockmax_sweep`) sweeps one
   segment's row blocks per query in descending upper-bound order, skipping
   every block whose bound cannot reach the running k-th score, and merges
-  the rows of each block it scores into the running top-k: the pruned arm.
+  the rows of each block it scores into the running top-k: the pruned arm,
+  for any k (the running top-k in shared memory up to :data:`K7_SMEM_K`,
+  in a global scratch buffer past it).
 
 On CPU tensors each wrapper runs its plain PyTorch version beside it
 (:func:`impact_scores_batch_plain`, :func:`blockmax_sweep_plain`), the JAX
@@ -39,7 +41,6 @@ import ctypes
 
 import torch
 
-from elasticsearch_tpu_torch.common.errors import NotPortedError
 from elasticsearch_tpu_torch.ops import cuda_build
 from elasticsearch_tpu_torch.ops import topk as topk_ops
 
@@ -56,10 +57,13 @@ _TERM_BATCH = 8
 #: intermediate; an integer sum, so the cut changes no bit)
 _ROW_CHUNK = 1 << 16
 
-#: largest k the pruned sweep (K7) takes: its running top-k lives in one
-#: block's shared memory. Config 1's ``size`` of 1000 fits; a larger k is
-#: refused, never served by the eager arm (whose hit count differs).
-K7_MAX_K = 1024
+#: largest k whose running top-k K7 keeps in shared memory (2·k 64-bit
+#: keys a thread block); a larger k keeps it in a global scratch buffer
+#: per thread block, which the wrapper allocates
+K7_SMEM_K = 12288
+
+#: the most thread blocks K7 gives one query (its cluster size)
+_K7_MAX_CLUSTER = 8
 
 #: the validated term caps (``validate_impact_settings``): the packed
 #: Σq·256 + matches of the JAX body stays inside int32 up to these
@@ -79,7 +83,8 @@ BLOCKMAX_SWEEP = cuda_build.CudaKernel(
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p])
 
 
 def impact_bits(qimp: torch.Tensor) -> int:
@@ -283,10 +288,7 @@ def blockmax_sweep(carry, uterms, qimp, live, ub_i, ub_f, order, qtids,
     visiting order; the N rows split into NB blocks of N / NB. The sweep is
     sequential per query — each block's run test reads the k-th score the
     blocks before it left — so its counters are the JAX package's. → the
-    new carry. k above :data:`K7_MAX_K` raises NotPortedError."""
-    if k > K7_MAX_K:
-        raise NotPortedError(
-            f"the pruned impact sweep takes k up to {K7_MAX_K}, got {k}")
+    new carry. Any k."""
     _check_terms(qimp, qtids)
     if uterms.device.type == "cpu":
         return blockmax_sweep_plain(carry, uterms, qimp, live, ub_i, ub_f,
@@ -371,13 +373,17 @@ def _blockmax_sweep_cuda(carry, uterms, qimp, live, ub_i, ub_f, order, qtids,
                           matched=matched)
     if b == 0 or n == 0:
         return ts, td, scored, skipped, matched
+    # past K7_SMEM_K each thread block keeps its running top-k and merge
+    # buffer (2·k keys) in its own slice of this buffer
+    scratch = torch.empty(b * _K7_MAX_CLUSTER * 2 * k, dtype=torch.int64,
+                          device=dev) if k > K7_SMEM_K else None
     p = cuda_build.ptr
     BLOCKMAX_SWEEP.launch(
         dev, p(uterms), p(qimp), impact_bits(qimp), p(live), n, u, nb,
         p(ub_i), p(ub_f), p(order), p(qtids), b, qtids.shape[1],
         p(scale_boost), p(cs), p(cd), k, int(doc_base),
         int(bool(trailing_pad)), p(ts), p(td), p(scored), p(skipped),
-        p(matched))
+        p(matched), p(scratch))
     return ts, td, scored, skipped, matched
 
 

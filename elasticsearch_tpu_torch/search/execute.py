@@ -15,16 +15,17 @@ Lucene's Query.createWeight/scorer split as driven by QueryPhase.execute
   and every emit returns ``(scores [B, N] f32, mask [B, N] bool)``.
 
 The port serves ``match`` with BM25 scoring (the ``msm1`` shortcut
-included), ``match_all``, ``match_none``, exact ``match_phrase`` (kernel K3),
-``bool``, ``constant_score``, ``term``, ``terms``, ``range``, ``exists`` on
-keyword, numeric, text and dense_vector fields, the ``knn`` leaf (cosine
-over a dense_vector field, the alias of the top-level ``knn`` section that
-``segment_exec``'s knn lane serves) and ``function_score`` with weight,
-random_score, field_value_factor and numeric/date decay functions. Every
+included), ``match_all``, ``match_none``, ``match_phrase`` (kernel K3 exact,
+kernel K11 with slop), ``bool``, ``constant_score``, ``term``, ``terms``,
+``range``, ``exists`` on keyword, numeric, text and dense_vector fields, the
+``knn`` leaf (cosine over a dense_vector field, the alias of the top-level
+``knn`` section that ``segment_exec``'s knn lane serves) and
+``function_score`` with weight, random_score, field_value_factor and
+numeric/date decay functions. Every
 other query type is refused with ``QueryParsingError("no executor for query
 type [...]")``, as the reference refuses an unknown type, and a feature of a
-served type that is not ported yet (sloppy phrases, script_score, geo decay)
-raises ``NotPortedError`` — never a fallback.
+served type that is not ported yet (script_score, geo decay) raises
+``NotPortedError`` — never a fallback.
 """
 
 from __future__ import annotations
@@ -427,9 +428,6 @@ class SegmentResolver:
         tids, idfs = resolved
         deltas = [t.position - toks[0].position for t in toks]
         slop = query.slop
-        if slop > 0:
-            raise NotPortedError("sloppy phrase queries (slop > 0) are not "
-                                 "ported yet")
         if len(deltas) > phrase_ops.MAX_TERMS:
             raise NotPortedError(
                 f"a phrase of [{len(deltas)}] terms is above the port's "
@@ -438,17 +436,27 @@ class SegmentResolver:
         self.ct.positions_needed.add(field)
         p = self.ctx.bm25
         r_tids = self.c(tids, np.int32)
-        # Σ idf in Python doubles, cast once (the reference's order)
-        r_sum_idf = self.c(sum(idfs), np.float32)
+        if slop > 0:
+            # the sloppy arm sums the f32 idfs on the device, in term order
+            r_idf = self.c(idfs, np.float32)
+        else:
+            # Σ idf in Python doubles, cast once (the reference's order)
+            r_idf = self.c(sum(idfs), np.float32)
         r_avgdl = self.c(self._avgdl(field), np.float32)
         r_boost = self.c(query.boost, np.float32)
 
         def emit(em):
             col = em.seg.text[field]
-            scores, mask = phrase_ops.phrase_score_batch(
-                col.tokens, col.doc_len, em.get(r_tids), deltas,
-                em.get(r_sum_idf), p.k1, p.b, em.get(r_avgdl),
-                extent=col.tok_extent)
+            if slop > 0:
+                scores, mask = phrase_ops.sloppy_phrase_score_batch(
+                    col.tokens, col.doc_len, em.get(r_tids), deltas, slop,
+                    em.get(r_idf), p.k1, p.b, em.get(r_avgdl),
+                    extent=col.tok_extent)
+            else:
+                scores, mask = phrase_ops.phrase_score_batch(
+                    col.tokens, col.doc_len, em.get(r_tids), deltas,
+                    em.get(r_idf), p.k1, p.b, em.get(r_avgdl),
+                    extent=col.tok_extent)
             return scores * em.get(r_boost)[:, None], mask
         return emit
 

@@ -27,10 +27,10 @@ exact arm. An arm that declines hands the batch to the next; every arm
 declines a request carrying aggregations, which :meth:`ShardSearcher.
 query_phase` serves one at a time: per segment its masks stay on the card
 and ``search/aggregations`` collects each agg there (kernels K8 and K9) or,
-for the shapes the JAX package keeps on the host, over the host mask. Field
-sort, suggest, terminate_after, timeout, highlight, script fields and a
-``rescore`` that the impact lane does not admit are refused with
-:class:`NotPortedError`.
+for the shapes the JAX package keeps on the host, over the host mask. The
+fetch phase highlights (``search/highlight.py``). Field sort, suggest,
+terminate_after, timeout, script fields and a ``rescore`` that the impact
+lane does not admit are refused with :class:`NotPortedError`.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ from elasticsearch_tpu_torch.search.aggregations import (
     collect_device, note_agg_stat, parse_aggs)
 from elasticsearch_tpu_torch.search.execute import (
     ExecutionContext, impact_terms)
+from elasticsearch_tpu_torch.search.highlight import highlight_hit
 from elasticsearch_tpu_torch.search.query_dsl import parse_query
 
 
@@ -655,14 +656,21 @@ class ShardSearcher:
         return np.concatenate([m.cpu().numpy() for m in masks]) \
             if masks else np.zeros(0, bool)
 
+    def _execute_query(self, query: q.Query) -> list:
+        """→ one (scores [Np] f32, mask [Np] bool) pair a segment, the mask
+        live rows only, each query run alone (the JAX package's eager
+        per-segment execute; join queries are refused, so there is no join
+        rewrite)."""
+        return [segment_exec.execute(seg, self.ctx, query)
+                for seg in self.reader.segments]
+
     # -- fetch phase ---------------------------------------------------------
 
     def fetch_phase(self, req: ParsedSearchRequest, result: ShardQueryResult,
                     index_name: str, positions: list[int]) -> list[dict]:
         from elasticsearch_tpu_torch.index.engine import _segment_meta
-        if req.highlight or req.script_fields:
-            raise NotPortedError(
-                "highlight and script_fields are not ported yet")
+        if req.script_fields:
+            raise NotPortedError("[script_fields] is not ported yet")
         meta_wanted = [f for f in req.stored_fields
                        if f in ("_routing", "_parent", "_timestamp", "_ttl")]
         hits = []
@@ -695,6 +703,11 @@ class ShardSearcher:
             filtered = _filter_source(src, req.source_filter)
             if filtered is not None:
                 hit["_source"] = filtered
+            if req.highlight:
+                hl = highlight_hit(req.highlight, src, self.mapper_service,
+                                   req.query)
+                if hl:
+                    hit["highlight"] = hl
             if req.stored_fields or req.docvalue_fields:
                 fields = {}
                 for f in list(req.stored_fields) + list(

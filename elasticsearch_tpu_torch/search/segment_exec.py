@@ -40,6 +40,14 @@ bound order and skips those that cannot reach the running k-th score (kernel
 K7), and the rescore arm re-ranks the eager arm's window by a second impact
 query (:func:`run_impact_batch`, :func:`run_impact_pruned`,
 :func:`run_impact_rescore`).
+
+The percolate lanes (the percolate section of ``jit_exec.py``) serve
+``search/percolator``: a lane is one probe doc's one-doc segment × one group
+of registered queries that share a plan signature. Each lane's constants go
+to the device stacked once and its emit runs once for the whole group
+(``[B_l, Np]`` scores and mask); then ONE launch of kernel K10 reduces every
+lane of the call to its per-query (flag, score) pairs, and ONE device→host
+copy brings them back (:func:`run_percolate_lanes`).
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from elasticsearch_tpu_torch.index.segment import (
     IMPACT_BITS, IMPACT_BLOCK_ROWS, build_impact_column)
 from elasticsearch_tpu_torch.ops import blockmax as blockmax_ops
 from elasticsearch_tpu_torch.ops import maxsim as maxsim_ops
+from elasticsearch_tpu_torch.ops import percolate as percolate_ops
 from elasticsearch_tpu_torch.ops import topk as topk_ops
 from elasticsearch_tpu_torch.ops import vector as vector_ops
 from elasticsearch_tpu_torch.search.execute import (
@@ -80,14 +89,14 @@ def _plan(seg: DeviceSegment, ctx: ExecutionContext, query, post_filter,
     return ct, emit_q, emit_pf, refs
 
 
-def _fetch_lazy(seg: DeviceSegment, ctx: ExecutionContext,
-                ct: ConstTable) -> None:
-    """Put the position matrices and normalized vector matrices the plan
-    reads on the device (a no-op once the reader holds them)."""
-    for field in sorted(ct.positions_needed):
-        ctx.reader.fetch_tokens(seg, field)
-    for field in sorted(ct.vectors_needed):
-        ctx.reader.fetch_vectors(seg, field, "f32")
+def _fetch_lazy(seg: DeviceSegment, reader, positions, vectors) -> None:
+    """Put the position matrices and normalized vector matrices a plan
+    reads (its ConstTable's ``positions_needed`` and ``vectors_needed``) on
+    the device (a no-op once the reader holds them)."""
+    for field in sorted(positions):
+        reader.fetch_tokens(seg, field)
+    for field in sorted(vectors):
+        reader.fetch_vectors(seg, field, "f32")
 
 
 def _build(view: DeviceSegment, consts, emit_q, emit_pf, refs, k: int,
@@ -141,7 +150,7 @@ def run_segment(seg: DeviceSegment, ctx: ExecutionContext, query,
         "_doc_base": seg.doc_base,
     }
     ct, emit_q, emit_pf, refs = _plan(seg, ctx, query, post_filter, flags)
-    _fetch_lazy(seg, ctx, ct)
+    _fetch_lazy(seg, ctx.reader, ct.positions_needed, ct.vectors_needed)
     consts = stack_consts([ct.values], ctx.reader.device) \
         if ct.values else []
     outs = _build(seg, consts, emit_q, emit_pf, refs, int(k), 1,
@@ -149,16 +158,25 @@ def run_segment(seg: DeviceSegment, ctx: ExecutionContext, query,
     return {name: v[0] for name, v in outs.items()}
 
 
+def execute(seg: DeviceSegment, ctx: ExecutionContext, query):
+    """One query against one segment at batch 1 → (scores [Np] f32, mask
+    [Np] bool) on the segment's device, the mask live rows only (the
+    counterpart of the JAX package's ``SegmentExecutor.execute(query)``
+    with the caller's live mask)."""
+    ct = ConstTable()
+    emit = SegmentResolver(seg, ctx, ct).resolve(query)
+    _fetch_lazy(seg, ctx.reader, ct.positions_needed, ct.vectors_needed)
+    consts = stack_consts([ct.values], ctx.reader.device) \
+        if ct.values else []
+    scores, mask = emit(EmitCtx(seg, consts, 1))
+    return scores[0], (mask & seg.live[None, :])[0]
+
+
 def match_mask(seg: DeviceSegment, ctx: ExecutionContext, query):
     """The filter-context match mask of ``query`` over one segment, live
     rows only → [Np] bool on the segment's device (the counterpart of the
     JAX package's ``SegmentExecutor.match_mask(query) & seg.live``)."""
-    ct = ConstTable()
-    emit = SegmentResolver(seg, ctx, ct).resolve_mask(query)
-    _fetch_lazy(seg, ctx, ct)
-    consts = stack_consts([ct.values], ctx.reader.device) \
-        if ct.values else []
-    return (emit(EmitCtx(seg, consts, 1)) & seg.live[None, :])[0]
+    return execute(seg, ctx, query)[1]
 
 
 def _plan_segment_batch(seg: DeviceSegment, ctx: ExecutionContext,
@@ -183,7 +201,8 @@ def _plan_segment_batch(seg: DeviceSegment, ctx: ExecutionContext,
         # const-free plans (match_none / absent-field zeros): the per-query
         # path serves these (rare) shapes
         return None
-    _fetch_lazy(seg, ctx, ct0)
+    _fetch_lazy(seg, ctx.reader, ct0.positions_needed,
+                ct0.vectors_needed)
     return {"seg": seg, "emit": emit0, "refs": refs0, "k": int(k),
             "consts": stack_consts(consts_rows, ctx.reader.device)}
 
@@ -446,7 +465,8 @@ def _plan_knn_segment(dseg: DeviceSegment, ctx: ExecutionContext,
         elif ct.signature() != sig0:
             return None
         consts_rows.append(ct.values)
-    _fetch_lazy(dseg, ctx, ct0)
+    _fetch_lazy(dseg, ctx.reader, ct0.positions_needed,
+                ct0.vectors_needed)
     consts = stack_consts(consts_rows, ctx.reader.device) \
         if consts_rows[0] else []
     return {"seg": dseg, "emit_q": emit_q0, "emit_f": emit_f0,
@@ -981,3 +1001,60 @@ def run_impact_rescore(pack: _ImpactPack, term_lists: list, boosts: list,
         torch.tensor(rws, dtype=torch.float32, device=dev), score_mode)
     return _impact_result({"top_scores": new_s, "top_docs": new_d,
                            "count": counts}, packed)
+
+
+# ---------------------------------------------------------------------------
+# the percolate lanes
+# ---------------------------------------------------------------------------
+
+def make_percolate_lane(seg: DeviceSegment, emit, pos_for: frozenset,
+                        vecs_for: frozenset, consts_rows: list,
+                        reader) -> dict:
+    """One percolate lane = (one probe segment × one same-signature query
+    group): the emit closure of the group's first plan, every member's
+    constants (all of one plan signature: the caller groups by actual
+    signature), the text fields whose positions and the vector fields whose
+    rows the plan reads, and the probe's reader (which puts those on the
+    device). The JAX package also keys its compiled program by the
+    signature and BM25's k1 and b; the port compiles nothing."""
+    return {"seg": seg, "emit": emit, "pos": pos_for, "vecs": vecs_for,
+            "consts_rows": consts_rows, "reader": reader}
+
+
+def run_percolate_lanes(lanes: list) -> list:
+    """Evaluate percolate lanes with one emit a lane and ONE K10 launch and
+    ONE device→host copy for all of them (the JAX package's one-fetch
+    discipline). Per lane: its constants stacked on the device once
+    (:func:`execute.stack_consts`), its group's emit run once with the
+    batch axis written out (``EmitCtx(seg, consts, B)`` → ``[B, Np]``
+    scores and mask); a const-free lane (the match_none shapes: every member
+    is the same plan) runs at batch 1 and the caller broadcasts its row.
+    K10 reduces each row over ``mask & live`` to (matched, best).
+
+    The JAX package pads each lane's batch to a power of two and caches one
+    compiled program per lane key (its ``percolate_program_hits`` /
+    ``misses`` counters); the port runs eagerly and keeps no program cache,
+    so it pads nothing and has no such counters.
+
+    → one [b, 2] f32 numpy array per lane (column 0: the match flag,
+    column 1: the score); a const-free lane's is [1, 2]. A device error
+    propagates."""
+    if not lanes:
+        return []
+    parts = []
+    for lane in lanes:
+        seg, reader = lane["seg"], lane["reader"]
+        _fetch_lazy(seg, reader, lane["pos"], lane["vecs"])
+        rows = lane["consts_rows"]
+        if rows[0]:
+            consts, batch = stack_consts(rows, reader.device), len(rows)
+        else:
+            consts, batch = [], 1
+        scores, mask = lane["emit"](EmitCtx(seg, consts, batch))
+        parts.append((scores.contiguous(), mask.contiguous(), seg.live))
+    packed = percolate_ops.percolate_reduce(parts).cpu().numpy()
+    out, off = [], 0
+    for scores, _, _ in parts:
+        out.append(packed[off:off + scores.shape[0]])
+        off += scores.shape[0]
+    return out

@@ -10,7 +10,9 @@ versions' matrix products, so they agree within 1e-5 absolute (unit
 vectors; K5 adds 1e-6 relative for sums of up to 150 token maxima). K9
 (masked double-double stats) must give the plain version's count and
 extrema bit for bit and its f32 sums within 1e-6 relative (a tree against
-torch's reduction order), the same bits on every run. These tests need
+torch's reduction order), the same bits on every run. K10 (the
+percolator's match reduction) and K11 (sloppy-phrase scan) must be
+bit-identical to their plain versions (NaN as NaN). These tests need
 an NVIDIA GPU and nvcc (the kernels have no CPU mode) and skip elsewhere.
 On a machine with a card, run them without the JAX test bootstrap:
 
@@ -24,7 +26,7 @@ import torch
 from elasticsearch_tpu_torch.index.segment import (
     TextFieldColumn, build_impact_column, quantize_vectors)
 from elasticsearch_tpu_torch.ops import (
-    aggs_ops, blockmax, lexical, maxsim, phrase, topk, vector)
+    aggs_ops, blockmax, lexical, maxsim, percolate, phrase, topk, vector)
 
 pytestmark = pytest.mark.cuda
 
@@ -1137,3 +1139,215 @@ def test_aggregations_on_the_card_match_the_cpu(cuda, tmp_path):
                 assert g[key] == pytest.approx(part[key], rel=1e-5)
         else:
             assert g == part, name
+
+
+# ---------------------------------------------------------------------------
+# the percolator's kernels and shapes (K10, K11; K1, K3 at B = 4096 x N = 128;
+# K7 past k = 1024)
+# ---------------------------------------------------------------------------
+
+def _bits_equal(got, want):
+    """Equal f32 tensors bit for bit, any NaN against any NaN."""
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
+def _percolate_lanes(rng, cuda, shapes):
+    """Lanes of (scores, mask, live) with empty rows, rows that match only
+    dead rows, rows matching only at -0.0, NaN among the matches and NaN
+    outside them."""
+    out = []
+    for b, n in shapes:
+        scores = rng.normal(size=(b, n)).astype(np.float32) * 4
+        mask = rng.random((b, n)) < 0.3
+        live = rng.random(n) < 0.9
+        if b >= 5:
+            mask[0] = False
+            mask[1] = ~live
+            alive = np.flatnonzero(live)[:2]
+            mask[2] = False
+            mask[2, alive] = True
+            scores[2, alive] = -0.0
+            scores[3, alive[0]] = np.nan
+            mask[3, alive[0]] = True
+            scores[4] = np.nan
+            mask[4] = False
+        out.append(tuple(torch.from_numpy(a).to(cuda)
+                         for a in (scores, mask, live)))
+    return out
+
+
+def test_percolate_reduce_bit_identical_to_plain(cuda):
+    """K10 over ragged lanes in one launch: up to B = 10,000 at Np = 128,
+    wider and odd row widths (a scalar path), a lane of no rows."""
+    rng = np.random.default_rng(10)
+    lanes = _percolate_lanes(rng, cuda, [(10000, 128), (1, 128), (37, 256),
+                                         (0, 128), (6, 7), (300, 130),
+                                         (5, 1)])
+    before = percolate.PERCOLATE_REDUCE.launches
+    got = percolate.percolate_reduce(lanes)
+    torch.cuda.synchronize()
+    assert percolate.PERCOLATE_REDUCE.launches == before + 1
+    want = percolate.percolate_reduce_plain(lanes)
+    assert got.shape == want.shape == (sum(s.shape[0] for s, _, _ in lanes),
+                                       2)
+    _bits_equal(got, want)
+    assert int(torch.isnan(want[:, 1]).sum()) >= 1
+    with pytest.raises(ValueError):
+        percolate.percolate_reduce([(lanes[0][0], lanes[0][1][:, :64],
+                                     lanes[0][2])])
+    with pytest.raises(TypeError):
+        percolate.percolate_reduce([(lanes[0][0].double(), lanes[0][1],
+                                     lanes[0][2])])
+
+
+@pytest.mark.parametrize("n,length,n_queries,deltas,slop", [
+    (1001, 24, 3, (0, 1), 1),
+    (4099, 40, 64, (0, 1, 2), 2),
+    (333, 20, 70, (0, 2), 3),               # two query groups
+    (517, 300, 9, (0, 1), 2),               # rows past the staged window
+    (64, 8, 5, (0, 9), 1),                  # a gap wider than every row
+    (2000, 50, 16, (0, 1, 3, 4), 6),
+    (128, 16, 1024, (0, 1), 2),             # a percolate lane's shape
+])
+def test_sloppy_phrase_scan_bit_identical_to_plain(cuda, n, length,
+                                                   n_queries, deltas, slop):
+    rng = np.random.default_rng(n + slop)
+    tokens, doc_len, qtids, _, avgdl = _phrase_inputs(
+        rng, n, length, n_queries, deltas)
+    idfs = rng.uniform(0.1, 4.0, size=qtids.shape).astype(np.float32)
+    tk, dl, qt, idf, av = (torch.from_numpy(a).to(cuda) for a in (
+        tokens, doc_len, qtids, idfs, avgdl))
+    before = phrase.SLOPPY_PHRASE_SCAN.launches
+    got_s, got_m = phrase.sloppy_phrase_score_batch(
+        tk, dl, qt, deltas, slop, idf, 1.2, 0.75, av,
+        extent=phrase.token_extent(tk))
+    torch.cuda.synchronize()
+    assert phrase.SLOPPY_PHRASE_SCAN.launches == before + 1
+    want_s, want_m = phrase.sloppy_phrase_score_batch_plain(
+        tk, dl, qt, list(deltas), slop, idf, 1.2, 0.75, av)
+    assert torch.equal(got_m, want_m)
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+    assert bool(want_m.any()) == (max(deltas) < length)
+
+
+def test_bm25_and_phrase_scans_at_the_percolator_shape(cuda):
+    """K1 and K3 at B = 4,096 queries x N = 128 rows (a percolate lane:
+    64 query groups on grid y, one run of rows a warp) against their plain
+    versions, bit for bit."""
+    rng = np.random.default_rng(4096)
+    vocab = 300
+    uterms, utf, doc_len = _segment(rng, 128, 24, vocab)
+    b, t = 4096, 2
+    q = [torch.from_numpy(a).to(cuda) for a in (
+        rng.integers(0, vocab, (b, t)).astype(np.int32),
+        rng.uniform(0.1, 5.0, (b, t)).astype(np.float32),
+        np.ones((b, t), np.float32),
+        rng.uniform(1.0, 40.0, b).astype(np.float32))]
+    cols = [torch.from_numpy(a).to(cuda) for a in (uterms, utf, doc_len)]
+    got = lexical.bm25_match_batch(*cols, *q[:3], 1.2, 0.75, q[3],
+                                   want_nmatch=True)
+    want = lexical.bm25_match_batch_plain(*cols, *q[:3], 1.2, 0.75, q[3],
+                                          want_nmatch=True)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert bool((want[0] > 0).any())
+    tokens, doc_len, qtids, sum_idf, avgdl = _phrase_inputs(
+        rng, 128, 16, b, (0, 1))
+    tk, dl, qt, si, av = (torch.from_numpy(a).to(cuda) for a in (
+        tokens, doc_len, qtids, sum_idf, avgdl))
+    got_s, got_m = phrase.phrase_score_batch(tk, dl, qt, (0, 1), si, 1.2,
+                                             0.75, av,
+                                             extent=phrase.token_extent(tk))
+    want_s, want_m = phrase.phrase_score_batch_plain(tk, dl, qt, [0, 1], si,
+                                                     1.2, 0.75, av)
+    torch.cuda.synchronize()
+    assert torch.equal(got_m, want_m) and bool(want_m.any())
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+
+
+@pytest.mark.parametrize("k", [1025, 5000, 13000])
+def test_blockmax_sweep_past_1024_equals_the_eager_arm(cuda, k):
+    """K7 at k past the old cap of 1024, in shared memory (1,025 and 5,000)
+    and in global scratch (13,000 > K7_SMEM_K): over two segments with the
+    carry threaded, its top-k is the eager arm's (K6 + K2) bit for bit, and
+    equal to its plain version."""
+    rng = np.random.default_rng(k)
+    b, n, r, vocab = 3, 8192, 256, 40
+    qtids = _impact_queries(rng, b, 3, vocab)
+    sb = torch.tensor([0.5, 1.0, 2.0], device=cuda)
+    cs = torch.full((b,), float("inf"), device=cuda)
+    cd = torch.full((b,), -1, dtype=torch.int32, device=cuda)
+    got = want = blockmax.pruned_carry_init(b, k, cuda)
+    eager_s, eager_d = [], []
+    for base in (0, n):
+        _, (uterms, qimp, live, bmx) = _impact_segment(rng, n, 24, vocab,
+                                                       16, r)
+        got = blockmax.pruned_segment_topk(got, uterms, qimp, live, bmx,
+                                           qtids, sb, k, base, cs, cd,
+                                           trailing_pad=True)
+        ub_i = blockmax.block_bounds(bmx, qtids)
+        ub_f, order = blockmax.sweep_order(ub_i, sb)
+        want = blockmax.blockmax_sweep_plain(
+            want, uterms, qimp, live, ub_i, ub_f, order, qtids, sb, cs, cd,
+            k, base)
+        ts, td, _ = blockmax.eager_segment_topk(uterms, qimp, live, qtids,
+                                                sb, k, base, cs, cd,
+                                                trailing_pad=True)
+        eager_s.append(ts)
+        eager_d.append(torch.where(td >= 0, td + base, -1))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    m_s, m_d = blockmax.topk_flat_by_doc(torch.cat(eager_s, 1),
+                                         torch.cat(eager_d, 1), k)
+    assert torch.equal(got[0].view(torch.int32), m_s.view(torch.int32))
+    assert torch.equal(got[1], m_d)
+    assert int((got[1] >= 0).sum(dim=1).max()) > 1024
+
+
+def test_percolator_on_the_card_matches_the_cpu(cuda):
+    """The registry on the card (K1, K3, K11 in the lanes, one K10 launch
+    and one device→host copy a call) answers as the plain versions on the
+    CPU: the same ids and totals, scores within 1e-6."""
+    import types
+    from elasticsearch_tpu_torch.search import percolator
+    rng = np.random.default_rng(5)
+    vocab = [f"v{i}" for i in range(30)]
+    percs = {}
+    for i in range(600):
+        w, w2 = vocab[int(rng.integers(0, 30))], vocab[(i * 7) % 30]
+        qq = ({"match": {"body": f"{w} {w2}"}},
+              {"match_phrase": {"body": f"{w} {w2}"}},
+              {"match_phrase": {"body": {"query": f"{w} {w2}",
+                                         "slop": 1 + i % 3}}},
+              {"term": {"cat": w}},
+              {"range": {"rank": {"gte": int(rng.integers(0, 90))}}})[i % 5]
+        percs[f"q{i}"] = {"query": qq, "group": f"g{i % 4}"}
+    meta = types.SimpleNamespace(
+        name="card_perc", uuid="u", settings={}, version=1, percolators=percs,
+        mappings={"_doc": {"properties": {
+            "body": {"type": "text", "analyzer": "whitespace"},
+            "cat": {"type": "keyword"}, "rank": {"type": "double"},
+            "group": {"type": "keyword"}}}})
+    items = [{"doc": {"body": " ".join(vocab[int(j)] for j in
+                                       rng.integers(0, 30, 8)),
+                      "cat": vocab[int(rng.integers(0, 30))],
+                      "rank": float(rng.integers(0, 100))},
+              "score": True} for _ in range(6)]
+    want = percolator.percolate_many(meta, items, device="cpu")
+    before = percolate.PERCOLATE_REDUCE.launches
+    sloppy = phrase.SLOPPY_PHRASE_SCAN.launches
+    got = percolator.percolate_many(meta, items, device=cuda)
+    assert percolate.PERCOLATE_REDUCE.launches == before + 1
+    assert phrase.SLOPPY_PHRASE_SCAN.launches > sloppy
+    for g, w in zip(got, want):
+        assert g["total"] == w["total"] > 0
+        assert [m["_id"] for m in g["matches"]] == \
+            [m["_id"] for m in w["matches"]]
+        np.testing.assert_allclose([m["_score"] for m in g["matches"]],
+                                   [m["_score"] for m in w["matches"]],
+                                   rtol=1e-6)

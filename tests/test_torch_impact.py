@@ -21,7 +21,6 @@ from elasticsearch_tpu.index.segment import (
     TextFieldColumn as JaxTextFieldColumn,
     build_impact_column as jax_build_impact_column)
 from elasticsearch_tpu.ops import blockmax as jbm
-from elasticsearch_tpu_torch.common.errors import NotPortedError
 from elasticsearch_tpu_torch.index import carry
 from elasticsearch_tpu_torch.index.segment import (
     Segment, TextFieldColumn, build_impact_column)
@@ -286,10 +285,15 @@ def test_sweep_skips_every_block_under_a_high_carry():
     assert torch.equal(out[0], carry_in[0]) and torch.equal(out[1],
                                                             carry_in[1])
     assert carry_in[3].tolist() == [0, 0]          # the input is unchanged
-    with pytest.raises(NotPortedError):
-        pbm.blockmax_sweep(pbm.pruned_carry_init(2, 2000, "cpu"), _t(ut),
-                           _t(qi), _t(lv), ub_i, ub_f, order, _t(qtids),
-                           _t(sbs), cs, cd, pbm.K7_MAX_K + 1, base)
+    # k past the shared-memory top-k (any k is served): the same skips
+    k = pbm.K7_SMEM_K + 1
+    high = (torch.full((2, k), 1e9),
+            torch.arange(2 * k, dtype=torch.int32).view(2, k),
+            *carry_in[2:])
+    out = pbm.blockmax_sweep(high, _t(ut), _t(qi), _t(lv), ub_i, ub_f,
+                             order, _t(qtids), _t(sbs), cs, cd, k, base)
+    assert out[2].tolist() == [0, 0] and out[3].tolist() == [8, 8]
+    assert torch.equal(out[1], high[1])
 
 
 @pytest.mark.parametrize("bits", [8, 16])

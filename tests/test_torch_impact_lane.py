@@ -353,11 +353,18 @@ def test_rescore_refusals_and_400s(engines):
 
 
 def test_k_above_the_sweep_cap_is_refused(engines):
-    _, ps = _searchers(engines, "imp8")
-    with pytest.raises(NotPortedError, match="pruned impact sweep"):
-        ps.query_phase_batch([parse_search_request(
-            {"query": {"match": {"body": "w1"}}, "size": 1025,
-             "track_total_hits": False})])
+    """The sweep once refused k > 1024; it now serves any k. A pruned
+    request at k = 1,500 (more than the corpus holds) is bit-equal to the
+    JAX pruned arm, block counters included, and to the eager arm."""
+    js, ps = _searchers(engines, "imp8")
+    body = {"query": {"match": {"body": "w1 common"}}, "size": 1500}
+    pruned, _ = _run_lane(js, ps, [dict(body, track_total_hits=False)],
+                          "imp8")
+    eager, _ = _run_lane(js, ps, [body], "imp8")
+    assert len(eager[0].doc_ids) == eager[0].total > 0
+    np.testing.assert_array_equal(pruned[0].doc_ids, eager[0].doc_ids)
+    np.testing.assert_array_equal(pruned[0].scores.view(np.int32),
+                                  eager[0].scores.view(np.int32))
 
 
 @pytest.mark.parametrize("settings", [

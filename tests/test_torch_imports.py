@@ -1,8 +1,9 @@
 """The port stands alone: serving searches through it (a match, a bool with a
 match_phrase, a function_score, on the knn lane a dense knn in f32 and int8,
 a hybrid and a rank_vectors MaxSim, on the impact lane the eager, pruned
-and rescore arms, and aggregations reduced by the coordinator's merge)
-loads neither JAX nor the JAX package, its entry points
+and rescore arms, aggregations reduced by the coordinator's merge, and the
+percolator's registry, _mpercolate and serial paths) loads neither JAX nor
+the JAX package, its entry points
 never fall back to the CPU on their own, and its CUDA sources include no
 header of torch or of the JAX package's native code."""
 
@@ -90,16 +91,38 @@ merged = merge_responses("idx", agg_req, [searcher.query_phase(agg_req)],
 agg_out = [merged["aggregations"]["r"]["count"],
            [b["doc_count"] for b in merged["aggregations"]["h"]["buckets"]],
            [h["_id"] for h in merged["hits"]["hits"]]]
+import types
+from elasticsearch_tpu_torch.search import percolator
+pmeta = types.SimpleNamespace(
+    name="pidx", uuid="u", settings={}, version=1,
+    mappings={"_doc": {"properties": {"body": {"type": "text"}}}},
+    percolators={"a": {"query": {"match": {"body": "fox"}}},
+                 "b": {"query": {"match_phrase": {"body": {
+                     "query": "quick fox", "slop": 1}}}},
+                 "c": {"query": {"term": {"body": "dog"}}}})
+perc_out = [
+    [m["_id"] for m in percolator.percolate(
+        pmeta, {"body": "quick brown fox"}, device="cpu")["matches"]],
+    [[m["_id"] for m in r["matches"]] for r in percolator.percolate_many(
+        pmeta, [{"doc": {"body": "lazy dog"}},
+                {"doc": {"body": "quick red fox"}}], device="cpu")],
+    percolator.percolate_serial(pmeta, {"body": "quick fox"},
+                                device="cpu")["total"]]
 try:
     DeviceReader(eng.acquire_searcher())
     refused = False
 except RuntimeError:
     refused = True
+try:
+    percolator.percolate(pmeta, {"body": "fox"})
+    refused = False
+except RuntimeError:
+    pass
 print(json.dumps({
     "ids": [match_ids, phrase_ids, fs_ids],
     "knn_ids": knn_ids,
     "impact_ids": impact_ids, "impact_admissions": impact_admissions,
-    "agg_out": agg_out,
+    "agg_out": agg_out, "perc_out": perc_out,
     "leaked": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "elasticsearch_tpu")),
@@ -123,6 +146,7 @@ def test_port_serves_without_jax_or_the_jax_package(tmp_path):
                                  ["0", "2"]]
     assert got["impact_admissions"] == 3
     assert got["agg_out"] == [3, [1, 1, 1], ["2", "1"]]
+    assert got["perc_out"] == [["a", "b"], [["c"], ["a", "b"]], 2]
     assert got["leaked"] == []
     assert got["no_card_refused"]
 

@@ -126,6 +126,9 @@ def test_over_cap_and_sloppy_phrases_are_refused():
                                   torch.ones(1), 1.2, 0.75, torch.ones(1),
                                   extent=phrase.token_extent(_t(tokens)))
     with pytest.raises(NotPortedError):
-        phrase.sloppy_phrase_score()
+        phrase.sloppy_phrase_score_batch(
+            _t(tokens), _t(doc_len), _t(qtids), deltas, 1,
+            torch.ones(qtids.shape), 1.2, 0.75, torch.ones(1),
+            extent=phrase.token_extent(_t(tokens)))
     with pytest.raises(NotPortedError):
         phrase.span_near_freq_unordered()

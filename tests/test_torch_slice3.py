@@ -308,7 +308,7 @@ def test_carried_segments_score_like_jax(shared):
 
 
 @pytest.mark.parametrize("query", [
-    {"match_phrase": {"body": {"query": "w00 w01", "slop": 1}}},
+    {"exists": {"field": "loc"}},
     {"match_phrase": {"body": " ".join(["w00"] * 33)}},
     {"function_score": {"query": {"match": {"body": "w00"}}, "functions": [
         {"script_score": {"script": "_score * 2"}}]}},
@@ -316,8 +316,9 @@ def test_carried_segments_score_like_jax(shared):
         {"gauss": {"loc": {"origin": "0,0", "scale": "1km"}}}]}},
 ])
 def test_unported_parts_are_refused(tmp_path, query):
-    """Sloppy phrases, phrases above the kernel's term cap, script_score and
-    geo decay raise NotPortedError, in the batch and alone."""
+    """Exists on a geo field, phrases above the kernel's term cap,
+    script_score and geo decay raise NotPortedError, in the batch and
+    alone."""
     _, _, eng, ms = _engines(tmp_path, _docs(n=30))
     view = eng.acquire_searcher()
     for seg in view.segments:     # a geo column the geo decay would read
