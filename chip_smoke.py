@@ -140,6 +140,32 @@ no result line:
             arm; K7 against its plain version and timed at k = 10,000.
 31. profile — one percolate_many under torch.profiler: host planning
             against card time.
+32. script kernel — K12 (the script evaluator) against its plain version
+            bit for bit (NaN as NaN, -0.0 kept) on segment 0's rows at
+            B = 64 x N = 2^20 for a grammar of scripts that uses every
+            opcode (the config 3s and 4s scripts among them), at odd
+            shapes, with a 60,000-op and a deep program and a pipeline's
+            per-row values; the config 3s and 4s scripts timed beside the
+            plain version and the bound.
+33. config 3s — BASELINE config 3 in its script form: config 3's
+            function_score with the gauss decay and a script_score
+            ``log(2 + doc['rank'].value) * params.w`` (K1, K12, K2),
+            against a float64 CPU scoring.
+34. config 4s — BASELINE config 4 in its script form: script_score over
+            match_all with ``cosineSimilarity(params.query_vector, 'vec') +
+            1.0`` (torch.matmul, K12, K2), against float64 cosines + 1.
+35. script fields — config 3s's first batch's top 10 hits fetched with an
+            expression field (K12) and a GroovyLite field with a branch,
+            against the host's values.
+36. script aggs — one request through config 5's shards: a terms agg with
+            an avg, a bucket_script and a bucket_selector (one K12 launch
+            over the buckets each) and a scripted_metric with an expression
+            map script, against numpy.
+37. percolate scripts — 1,000 registrations, a tenth function_score with a
+            script_score, through a percolate per probe and one
+            percolate_many of the 12 probes, against a float64 recompute.
+38. profile — one batch of config 3s and of config 4s under
+            torch.profiler.
 
 The last lines are one JSON object of per-kernel numbers, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -148,6 +174,7 @@ line, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import statistics
@@ -179,6 +206,7 @@ K8_SOURCE = "elasticsearch_tpu_torch/csrc/agg_counts.cu"
 K9_SOURCE = "elasticsearch_tpu_torch/csrc/agg_stats.cu"
 K10_SOURCE = "elasticsearch_tpu_torch/csrc/percolate_reduce.cu"
 K11_SOURCE = "elasticsearch_tpu_torch/csrc/sloppy_phrase.cu"
+K12_SOURCE = "elasticsearch_tpu_torch/csrc/script_eval.cu"
 K1_REPLACES = "elasticsearch_tpu/ops/lexical.py:16"
 K2_REPLACES = "elasticsearch_tpu/ops/topk.py:27"
 K3_REPLACES = "elasticsearch_tpu/ops/phrase.py:59"
@@ -191,6 +219,7 @@ K8_REPLACES = "elasticsearch_tpu/ops/aggs_ops.py:18"
 K9_REPLACES = "elasticsearch_tpu/ops/aggs_ops.py:79"
 K10_REPLACES = "elasticsearch_tpu/ops/percolate.py:19"
 K11_REPLACES = "elasticsearch_tpu/ops/phrase.py:72"
+K12_REPLACES = "elasticsearch_tpu/search/scripts.py:114"
 # config 4 (bench.py:703-717): 768-d unit vectors, k = num_candidates = 100
 VEC_DIMS = 768
 KNN_K = 100
@@ -459,14 +488,19 @@ def phase_card(torch):
     return smi_line, name, count
 
 
+#: nvcc's -Xptxas -v report of each source, from phase_build
+BUILD_LOGS: dict = {}
+
+
 def phase_build():
     from elasticsearch_tpu_torch.ops import cuda_build
     sources = [Path(src).name for src in (K1_SOURCE, K2_SOURCE, K3_SOURCE,
                                           K4_SOURCE, K5_SOURCE, K6_SOURCE,
                                           K7_SOURCE, K8_SOURCE, K9_SOURCE,
-                                          K10_SOURCE, K11_SOURCE)]
+                                          K10_SOURCE, K11_SOURCE, K12_SOURCE)]
     t0 = time.perf_counter()
     built = cuda_build.build_libraries(sources)
+    BUILD_LOGS.update({src: info["log"] for src, info in built.items()})
     log(f"build: {len(sources)} sources in "
         f"{time.perf_counter() - t0:.2f} s wall (nvcc -gencode "
         f"arch=compute_90a,code={cuda_build.ARCH} -O3 -Xptxas -v)")
@@ -501,7 +535,9 @@ def phase_build():
         "count a bucket (up to 12,288 buckets, else global atomics); "
         "agg_stats 288 B static; percolate_reduce none (a warp a query "
         "row); sloppy_phrase_scan K3's layout and table, an f32 "
-        "sum per (query, row) (45.875 KiB at B = 64, T = 2)")
+        "sum per (query, row) (45.875 KiB at B = 64, T = 2); script_eval "
+        "the program and its constants, 8 B an op or constant (a program "
+        "past 200 KiB runs from global memory)")
 
 
 def phrase_pairs(rng, tokens, lens, n):
@@ -860,7 +896,8 @@ def path_kernels():
     """The launch counter of every hand kernel, by its name in the kernels
     line (K5's f32 and int8 instantiations have one each)."""
     from elasticsearch_tpu_torch.ops import (
-        aggs_ops, blockmax, lexical, maxsim, percolate, phrase, topk, vector)
+        aggs_ops, blockmax, lexical, maxsim, percolate, phrase, script_ops,
+        topk, vector)
     return {"bm25_scan": lexical.BM25_SCAN, "stable_topk": topk.TOPK,
             "phrase_scan": phrase.PHRASE_SCAN,
             "sloppy_phrase_scan": phrase.SLOPPY_PHRASE_SCAN,
@@ -870,7 +907,8 @@ def path_kernels():
             "impact_scan": blockmax.IMPACT_SCAN,
             "blockmax_sweep": blockmax.BLOCKMAX_SWEEP,
             "agg_counts": aggs_ops.AGG_COUNTS,
-            "agg_stats": aggs_ops.AGG_STATS}
+            "agg_stats": aggs_ops.AGG_STATS,
+            "script_eval": script_ops.SCRIPT_EVAL}
 
 
 def drive(torch, searcher, batches):
@@ -1289,6 +1327,7 @@ def profile_batch(torch, label, run, plan_ms, plan_gc, size,
                  "K9": ("agg_stats_partial_kernel", "agg_stats_final_kernel"),
                  "K10": ("percolate_reduce_kernel",),
                  "K11": ("sloppy_phrase_kernel",),
+                 "K12": ("script_eval_kernel",),
                  "cuBLAS": ("gemm", "xmma", "cutlass")}
     parts = {}
     for kname, keys in by_kernel.items():
@@ -1515,6 +1554,7 @@ def phase_config4(torch, args, data, name, smi_line) -> tuple[dict, dict]:
     everyone = [np.ones(len(data["lens"]), bool)] * nq
     total = len(data["lens"])
     cos = cosines64(reader, "vec", data["qv4"][:nq])
+    data["cos4"] = cos                  # config 4s holds the same queries
     recall = check_vs_cpu("config 4 f32", args, results[0][:nq], cos,
                           everyone, orig_of, k=KNN_K, rtol=0, tie_tol=1e-5)
     pack = segment_exec.vector_pack_for(
@@ -4036,6 +4076,485 @@ def phase_percolate_profile(torch, data, stats_p) -> dict:
         f"query rows)")
 
 
+# --------------------------------------------------------------------------
+# scripts (phases 32-38)
+# --------------------------------------------------------------------------
+
+#: BASELINE config 3's script (lang-expression) and config 4's script_score
+CONFIG3S_SCRIPT = "log(2 + doc['rank'].value) * params.w"
+CONFIG3S_W = 1.5
+CONFIG4S_SCRIPT = "cosineSimilarity(params.query_vector, 'vec') + 1.0"
+#: scripts that between them use every opcode of K12, over the columns
+#: ``a`` (a seeded column with NaN, ±inf, -0.0 and missing values) and
+#: ``rank``, the query scores, params ``t`` and ``w`` and the 768-d vectors
+SCRIPT_GRAMMAR = [
+    CONFIG3S_SCRIPT,
+    CONFIG4S_SCRIPT,
+    "doc['a'].value * 2 + 1 - doc['rank'].value / 3",
+    "doc['a'].value % -2.5 + min(doc['a'].value, doc['rank'].value, 40)",
+    "max(doc['a'].value, -doc['a'].value) + abs(doc['rank'].value)",
+    "floor(doc['a'].value) + ceil(doc['rank'].value) + doc['a'].value ** 3",
+    "doc['a'].value ** -2 + doc['rank'].value ** 0.5 "
+    "+ pow(doc['rank'].value, 1.5)",
+    "log(doc['rank'].value + 1) * _score + ln(2) + log10(doc['rank'].value)",
+    "sqrt(doc['rank'].value) + exp(-doc['rank'].value / 50) + 1/3 * _score",
+    "sigmoid(doc['rank'].value) + sigmoid(doc['rank'].value, 2, 3) "
+    "+ saturation(doc['rank'].value, 10)",
+    "(doc['a'].value if doc['a'].value > params.t else _score) "
+    "+ params.w * 2",
+    "1 < doc['a'].value < 30 and doc['rank'].value >= 5 or doc['a'].empty",
+    "not doc['a'].value or not 0",
+    "doc['a'].value == doc['a'].value and True",
+    "doc['a'].value != doc['rank'].value",
+    "doc['a'].value <= doc['rank'].value",
+    "(doc['a'].empty + 7) % 3 + (doc['a'].empty - 3) % -2 "
+    "+ (doc['a'].empty + 1) % 0",
+    "(doc['a'].empty + 2) ** (doc['a'].empty + 1) + doc['a'].empty ** 2 "
+    "+ abs(-3) * (doc['rank'].empty + 0)",
+    "-(doc['a'].empty + 0) + 2147483647 + min(doc['a'].empty, 2) "
+    "+ max(doc['a'].empty + 0, 1)",
+    "(doc['a'].empty + 1) > 1 or (doc['a'].empty + 1) < 2 "
+    "or (doc['a'].empty + 1) <= 0 or (doc['a'].empty + 1) >= 3 "
+    "or (doc['a'].empty + 1) == 1 or (doc['a'].empty + 1) != 2",
+    "max(doc['a'].empty, doc['rank'].empty) + min(doc['a'].empty, "
+    "doc['rank'].empty) + doc['a'].empty * doc['rank'].empty",
+    "1 if doc['a'].empty else 2.5",
+    "doc['a'].empty if doc['a'].value else 3",
+    "dotProduct(params.query_vector, 'vec') * 0.5 + _score",
+    "doc['a'].value / 0 + doc['a'].value * 1e40 + doc['a'].value % 0",
+    "(doc['a'].empty + 1) / 2",
+]
+#: 500 parenthesized 60-term products: past K12's shared-memory stage
+LONG_SCRIPT = " + ".join(
+    "(" + " * ".join(["doc['rank'].value"] * 60) + ")" for _ in range(500))
+#: a stack deeper than 32 words
+DEEP_SCRIPT = "+".join(["(doc['a'].value"] * 40) + ")" * 40
+#: a bucket pipeline's per-row names, every kind of per-row value
+PIPELINE_SCRIPT = "log(a) * b + min(b, 2) + (c and a > 0)"
+#: the script fields fetched for config 3s's first batch: an expression
+#: (K12) and a GroovyLite script with a branch (the host, per hit)
+SMOKE_SCRIPT_FIELDS = {
+    "doubled": {"script": "doc['rank'].value * 2"},
+    "branch": {"script": "def r = doc['rank'].value; "
+                         "if (r > 50) { return 'hi' } else { return r * 2 }"}}
+PERC_SCRIPT_REGS = 1000
+PERC_SCRIPT_SOURCE = "_score * params.k + doc['rank'].value / 100"
+PERC_SCRIPT_K = 2.0
+
+
+def script_args(torch, prog, inputs, b, n):
+    """K12's arguments for ``prog`` over the first ``n`` rows of the
+    phase's inputs and its first ``b`` queries."""
+    dev = inputs["score"].device
+    cols = [(inputs[f][0][:n].contiguous(), inputs[f][1][:n].contiguous())
+            for f in prog.columns]
+    prods = []
+    for cosine, _, _ in prog.products:
+        q = inputs["qv"][:b]
+        if cosine:
+            q = q / torch.sqrt((q * q).sum(dim=-1, keepdim=True) + 1e-12)
+        prods.append((torch.matmul(q, inputs["vecs"][:n].T).contiguous(),
+                      inputs["vexists"][:n].contiguous()))
+    params = inputs["params"][:b, [["t", "w"].index(k) for k in
+                                   prog.params]].contiguous()
+    return (prog.code, cols, inputs["score"][:b, :n].contiguous(), prods,
+            params, torch.zeros((0, n), dtype=torch.int32, device=dev), b, n)
+
+
+def check_k12(torch, script_ops, args, what) -> None:
+    got = script_ops.script_eval(*args)
+    want = script_ops.script_eval_plain(*args)
+    torch.cuda.synchronize()
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"K12 result type differs from its plain version ({what})")
+    if got.dtype == torch.float32:
+        nan = torch.isnan(want)
+        check(torch.equal(torch.isnan(got), nan) and torch.equal(
+            got[~nan].view(torch.int32), want[~nan].view(torch.int32)),
+            f"K12 is not bit-identical to its plain version ({what})")
+    else:
+        check(torch.equal(got, want),
+              f"K12 differs from its plain version ({what})")
+
+
+def phase_script_kernel(torch, args, data) -> dict:
+    """K12 against its plain version, bit for bit, on segment 0's rows
+    (B = 64 x N = 2^20) for every script of the grammar (the config 3s and
+    4s scripts among them), then at odd shapes with the long and the deep
+    program and a pipeline's per-row values; the config 3s and 4s scripts
+    timed beside the plain version and the bound."""
+    from elasticsearch_tpu_torch.ops import script_ops
+    from elasticsearch_tpu_torch.search import scripts
+    reader = data["reader"]
+    seg = reader.segments[0]
+    dev = reader.device
+    n, b = seg.padded_docs, args.batch
+    rank = seg.numeric["rank"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed + 32)
+    a = rank.hi - 50.0
+    a[:6] = torch.tensor([float("nan"), float("inf"), float("-inf"), -0.0,
+                          0.0, 2.0], device=dev)
+    a_exists = torch.rand(n, generator=gen, device=dev) > 0.2
+    a_exists[:6] = True
+    vcol = reader.fetch_vectors(seg, "vec", "f32")
+    inputs = {
+        "a": (a, a_exists), "rank": (rank.hi, rank.exists),
+        "score": torch.rand((b, n), generator=gen, device=dev) * 12.0,
+        "vecs": vcol.vecs, "vexists": vcol.exists,
+        "qv": torch.from_numpy(data["qv4"][:b]).to(dev),
+        "params": torch.stack([10.0 + torch.arange(b, device=dev),
+                               torch.full((b,), CONFIG3S_W, device=dev)],
+                              dim=1).float()}
+    sparams = {"t": 10.0, "w": CONFIG3S_W, "query_vector": [0.0] * VEC_DIMS}
+    every = {v for k, v in vars(script_ops).items()
+             if k.isupper() and isinstance(v, int)}
+    seen = set()
+    for source in SCRIPT_GRAMMAR:
+        prog = scripts.compile_script(source).lower("query", sparams)
+        seen |= {int(o) for o in prog.code.ops[:, 0]}
+        for bb, nn in ((b, n), (1, min(n, 1001)), (3, min(n, 100_003))):
+            check_k12(torch, script_ops, script_args(torch, prog, inputs,
+                                                     bb, nn),
+                      f"{source[:40]!r} at B={bb}, N={nn}")
+    for source, bb, nn in ((LONG_SCRIPT, 3, 4099), (DEEP_SCRIPT, b, 4099)):
+        prog = scripts.compile_script(source).lower("query", sparams)
+        check_k12(torch, script_ops, script_args(torch, prog, inputs, bb,
+                                                 nn),
+                  f"{len(prog.code.ops)} ops, depth {prog.code.depth}")
+    prog = scripts.compile_script(PIPELINE_SCRIPT).lower(
+        "pipeline", {}, {"a": 2.0, "b": 3, "c": True})
+    seen |= {int(o) for o in prog.code.ops[:, 0]}
+    rows = [{"a": 0.5 + i, "b": i - 3, "c": bool(i % 2)} for i in range(1001)]
+    check_k12(torch, script_ops, (prog.code, [], None, [], None, torch.from_numpy(
+        prog.row_words(rows)).to(dev), 1, len(rows)), "a pipeline's rows")
+    check(seen >= every, f"the grammar misses opcodes {sorted(every - seen)}")
+    log(f"K12 script_eval: {len(SCRIPT_GRAMMAR)} scripts (every opcode) "
+        f"bit-identical to plain (NaN as NaN, -0.0 kept) at B={b} x N={n} "
+        f"(segment 0), B=1 x N=1001 and B=3 x N=100003; a "
+        f"{len(scripts.compile_script(LONG_SCRIPT).lower('query', sparams).code.ops)}"
+        f"-op program (past the shared-memory stage) and a depth-"
+        f"{scripts.compile_script(DEEP_SCRIPT).lower('query', sparams).code.depth}"
+        f" one (the 1024-word stack), and a pipeline's per-row values, "
+        f"bit-identical too")
+    out = {}
+    for label, source in (("3s", CONFIG3S_SCRIPT), ("4s", CONFIG4S_SCRIPT)):
+        prog = scripts.compile_script(source).lower("query", sparams)
+        k12_args = script_args(torch, prog, inputs, b, n)
+        ms = timed(torch, f"K12 config {label}", lambda: script_ops.
+                   script_eval(*k12_args), reps=20)
+        plain_ms = timed(torch, f"K12 plain config {label}", lambda:
+                         script_ops.script_eval_plain(*k12_args), reps=2)
+        nbytes_ = script_ops.script_eval_bytes(prog.code, b, n)
+        # every op that is not a load is one operation a (query, row)
+        b_ms, b_by = bound(nbytes_, int((prog.code.ops[:, 0] >= script_ops.
+                                         B2I).sum()) * b * n)
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "bytes": nbytes_,
+                      "ops": len(prog.code.ops)}
+        log(f"K12 script_eval config {label} [{source!r}, {len(prog.code.ops)} "
+            f"ops, B={b}, N={n}]: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({b_by}: {nbytes_} B) library_ms=null")
+    ptxas = [line.strip() for line in BUILD_LOGS.get("script_eval.cu", "")
+             .splitlines() if "registers" in line or "spill" in line]
+    main = out["3s"]
+    return {"name": "script_eval", "route": "cuda", "source": K12_SOURCE,
+            "replaces": K12_REPLACES, "launches": 0, "max_abs_err": 0.0,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None,
+            "library_null": "no single torch call evaluates an expression "
+                            "tree",
+            "shape": {"B": b, "N": n, "script": CONFIG3S_SCRIPT},
+            "config_4s": out["4s"], "ptxas": ptxas}
+
+
+def config3s_bodies(args, data) -> list[dict]:
+    """BASELINE config 3 in its script form: config 3's function_score with
+    the gauss decay and a script_score (lang-expression) under score_mode
+    and boost_mode multiply."""
+    functions = [{"field_value_factor": {"field": "rank",
+                                         "modifier": "log1p",
+                                         "factor": 1.0}},
+                 {"gauss": {"rank": {"origin": 50, "scale": 20}}},
+                 {"script_score": {"script": {
+                     "source": CONFIG3S_SCRIPT,
+                     "params": {"w": CONFIG3S_W}}}}]
+    return [{"query": {"function_score": {
+        "query": {"match": {"body": t}}, "functions": functions,
+        "score_mode": "multiply", "boost_mode": "multiply"}},
+        "size": args.k}
+        for t in data["texts"][:args.cfg_batches * args.batch]]
+
+
+def config4s_bodies(qvs) -> list[dict]:
+    """BASELINE config 4 in its script form: script_score over match_all
+    with cosineSimilarity + 1.0, size 100."""
+    return [{"query": {"script_score": {
+        "query": {"match_all": {}},
+        "script": {"source": CONFIG4S_SCRIPT,
+                   "params": {"query_vector": v.tolist()}}}},
+        "size": KNN_K} for v in qvs]
+
+
+def phase_config3s(torch, args, data, name, smi_line) -> dict:
+    batches = batches_of(args, config3s_bodies(args, data))
+    results, per_batch, wall, launches, peak = drive(
+        torch, data["searcher"], batches)
+    stats = report("config 3s (function_score with script_score)", args,
+                   data, batches, per_batch, wall, launches, peak, name,
+                   smi_line, ("bm25_scan", "script_eval", "stable_topk"))
+    nq = CHECK_QUERIES
+    t0 = time.perf_counter()
+    bm25 = cpu_scores(data["uterms"], data["utf"], data["lens"], data["df"],
+                      data["qtids"][:nq])
+    rank = data["rank"]
+    sigma2 = -(20.0 ** 2) / (2.0 * np.log(0.5))
+    factor = np.log10(rank + 1.0) * np.exp(
+        -np.maximum(np.abs(rank - 50.0), 0.0) ** 2 / (2.0 * sigma2)) * (
+        np.log(2.0 + rank) * CONFIG3S_W)
+    recall = check_vs_cpu("config 3s", args, results[0][:nq],
+                          [s * factor for s in bm25], [s > 0 for s in bm25],
+                          gid_to_orig(data["reader"]))
+    log(f"config 3s: first {nq} queries vs independent float64 CPU scoring "
+        f"({time.perf_counter() - t0:.1f} s): totals exact, scores within "
+        f"1e-5, tie-tolerant recall@{args.k} = {recall}")
+    stats["first_batch"] = (batches[0], results[0])
+    return stats
+
+
+def phase_config4s(torch, args, data, name, smi_line) -> dict:
+    check(not torch.backends.cuda.matmul.allow_tf32 and
+          torch.get_float32_matmul_precision() == "highest",
+          "TF32 is on for float32 matrix products")
+    batches = batches_of(args, config4s_bodies(data["qv4"]))
+    results, per_batch, wall, launches, peak = drive(
+        torch, data["searcher"], batches)
+    stats = report("config 4s (script_score cosineSimilarity)", args, data,
+                   batches, per_batch, wall, launches, peak, name, smi_line,
+                   ("script_eval", "stable_topk"))
+    nq = CHECK_QUERIES
+    t0 = time.perf_counter()
+    reader = data["reader"]
+    cos = data.pop("cos4")      # config 4's float64 cosines of these queries
+    everyone = [np.ones(len(data["lens"]), bool)] * nq
+    recall = check_vs_cpu("config 4s", args, results[0][:nq],
+                          [c + 1.0 for c in cos], everyone,
+                          gid_to_orig(reader), k=KNN_K, rtol=0,
+                          tie_tol=1e-5)
+    log(f"config 4s: first {nq} queries vs float64 cosines + 1.0 "
+        f"({time.perf_counter() - t0:.1f} s): totals {len(data['lens'])}, "
+        f"scores within 1e-5, tie-tolerant recall@{KNN_K} = {recall}")
+    return stats
+
+
+def reset_launches():
+    counters = path_kernels()
+    for kern in counters.values():
+        kern.launches = 0
+    return counters
+
+
+def read_launches(counters) -> dict:
+    return {name: kern.launches for name, kern in counters.items()}
+
+
+def phase_script_fields(torch, args, data, stats3s) -> dict:
+    """The top 10 hits of each request of config 3s's first batch fetched
+    with an expression script field (K12, once a segment and script) and a
+    GroovyLite one with a branch (the host, per hit), against the host's
+    rank values."""
+    searcher = data["searcher"]
+    batch, results = stats3s.pop("first_batch")
+    orig_of = gid_to_orig(data["reader"])
+    torch.cuda.synchronize()
+    counters = reset_launches()
+    t0 = time.perf_counter()
+    fetched = []
+    for req, res in zip(batch, results):
+        sreq = dataclasses.replace(req, script_fields=SMOKE_SCRIPT_FIELDS)
+        fetched.append((res, searcher.fetch_phase(
+            sreq, res, "msmarco", list(range(min(10, len(res.doc_ids)))))))
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches(counters)
+    check(launches["script_eval"] > 0, "script_fields launched no K12")
+    n_hits = n_hi = 0
+    for res, hits in fetched:
+        for pos, hit in enumerate(hits):
+            r64 = float(data["rank"][orig_of[int(res.doc_ids[pos])]])
+            check(hit["fields"]["doubled"] == [float(np.float32(r64)) * 2],
+                  f"script field doubled of hit {hit['_id']}: "
+                  f"{hit['fields']['doubled']}, rank {r64}")
+            want = "hi" if r64 > 50 else r64 * 2
+            check(hit["fields"]["branch"] == [want],
+                  f"script field branch of hit {hit['_id']}: "
+                  f"{hit['fields']['branch']}, rank {r64}")
+            n_hits += 1
+            n_hi += want == "hi"
+    log(f"script_fields: the top 10 hits of config 3s's first batch "
+        f"({len(batch)} requests, {n_hits} hits, {n_hi} on the 'hi' branch) "
+        f"with an expression field (K12) and a GroovyLite field, equal to "
+        f"the host's values, in {ms:.1f} ms; launches {launches}")
+    return {"launches": launches, "ms": ms}
+
+
+def phase_script_aggs(torch, args, data, c5) -> dict:
+    """One request through config 5's 8 shards and merge_responses: a terms
+    agg over cat with an avg of rank, a bucket_script and a bucket_selector
+    (one K12 launch over the buckets each), and a scripted_metric with an
+    expression map script (K12 a segment); against numpy."""
+    from elasticsearch_tpu_torch.search.phase import parse_search_request
+    matched = [m for _, m in c5["cpu"][0]]
+    counts = np.zeros(len(C5_CATS), np.int64)
+    for sh, m in zip(c5["shards"], matched):
+        counts += np.bincount(c5["cat"][sh["lo"] + np.nonzero(m)[0]],
+                              minlength=len(C5_CATS))
+    thresh = float(np.sqrt(np.median(counts[counts > 0])))
+    body = {"query": {"match": {"body": data["texts"][0]}}, "size": 10,
+            "aggs": {
+                "by_cat": {"terms": {"field": "cat", "size": len(C5_CATS)},
+                           "aggs": {
+                    "avg_rank": {"avg": {"field": "rank"}},
+                    "lg": {"bucket_script": {
+                        "buckets_path": {"a": "avg_rank", "c": "_count"},
+                        "script": "log(a + 1) * c"}},
+                    "keep": {"bucket_selector": {
+                        "buckets_path": {"c": "_count"},
+                        "script": f"sqrt(c) > {thresh!r}"}}}},
+                "sm": {"scripted_metric": {
+                    "map_script": "doc['rank'].value * 2"}}}}
+    req = parse_search_request(body)
+    torch.cuda.synchronize()
+    counters = reset_launches()
+    t0 = time.perf_counter()
+    (resp,), _ = c5_batch(c5, [req])
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches(counters)
+    check(launches["script_eval"] > 0, "the script aggs launched no K12")
+    aggs = resp["aggregations"]
+    sums = np.zeros(len(C5_CATS))
+    sm_vals = []
+    for sh, m in zip(c5["shards"], matched):
+        rows = sh["lo"] + np.nonzero(m)[0]
+        np.add.at(sums, c5["cat"][rows], c5["rank"][rows])
+        sm_vals.extend((c5["rank_hi"][rows].astype(np.float64) * 2).tolist())
+    kept = [i for i in range(len(C5_CATS)) if counts[i] and
+            np.sqrt(np.float32(counts[i])) > np.float32(thresh)]
+    kept.sort(key=lambda i: (-counts[i], C5_CATS[i]))
+    got = aggs["by_cat"]["buckets"]
+    check([(b["key"], b["doc_count"]) for b in got] ==
+          [(C5_CATS[i], int(counts[i])) for i in kept],
+          "script aggs: the selector kept other buckets than numpy")
+    check(0 < len(kept) < int((counts > 0).sum()),
+          "script aggs: the selector kept every bucket or none")
+    for bk, i in zip(got, kept):
+        avg = sums[i] / counts[i]
+        check(abs(bk["avg_rank"]["value"] - avg) <= 1e-9 * abs(avg),
+              f"script aggs: avg of {bk['key']} {bk['avg_rank']['value']} vs "
+              f"{avg}")
+        want = float(np.log(np.float32(avg + 1))) * counts[i]
+        check(abs(bk["lg"]["value"] - want) <= 1e-6 * abs(want),
+              f"script aggs: bucket_script of {bk['key']} "
+              f"{bk['lg']['value']} vs {want}")
+    want_sm = float(np.sum(sm_vals))
+    check(abs(aggs["sm"]["value"] - want_sm) <= 1e-12 * abs(want_sm),
+          f"script aggs: scripted_metric {aggs['sm']['value']} vs {want_sm}")
+    log(f"script aggs (8 shards, one request): terms over cat with avg, "
+        f"bucket_script log(a + 1) * c and bucket_selector sqrt(c) > "
+        f"{thresh:.3f} ({len(kept)} of {int((counts > 0).sum())} buckets "
+        f"kept), scripted_metric over {len(sm_vals)} matches, against numpy "
+        f"(avg 1e-9, bucket_script 1e-6, scripted_metric 1e-12) in "
+        f"{ms:.1f} ms; launches {launches}")
+    return {"launches": launches, "ms": ms}
+
+
+def perc_script_registry(n: int):
+    """bench.py's reg_body thirds with every tenth registration a
+    function_score whose script_score reads _score, a param and rank."""
+    prng = np.random.default_rng([77, 37])
+    pv = PERC_VOCAB
+    regs = {}
+    for i in range(n):
+        w = pv[int(prng.integers(0, len(pv)))]
+        match = {"match": {"body": f"{w} {pv[(i * 7) % len(pv)]}"}}
+        if i % 10 == 9:
+            qq = {"function_score": {"query": match, "functions": [
+                {"script_score": {"script": {
+                    "source": PERC_SCRIPT_SOURCE,
+                    "params": {"k": PERC_SCRIPT_K}}}}]}}
+        elif i % 3 == 0:
+            qq = match
+        elif i % 3 == 1:
+            qq = {"term": {"cat": w}}
+        else:
+            qq = {"range": {"rank": {"gte": int(prng.integers(0, 90))}}}
+        regs[f"q{i}"] = {"query": qq, "group": f"g{i % 8}"}
+    return regs
+
+
+def perc_script_oracle(regs, doc) -> dict:
+    """perc_oracle with the script registrations: the match's BM25 times
+    (BM25 · k + rank / 100), in float64."""
+    plain = {q: r for q, r in regs.items()
+             if "function_score" not in r["query"]}
+    out = perc_oracle(plain, doc)
+    for qid, reg in regs.items():
+        fs = reg["query"].get("function_score")
+        if fs is None:
+            continue
+        base = perc_oracle({qid: {"query": fs["query"]}}, doc).get(qid)
+        if base is not None:
+            out[qid] = base * (base * PERC_SCRIPT_K + doc["rank"] / 100.0)
+    return out
+
+
+def phase_percolate_scripts(torch, args, data, name, smi_line) -> dict:
+    """A 1,000-registration registry, a tenth of it function_score with a
+    script_score (the shape-fallback lane: a K12 launch each), through a
+    percolate per probe and one percolate_many of bench.py's 12 probes;
+    every registration's flag and score against a float64 recompute."""
+    from elasticsearch_tpu_torch.search import percolator
+    dev = data["reader"].device
+    pdocs, _ = perc_bench_registry()
+    regs = perc_script_registry(PERC_SCRIPT_REGS)
+    meta = perc_meta("smoke_perc_script", PERC_MAPPINGS, regs)
+    t0 = time.perf_counter()
+    percolator.registry_for(meta, dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    stats = {"launches": {k: 0 for k in path_kernels()}}
+    recs, outs = [], []
+    for pi, d in enumerate(pdocs):
+        out, rec = perc_call(torch, lambda d=d: percolator.percolate(
+            meta, d, score=True, device=dev))
+        for k_, v in rec["launches"].items():
+            stats["launches"][k_] += v
+        check_perc_oracle(f"percolate scripts probe {pi}", out,
+                          perc_script_oracle(regs, d))
+        recs.append(rec)
+        outs.append(out)
+    many, mrec = perc_call(torch, lambda: percolator.percolate_many(
+        meta, [{"doc": d, "score": True} for d in pdocs], device=dev))
+    for k_, v in mrec["launches"].items():
+        stats["launches"][k_] += v
+    check(many == outs, "percolate_many with scripts: an item differs from "
+          "its own percolate call")
+    n_script = sum(1 for o in outs for m in o["matches"]
+                   if "function_score" in regs[m["_id"]]["query"])
+    check(n_script > 0 and stats["launches"]["script_eval"] > 0,
+          "no script registration matched a probe, or K12 never launched")
+    walls = [r["wall_ms"] for r in recs]
+    p50 = statistics.median(walls)
+    mid = sorted(recs, key=lambda r: r["wall_ms"])[len(recs) // 2]
+    log(f"percolate scripts ({PERC_SCRIPT_REGS} registrations, a tenth with "
+        f"a script_score; built in {build_ms:.1f} ms): p50 {p50:.3f} ms a "
+        f"call; the p50 call: {perc_line(mid)}; {n_script} script matches "
+        f"over the 12 probes, every registration's flag exact and score "
+        f"within 1e-5 of float64; percolate_many of the 12: "
+        f"{perc_line(mrec)} — on {name} ({smi_line})")
+    stats.update(p50_ms=p50, many_ms=mrec["wall_ms"])
+    return stats
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1 << 21,
@@ -4169,6 +4688,31 @@ def main(argv=None) -> int:
                 cfg: st["launches"][kern["name"]]
                 for cfg, st in by_config.items()}
         phase_percolate_profile(torch, data, stats_p)
+        # scripts
+        k12 = phase_script_kernel(torch, args, data)
+        kernels.append(k12)
+        stats3s = phase_config3s(torch, args, data, name, smi_line)
+        stats4s = phase_config4s(torch, args, data, name, smi_line)
+        stats_sf = phase_script_fields(torch, args, data, stats3s)
+        stats_sa = phase_script_aggs(torch, args, data, c5)
+        stats_ps = phase_percolate_scripts(torch, args, data, name, smi_line)
+        script_paths = {"3s": stats3s, "4s": stats4s,
+                        "script-fields": stats_sf, "script-aggs": stats_sa,
+                        "percolate-scripts": stats_ps}
+        for cfg, st in script_paths.items():
+            check(st["launches"]["script_eval"] > 0,
+                  f"{cfg}: K12 was not launched on its path")
+        by_config.update(script_paths)
+        for kern in kernels:
+            kern["launches_by_config"] = {
+                cfg: st["launches"][kern["name"]]
+                for cfg, st in by_config.items()}
+        k12["launches"] = sum(st["launches"]["script_eval"]
+                              for st in script_paths.values())
+        phase_profile(torch, args, data, "config 3s",
+                      config3s_bodies(args, data))
+        phase_profile(torch, args, data, "config 4s",
+                      config4s_bodies(data["qv4"][:args.batch]))
     except Exception as e:                  # noqa: BLE001 — report, then fail
         traceback.print_exc()
         print(f"[chip_smoke] FAILED: {type(e).__name__}: {e}",

@@ -23,13 +23,21 @@ reduce tree the coordinator applies across shards.
 Served: terms, significant_terms, histogram, date_histogram (fixed and
 calendar intervals), range, date_range, filter, filters, global, missing,
 sampler (bucket); min / max / sum / avg / stats / extended_stats /
-value_count / cardinality / percentiles / percentile_ranks / top_hits
-(metrics); avg_bucket / max_bucket / min_bucket / sum_bucket /
-cumulative_sum / derivative / moving_avg / serial_diff (pipeline). Refused
-at parse time with :class:`NotPortedError` until the module each needs is
-ported: scripted_metric, bucket_script and bucket_selector (scripts); the
-geo aggregations (geo columns); nested, reverse_nested and children (the
-nested and join queries); a top_hits asking for highlight or script fields.
+value_count / cardinality / percentiles / percentile_ranks / top_hits /
+scripted_metric (metrics); avg_bucket / max_bucket / min_bucket /
+sum_bucket / cumulative_sum / derivative / moving_avg / serial_diff /
+bucket_script / bucket_selector (pipeline). A scripted_metric whose map
+script is an expression runs it through kernel K12 over each segment's
+matching rows; one with init / combine / reduce scripts, or a map script the
+expression grammar cannot take, runs GroovyLite per doc on the host, as in
+the JAX package. bucket_script and bucket_selector evaluate their
+expression over every bucket of the pipeline in one K12 launch on the
+request's device (``reduce_aggs(..., device=)``), the Python arithmetic of
+each bucket's values on the host first. A top_hits takes ``highlight`` and
+``script_fields`` and renders neither, as the JAX package's collector does.
+Refused at parse time with :class:`NotPortedError` until the module each
+needs is ported: the geo aggregations (geo columns); nested,
+reverse_nested and children (the nested and join queries).
 """
 
 from __future__ import annotations
@@ -94,7 +102,7 @@ def parse_aggs(body: dict | None) -> list[AggNode]:
             atype, params = key, val
         if atype is None:
             raise QueryParsingError(f"aggregation [{name}] missing type")
-        _refuse_not_ported(name, atype, params or {})
+        _refuse_not_ported(name, atype)
         node = AggNode(name=name, type=atype, params=params or {})
         for sub in parse_aggs(sub_specs):
             (node.pipelines if sub.type in PIPELINE_AGGS else node.subs).append(sub)
@@ -106,21 +114,16 @@ def parse_aggs(body: dict | None) -> list[AggNode]:
 
 #: aggregation type → the module it waits for
 _NOT_PORTED = {
-    "scripted_metric": "scripts", "bucket_script": "scripts",
-    "bucket_selector": "scripts", "geohash_grid": "geo columns",
-    "geo_distance": "geo columns", "geo_bounds": "geo columns",
-    "geo_centroid": "geo columns", "nested": "the nested queries",
-    "reverse_nested": "the nested queries", "children": "the join queries"}
+    "geohash_grid": "geo columns", "geo_distance": "geo columns",
+    "geo_bounds": "geo columns", "geo_centroid": "geo columns",
+    "nested": "the nested queries", "reverse_nested": "the nested queries",
+    "children": "the join queries"}
 
 
-def _refuse_not_ported(name: str, atype: str, params) -> None:
+def _refuse_not_ported(name: str, atype: str) -> None:
     if atype in _NOT_PORTED:
         raise NotPortedError(f"aggregation [{name}]: [{atype}] is not ported "
                              f"yet (it needs {_NOT_PORTED[atype]})")
-    if atype == "top_hits" and isinstance(params, dict) and (
-            params.get("highlight") or params.get("script_fields")):
-        raise NotPortedError(f"aggregation [{name}]: [top_hits] with "
-                             f"highlight or script_fields is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -779,7 +782,178 @@ def _c_percentile_ranks(node, mask, ctx):
 
 
 
+class _AggDocValues:
+    """`doc` binding for interpreted scripts (scripted_metric, script
+    fields): doc['f'].value over one host segment's numeric / keyword
+    columns, one doc at a time."""
+
+    def __init__(self, seg):
+        self.seg = seg
+        self.doc = 0
+
+    def __scriptlang_getitem__(self, field):
+        return _AggFieldValue(self, field)
+
+    __getitem__ = __scriptlang_getitem__
+
+
+class _AggFieldValue:
+    def __init__(self, owner: _AggDocValues, field: str):
+        self.owner = owner
+        self.field = field
+
+    def _keyword_col(self):
+        seg = self.owner.seg
+        # analyzed strings expose doc values through their .keyword
+        # subfield (the columnar analog of fielddata on text)
+        return seg.keyword_fields.get(self.field) or \
+            seg.keyword_fields.get(self.field + ".keyword")
+
+    def _values(self) -> list:
+        seg, i = self.owner.seg, self.owner.doc
+        num = seg.numeric_fields.get(self.field)
+        if num is not None:
+            return [float(num.values[i])] if num.exists[i] else []
+        kw = self._keyword_col()
+        if kw is not None:
+            return [kw.vocab[o] for o in kw.ords[i] if o >= 0]
+        return []
+
+    def __scriptlang_getattr__(self, name: str):
+        vals = self._values()
+        if name == "value":
+            return vals[0] if vals else (
+                "" if self._keyword_col() is not None else 0.0)
+        if name == "values":
+            return vals
+        if name == "empty":
+            return not vals
+        from elasticsearch_tpu_torch.search.scriptlang import ScriptException
+        raise ScriptException(f"no doc-value property [{name}]")
+
+    def __scriptlang_method__(self, name: str, args):
+        if name == "size":
+            return len(self._values())
+        if name == "isEmpty":
+            return not self._values()
+        if name == "getValue":
+            return self.__scriptlang_getattr__("value")
+        from elasticsearch_tpu_torch.search.scriptlang import ScriptException
+        raise ScriptException(f"no doc-value method [{name}]")
+
+    @property
+    def value(self):
+        return self.__scriptlang_getattr__("value")
+
+    @property
+    def values(self):
+        return self.__scriptlang_getattr__("values")
+
+    @property
+    def empty(self):
+        return self.__scriptlang_getattr__("empty")
+
+
+def _wire_safe(obj):
+    """Agg partials made transport-serializable (sets → lists, numpy →
+    python) without changing what reduce_aggs consumes (the JAX package's
+    ``search_action.wire_safe``)."""
+    if isinstance(obj, dict):
+        return {k: _wire_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (set, frozenset)):
+        return sorted(str(x) for x in obj)
+    if isinstance(obj, (list, tuple)):
+        return [_wire_safe(v) for v in obj]
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if isinstance(obj, np.generic):
+        return obj.item()
+    return obj
+
+
+def _c_scripted_metric_interpreted(node, mask, ctx):
+    """Full scripted_metric contract (ref: metrics/scripted/
+    ScriptedMetricAggregator): init_script seeds `_agg`, map_script runs
+    per matching doc with `doc` values, combine_script folds the shard
+    state, reduce_script (reduce side) folds `_aggs`. Interpreted by
+    GroovyLite on the host."""
+    from elasticsearch_tpu_torch.search.script_engines import resolve_engine
+    compile_fn = resolve_engine(node.params.get("lang"))
+    params = dict(node.params.get("params", {}))
+    agg: dict = {}
+    bindings = {"_agg": agg, "params": params}
+    init = node.params.get("init_script")
+    if init:
+        compile_fn(str(init)).run(dict(bindings))
+    map_script = compile_fn(str(node.params["map_script"]))
+    off = 0
+    for s in ctx.reader.segments:
+        n = s.padded_docs
+        rows = np.nonzero(mask[off:off + n][:s.seg.num_docs])[0]
+        if len(rows):
+            dv = _AggDocValues(s.seg)
+            b = {**bindings, "doc": dv}
+            for r in rows:
+                dv.doc = int(r)
+                map_script.run(dict(b))
+        off += n
+    combine = node.params.get("combine_script")
+    if combine:
+        partial = compile_fn(str(combine)).run(dict(bindings))
+    else:
+        partial = agg
+    return {"partial": _wire_safe(partial), "interpreted": True}
+
+
+def _c_scripted_metric(node, mask, ctx):
+    """scripted_metric (ref: metrics/scripted/): a map script the expression
+    grammar takes runs through K12 over each segment's matching rows (its
+    doc values the segment's f32 columns, as jnp rounds the reference's f64
+    numpy columns); any init/combine/reduce phase — or a map script the
+    grammar cannot compile — goes to the interpreted GroovyLite path."""
+    from elasticsearch_tpu_torch.ops import script_ops
+    from elasticsearch_tpu_torch.search.scripts import (
+        compile_script, slot_columns)
+    map_src = node.params.get("map_script")
+    if map_src is None:
+        raise QueryParsingError(
+            "[scripted_metric] requires a map_script")
+    if any(node.params.get(p) for p in
+           ("init_script", "combine_script", "reduce_script")):
+        return _c_scripted_metric_interpreted(node, mask, ctx)
+    try:
+        script = compile_script(str(map_src))
+    except QueryParsingError:                # not an expression: interpret
+        return _c_scripted_metric_interpreted(node, mask, ctx)
+    prog = None
+    values = []
+    off = 0
+    for s in ctx.reader.segments:
+        n = s.padded_docs
+        rows = np.nonzero(mask[off:off + n][:s.seg.num_docs])[0]
+        off += n
+        if not len(rows):
+            continue
+        if prog is None:
+            prog = script.lower("host", node.params.get("params", {}))
+            if prog.products:
+                raise TypeError("a scripted_metric map script reads no "
+                                "vector field")
+        if prog.code is None:
+            values.extend([float(np.asarray(prog.host.value))] * len(rows))
+            continue
+        dev = s.live.device
+        out = script_ops.script_eval(
+            prog.code, slot_columns(prog, s, torch.from_numpy(rows).to(dev)),
+            None, [], None,
+            torch.zeros((0, len(rows)), dtype=torch.int32, device=dev),
+            1, len(rows))
+        values.extend(float(v) for v in out[0].cpu().tolist())
+    return {"values": values}
+
+
 _COLLECTORS = {
+    "scripted_metric": _c_scripted_metric,
     "min": _c_metric, "max": _c_metric, "sum": _c_metric, "avg": _c_metric,
     "stats": _c_metric, "extended_stats": _c_metric,
     "sampler": _c_sampler, "percentile_ranks": _c_percentile_ranks,
@@ -797,13 +971,17 @@ _COLLECTORS = {
 # reduce phase (coordinator; InternalAggregations.reduce analog)
 # ---------------------------------------------------------------------------
 
-def reduce_aggs(nodes: list[AggNode], partials_per_shard: list[dict]) -> dict:
+def reduce_aggs(nodes: list[AggNode], partials_per_shard: list[dict],
+                device=None) -> dict:
+    """Merge the shards' partials (InternalAggregations.reduce). ``device``
+    is where bucket_script / bucket_selector expressions run (CUDA when
+    None)."""
     out = {}
     siblings = [n for n in nodes if n.type not in PIPELINE_AGGS]
     pipelines = [n for n in nodes if n.type in PIPELINE_AGGS]
     for node in siblings:
         shard_parts = [p[node.name] for p in partials_per_shard if node.name in p]
-        out[node.name] = _reduce_node(node, shard_parts)
+        out[node.name] = _reduce_node(node, shard_parts, device)
     # sibling pipelines (avg/max/min/sum_bucket) consume the reduced output
     # of a multi-bucket sibling via buckets_path "agg>metric"
     for node in pipelines:
@@ -851,7 +1029,7 @@ def _bucket_dict(p: dict) -> dict:
     return dict(b) if isinstance(b, dict) else {k: v for k, v in b}
 
 
-def _merge_buckets(node: AggNode, parts: list[dict]) -> dict:
+def _merge_buckets(node: AggNode, parts: list[dict], device=None) -> dict:
     pdicts = [_bucket_dict(p) for p in parts]
     merged: dict = {}
     for pd in pdicts:
@@ -867,7 +1045,8 @@ def _merge_buckets(node: AggNode, parts: list[dict]) -> dict:
         if b.pop("_parts", None) or node.subs:
             parts_list = [pd[key].get("subs", {})
                           for pd in pdicts if key in pd]
-            b["aggs"] = reduce_aggs(node.subs, [pl for pl in parts_list if pl])
+            b["aggs"] = reduce_aggs(node.subs, [pl for pl in parts_list if pl],
+                                    device)
     return merged
 
 
@@ -923,10 +1102,92 @@ def _moving_avg(values: list, params: dict) -> list:
     return out
 
 
-def _render_pipeline(node: AggNode, buckets: list[dict]) -> None:
+_SKIP = object()
+
+
+def _pipe_values(src: str, rows: list[dict], device) -> list:
+    """bucket_script / bucket_selector: the expression over each bucket's
+    buckets_path values (bound as bare names) → one value a bucket, or
+    ``_SKIP`` where the reference's per-bucket evaluation raises. The Python
+    arithmetic of each bucket's values runs on the host; the rest is one K12
+    launch over every bucket whose values have the same Python kinds."""
+    from elasticsearch_tpu_torch.common.device import resolve_device
+    from elasticsearch_tpu_torch.ops import script_ops
+    from elasticsearch_tpu_torch.search.scripts import compile_script
+    if not rows:                         # the reference compiles nothing
+        return []
+    script = compile_script(str(src))
+    out = [_SKIP] * len(rows)
+    todo = list(range(len(rows)))
+    while todo:
+        rep, todo = todo[0], todo[1:]
+        try:
+            prog = script.lower("pipeline", {}, rows[rep])
+        except QueryParsingError:
+            raise
+        except Exception:                # noqa: BLE001 — bucket skipped
+            continue
+        if prog.code is None:
+            fn = prog.host.fn or (lambda vs, _v=prog.host.value: _v)
+            for i in [rep] + todo:
+                try:
+                    out[i] = fn(rows[i])
+                except Exception:        # noqa: BLE001 — bucket skipped
+                    pass
+            return out
+        kinds = prog.row_kinds(rows[rep])
+        group, rest = [rep], []
+        for i in todo:
+            try:
+                same = prog.row_kinds(rows[i]) == kinds
+                if same:
+                    prog.row_words([rows[i]])
+            except Exception:            # noqa: BLE001 — bucket skipped
+                continue
+            (group if same else rest).append(i)
+        todo = rest
+        dev = resolve_device(device)
+        words = torch.from_numpy(prog.row_words([rows[i] for i in group]))
+        vals = script_ops.script_eval(prog.code, [], None, [], None,
+                                      words.to(dev), 1, len(group))
+        for i, v in zip(group, vals[0].cpu().tolist()):
+            out[i] = v
+    return out
+
+
+def _pipe_script(pipe: AggNode) -> str:
+    script = pipe.params.get("script", "")
+    if isinstance(script, dict):
+        script = script.get("inline", script.get("source", ""))
+    return str(script)
+
+
+def _render_pipeline(node: AggNode, buckets: list[dict], device=None) -> None:
     """Parent pipelines rendered into (or filtering) the buckets of the
     enclosing multi-bucket agg (ref: pipeline/*)."""
     for pipe in node.pipelines:
+        if pipe.type in ("bucket_selector", "bucket_script"):
+            paths = pipe.params.get("buckets_path", {})
+            ready, rows = [], []
+            for b in buckets:
+                variables = {k: _bucket_path_value(b, p)
+                             for k, p in paths.items()}
+                if any(v is None for v in variables.values()):
+                    continue
+                ready.append(b)
+                rows.append(variables)
+            values = _pipe_values(_pipe_script(pipe), rows, device)
+            if pipe.type == "bucket_selector":
+                buckets[:] = [b for b, v in zip(ready, values)
+                              if v is not _SKIP and v]
+                continue
+            for b, v in zip(ready, values):
+                try:
+                    if v is not _SKIP:
+                        b[pipe.name] = {"value": float(v)}
+                except Exception:        # noqa: BLE001 — bucket skipped
+                    continue
+            continue
         if pipe.type not in ("cumulative_sum", "derivative", "moving_avg",
                              "serial_diff"):
             continue
@@ -955,7 +1216,7 @@ def _render_pipeline(node: AggNode, buckets: list[dict]) -> None:
                     b[pipe.name] = {"value": values[i] - values[i - lag]}
 
 
-def _reduce_node(node: AggNode, parts: list[dict]) -> dict:
+def _reduce_node(node: AggNode, parts: list[dict], device=None) -> dict:
     t = node.type
     if t in ("min", "max", "sum", "avg"):
         m = _merge_metric(parts)
@@ -1005,13 +1266,13 @@ def _reduce_node(node: AggNode, parts: list[dict]) -> dict:
         out = {"doc_count": sum(p["doc_count"] for p in parts)}
         sub_parts = [p["subs"] for p in parts if "subs" in p]
         if node.subs:
-            out.update(reduce_aggs(node.subs, sub_parts))
+            out.update(reduce_aggs(node.subs, sub_parts, device))
         return out
     if t == "filters":
-        merged = _merge_buckets(node, parts)
+        merged = _merge_buckets(node, parts, device)
         return {"buckets": {k: _final_bucket(b) for k, b in merged.items()}}
     if t == "terms":
-        merged = _merge_buckets(node, parts)
+        merged = _merge_buckets(node, parts, device)
         size = int(node.params.get("size", 10) or 0) or len(merged)
         order = node.params.get("order", {"_count": "desc"})
         (okey, odir), = order.items() if isinstance(order, dict) else \
@@ -1032,11 +1293,11 @@ def _reduce_node(node: AggNode, parts: list[dict]) -> dict:
                            reverse=rev)
         buckets = [{"key": k, **_final_bucket(b)} for k, b in items[:size]]
         sum_other = sum(b["doc_count"] for _, b in items[size:])
-        _render_pipeline(node, buckets)
+        _render_pipeline(node, buckets, device)
         return {"buckets": buckets, "sum_other_doc_count": sum_other,
                 "doc_count_error_upper_bound": 0}
     if t in ("histogram", "date_histogram"):
-        merged = _merge_buckets(node, parts)
+        merged = _merge_buckets(node, parts, device)
         min_dc = int(node.params.get("min_doc_count",
                                      1 if t == "date_histogram" else 0))
         keys = sorted(merged)
@@ -1046,10 +1307,10 @@ def _reduce_node(node: AggNode, parts: list[dict]) -> dict:
         if fmt and t == "histogram":
             for b in buckets:
                 b["key_as_string"] = _java_decimal_format(b["key"], fmt)
-        _render_pipeline(node, buckets)
+        _render_pipeline(node, buckets, device)
         return {"buckets": buckets}
     if t in ("range", "date_range"):
-        merged = _merge_buckets(node, parts)
+        merged = _merge_buckets(node, parts, device)
         order = parts[0].get("keyed_order", list(merged)) if parts else []
         buckets = [{"key": k, **_final_bucket(merged[k])} for k in order
                    if k in merged]
@@ -1060,7 +1321,7 @@ def _reduce_node(node: AggNode, parts: list[dict]) -> dict:
         if node.subs:
             sub_parts = [p["subs"] for p in parts if "subs" in p]
             if sub_parts:
-                out.update(reduce_aggs(node.subs, sub_parts))
+                out.update(reduce_aggs(node.subs, sub_parts, device))
         return out
     if t == "percentile_ranks":
         allv = np.concatenate([np.asarray(p["values"], np.float64)
@@ -1073,6 +1334,26 @@ def _reduce_node(node: AggNode, parts: list[dict]) -> dict:
                 float(100.0 * (allv <= w).sum() / allv.size)
                 if allv.size else None)
         return {"values": vals}
+    if t == "scripted_metric":
+        if any(p.get("interpreted") for p in parts):
+            # full contract: reduce_script folds the per-shard partials
+            # (`_aggs`); without one the partials list IS the value
+            # (ScriptedMetricAggregator doReduce)
+            from elasticsearch_tpu_torch.search.script_engines import (
+                resolve_engine)
+            compile_fn = resolve_engine(node.params.get("lang"))
+            aggs_list = [p.get("partial") for p in parts]
+            reduce_src = node.params.get("reduce_script")
+            if reduce_src:
+                value = compile_fn(str(reduce_src)).run(
+                    {"_aggs": aggs_list,
+                     "params": dict(node.params.get("params", {}))})
+            else:
+                value = aggs_list
+            return {"value": value}
+        allv = [v for p in parts for v in p.get("values", [])]
+        # expression path reduces by summing map values
+        return {"value": float(np.sum(allv)) if allv else 0.0}
     if t == "significant_terms":
         fg_total = sum(p.get("fg_total", 0) for p in parts)
         bg_total = sum(p.get("bg_total", 0) for p in parts)
@@ -1105,7 +1386,7 @@ def _reduce_node(node: AggNode, parts: list[dict]) -> dict:
             bucket = {"key": k, "doc_count": b["doc_count"],
                       "score": s, "bg_count": b["bg_count"]}
             if node.subs and k in sub_parts:
-                bucket.update(reduce_aggs(node.subs, sub_parts[k]))
+                bucket.update(reduce_aggs(node.subs, sub_parts[k], device))
             buckets.append(bucket)
         return {"doc_count": fg_total, "buckets": buckets}
     raise QueryParsingError(f"cannot reduce aggregation type [{node.type}]")

@@ -194,5 +194,6 @@ def merge_responses(index_name: str | list, req: ParsedSearchRequest,
         response["terminated_early"] = True
     if agg_nodes:
         response["aggregations"] = reduce_aggs(
-            agg_nodes, [r.agg_partials for r in results])
+            agg_nodes, [r.agg_partials for r in results],
+            device=searchers[0].reader.device if searchers else None)
     return response

@@ -20,12 +20,15 @@ kernel K11 with slop), ``bool``, ``constant_score``, ``term``, ``terms``,
 ``range``, ``exists`` on keyword, numeric, text and dense_vector fields, the
 ``knn`` leaf (cosine over a dense_vector field, the alias of the top-level
 ``knn`` section that ``segment_exec``'s knn lane serves) and
-``function_score`` with weight, random_score, field_value_factor and
-numeric/date decay functions. Every
+``function_score`` with weight, random_score, field_value_factor,
+numeric/date decay and script_score functions, and the ``script_score``
+query (the script lowered by ``search/scripts.py`` and run by kernel K12,
+``ops/script_ops.script_eval``; ``cosineSimilarity`` / ``dotProduct`` one
+``torch.matmul`` a segment). Every
 other query type is refused with ``QueryParsingError("no executor for query
 type [...]")``, as the reference refuses an unknown type, and a feature of a
-served type that is not ported yet (script_score, geo decay) raises
-``NotPortedError`` — never a fallback.
+served type that is not ported yet (geo decay) raises ``NotPortedError`` —
+never a fallback.
 """
 
 from __future__ import annotations
@@ -48,9 +51,11 @@ from elasticsearch_tpu_torch.ops import filters as filter_ops
 from elasticsearch_tpu_torch.ops import functionscore as fs_ops
 from elasticsearch_tpu_torch.ops import lexical
 from elasticsearch_tpu_torch.ops import phrase as phrase_ops
+from elasticsearch_tpu_torch.ops import script_ops
 from elasticsearch_tpu_torch.ops import vector as vector_ops
 from elasticsearch_tpu_torch.ops.similarity import BM25Params, idf as bm25_idf
 from elasticsearch_tpu_torch.search import query_dsl as q
+from elasticsearch_tpu_torch.search.scripts import compile_script, slot_columns
 
 
 class ConstTable:
@@ -773,8 +778,13 @@ class SegmentResolver:
         if fn.kind in ("gauss", "exp", "linear"):
             return self._decay_factor(fn, params)
         if fn.kind == "script_score":
-            raise NotPortedError("the [script_score] function is not ported "
-                                 "yet")
+            script = params.get("script", params)
+            if isinstance(script, dict):
+                src = script.get("source", script.get("inline", ""))
+                sparams = script.get("params", {})
+            else:
+                src, sparams = str(script), {}
+            return self._script_factor(src, sparams)
         raise QueryParsingError(f"unknown score function [{fn.kind}]")
 
     def _decay_factor(self, fn: q.ScoreFunction, params: dict):
@@ -811,6 +821,74 @@ class SegmentResolver:
                                 em.get(r_scale), em.get(r_offset),
                                 em.get(r_decay), kind)
         return factor_emit
+
+    def _feed_script_params(self, params: dict) -> dict:
+        """Numeric script params become per-query f32 constants, list
+        params per-query f32 vectors ``[B, D]``; bools, strings and anything
+        else are structural (in the plan signature, folded into the
+        program). → {key: const ref} for the numeric and list params."""
+        refs = {}
+        for key in sorted(params):
+            v = params[key]
+            if isinstance(v, bool) or isinstance(v, str):
+                self.sig("sparam", key, v)
+            elif isinstance(v, (int, float)):
+                self.sig("sparam", key, "num")
+                refs[key] = self.c(float(v), np.float32)
+            elif isinstance(v, (list, tuple)):
+                self.sig("sparam", key, "vec", len(v))
+                refs[key] = self.c(np.asarray(v, np.float32))
+            else:
+                self.sig("sparam", key, repr(v))
+        return refs
+
+    def _script_factor(self, source: str, params: dict):
+        """→ (em, base_scores) → [B, N] f32 evaluating the sandboxed script:
+        the lowered program through K12, its vector products one matmul a
+        product slot."""
+        self.sig("script", source)
+        refs = self._feed_script_params(params)
+        compiled = compile_script(source)
+        vf = compiled.vector_fields()
+        # a non-literal field argument means "could be any of them"
+        self.ct.vectors_needed.update(
+            self.seg.vector if vf is None else vf)
+        prog = compiled.lower("query", params)
+
+        def factor_emit(em, scores):
+            products = []
+            for cosine, query, fld in prog.products:
+                vcol = em.seg.vector.get(fld)
+                if vcol is None or vcol.vecs is None:
+                    raise QueryParsingError(f"no vector field [{fld}]")
+                qv = em.get(refs[query.key])
+                if cosine:
+                    qv = qv / torch.sqrt((qv * qv).sum(dim=-1, keepdim=True)
+                                         + 1e-12)
+                products.append((torch.matmul(qv, vcol.vecs.T).contiguous(),
+                                 vcol.exists))
+            pvals = torch.stack([em.get(refs[k]) for k in prog.params],
+                                dim=1) if prog.params else None
+            return script_ops.script_eval(
+                prog.code, slot_columns(prog, em.seg),
+                scores.expand(em.batch, em.n).contiguous()
+                if prog.code.uses_score else None,
+                products, pvals,
+                torch.zeros((0, em.n), dtype=torch.int32, device=em.device),
+                em.batch, em.n)
+        return factor_emit
+
+    def _res_ScriptScoreQuery(self, query: q.ScriptScoreQuery) -> Emit:
+        base_emit = self.resolve(query.query or q.MatchAllQuery())
+        factor_emit = self._script_factor(query.script, query.params)
+        r_boost = self.c(query.boost, np.float32)
+
+        def emit(em):
+            base_scores, base_mask = base_emit(em)
+            scores = factor_emit(em, base_scores)
+            return torch.where(base_mask, scores * em.get(r_boost)[:, None],
+                               0.0), base_mask
+        return emit
 
 
 def _no_docs(em) -> torch.Tensor:

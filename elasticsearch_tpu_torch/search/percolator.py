@@ -22,15 +22,15 @@ percolation runs against a scratch one-doc segment on the card.
   ``percolate_many`` — is reduced to per-query (matched, score) pairs by one
   launch of kernel K10 and comes back in one device→host copy
   (``segment_exec.run_percolate_lanes``).
-* **The shape-fallback lane** — a registration with a ``random_score``
-  function runs per query through the eager executor on the card
-  (``_eager_match``), as in the JAX package. This routes shapes by type; it
+* **The shape-fallback lane** — a registration with a ``script_score``
+  query, or a ``script_score`` or ``random_score`` function, runs per query
+  through the eager executor on the card (``_eager_match``; a script is
+  one K12 launch), as in the JAX package. This routes shapes by type; it
   is not a fallback from a device error, which propagates.
 
 A registration the port cannot serve (a query type with no executor yet —
-``has_child``, ``has_parent``, ``script_score``, ``geo_shape`` and the
-other leaves still to port — or an unported feature such as the
-``script_score`` function) raises from ``sync`` with ``NotPortedError``,
+``has_child``, ``has_parent``, ``geo_shape`` and the other leaves still to
+port — or an unported feature) raises from ``sync`` with ``NotPortedError``,
 as the reference's registration raises on a parse error; it is never
 dropped. Not ported: the plane breaker and the device-error rescue of the
 fused lane, and the latency histograms.
@@ -76,11 +76,12 @@ from elasticsearch_tpu_torch.search.query_dsl import parse_query
 # eligibility: which shapes ride the fused lanes
 # ---------------------------------------------------------------------------
 
-#: functions that run per query on the eager lane. The JAX package also
-#: sends script_score functions and the has_child, has_parent,
-#: script_score and geo_shape queries there; the port has no executor for
-#: them yet, so a registration holding one is refused.
-_FALLBACK_FUNCTIONS = ("random_score",)
+#: node types and functions that run per query on the eager lane. The JAX
+#: package also sends the has_child, has_parent and geo_shape queries
+#: there; the port has no executor for them yet, so a registration holding
+#: one is refused.
+_FALLBACK_NODES = (q.ScriptScoreQuery,)
+_FALLBACK_FUNCTIONS = ("script_score", "random_score")
 
 
 def _subqueries(ast):
@@ -103,8 +104,9 @@ def _subqueries(ast):
 
 
 def _needs_fallback(ast) -> bool:
-    return any(isinstance(node, q.FunctionScoreQuery) and any(
-        f.kind in _FALLBACK_FUNCTIONS for f in node.functions)
+    return any(isinstance(node, _FALLBACK_NODES) or (
+        isinstance(node, q.FunctionScoreQuery) and any(
+            f.kind in _FALLBACK_FUNCTIONS for f in node.functions))
         for node in _subqueries(ast))
 
 
@@ -363,7 +365,7 @@ class PercolatorRegistry:
         ctx = ShardAggContext(searcher.reader, searcher._filter_masks_np)
         partials = {n.name: collect(n, mask, ctx) for n in nodes
                     if n.type not in PIPELINE_AGGS}
-        return reduce_aggs(nodes, [partials])
+        return reduce_aggs(nodes, [partials], device=self.device)
 
     # ---- evaluation --------------------------------------------------------
 

@@ -28,9 +28,12 @@ declines a request carrying aggregations, which :meth:`ShardSearcher.
 query_phase` serves one at a time: per segment its masks stay on the card
 and ``search/aggregations`` collects each agg there (kernels K8 and K9) or,
 for the shapes the JAX package keeps on the host, over the host mask. The
-fetch phase highlights (``search/highlight.py``). Field sort, suggest,
-terminate_after, timeout, script fields and a ``rescore`` that the impact
-lane does not admit are refused with :class:`NotPortedError`.
+fetch phase highlights (``search/highlight.py``) and computes script
+fields: an expression once per (segment, script) over the fetched rows
+through kernel K12, any other script per hit on the host (GroovyLite, or the
+engine its ``lang`` names). Field sort, suggest, terminate_after, timeout
+and a ``rescore`` that the impact lane does not admit are refused with
+:class:`NotPortedError`.
 """
 
 from __future__ import annotations
@@ -40,19 +43,25 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
+import torch
 
 from elasticsearch_tpu_torch.common.errors import (
     NotPortedError, QueryParsingError)
 from elasticsearch_tpu_torch.index.device_reader import DeviceReader
+from elasticsearch_tpu_torch.ops import script_ops
 from elasticsearch_tpu_torch.ops import topk as topk_ops
 from elasticsearch_tpu_torch.search import query_dsl as q, segment_exec
 from elasticsearch_tpu_torch.search.aggregations import (
-    PIPELINE_AGGS, AggNode, DeviceAggState, ShardAggContext, collect,
-    collect_device, note_agg_stat, parse_aggs)
+    PIPELINE_AGGS, AggNode, DeviceAggState, ShardAggContext, _AggDocValues,
+    collect, collect_device, note_agg_stat, parse_aggs)
 from elasticsearch_tpu_torch.search.execute import (
     ExecutionContext, impact_terms)
 from elasticsearch_tpu_torch.search.highlight import highlight_hit
 from elasticsearch_tpu_torch.search.query_dsl import parse_query
+from elasticsearch_tpu_torch.search.script_engines import resolve_engine
+from elasticsearch_tpu_torch.search.scriptlang import compile_groovylite
+from elasticsearch_tpu_torch.search.scripts import (
+    compile_script, host_array, slot_columns)
 
 
 @dataclass
@@ -669,8 +678,9 @@ class ShardSearcher:
     def fetch_phase(self, req: ParsedSearchRequest, result: ShardQueryResult,
                     index_name: str, positions: list[int]) -> list[dict]:
         from elasticsearch_tpu_torch.index.engine import _segment_meta
-        if req.script_fields:
-            raise NotPortedError("[script_fields] is not ported yet")
+        script_values = self._script_fields(req.script_fields, result,
+                                            positions) \
+            if req.script_fields else None
         meta_wanted = [f for f in req.stored_fields
                        if f in ("_routing", "_parent", "_timestamp", "_ttl")]
         hits = []
@@ -708,7 +718,9 @@ class ShardSearcher:
                                    req.query)
                 if hl:
                     hit["highlight"] = hl
-            if req.stored_fields or req.docvalue_fields:
+            if script_values is not None:
+                hit["fields"] = script_values[pos]
+            elif req.stored_fields or req.docvalue_fields:
                 fields = {}
                 for f in list(req.stored_fields) + list(
                         req.docvalue_fields):
@@ -727,6 +739,77 @@ class ShardSearcher:
                     hit["fields"] = fields
             hits.append(hit)
         return hits
+
+
+    def _script_fields(self, script_fields: dict, result: ShardQueryResult,
+                       positions: list[int]) -> dict:
+        """→ {position: {name: [value]}} for the fetched hits. An expression
+        runs once per (segment, script) over the segment's fetched rows
+        through K12 (the JAX package evaluates the whole segment once per
+        hit; the values are the same); a script with another ``lang``, or one
+        the expression grammar cannot compile, runs per hit on the host."""
+        out: dict = {pos: {} for pos in positions}
+        by_seg: dict = {}
+        for pos in positions:
+            seg, local = self.reader.resolve(int(result.doc_ids[pos]))
+            by_seg.setdefault(id(seg), (seg, []))[1].append((pos, local))
+        for name, spec in script_fields.items():
+            script = spec.get("script", spec)
+            lang = None
+            if isinstance(script, dict):
+                src = script.get("source", script.get("inline", ""))
+                params = script.get("params", {})
+                lang = script.get("lang")
+            else:
+                src, params = str(script), {}
+            compiled, compile_fn = None, None
+            if lang not in (None, "expression"):
+                compile_fn = resolve_engine(lang)
+            else:
+                try:
+                    compiled = compile_script(src)
+                except QueryParsingError:
+                    compile_fn = compile_groovylite
+            for seg, hits in by_seg.values():
+                if compile_fn is not None:
+                    run = compile_fn(src)
+                    dv = _AggDocValues(seg.seg)
+                    for pos, local in hits:
+                        dv.doc = int(local)
+                        val = run.run({"doc": dv, "params": params})
+                        out[pos][name] = val if isinstance(val, list) \
+                            else [val]
+                    continue
+                prog = compiled.lower("host", params)
+                if prog.code is None:
+                    val = float(host_array(prog.host.value))
+                    for pos, _ in hits:
+                        out[pos][name] = [val]
+                    continue
+                vals = self._eval_rows(prog, seg, [l for _, l in hits])
+                for (pos, _), v in zip(hits, vals):
+                    out[pos][name] = [float(v)]
+        return out
+
+    def _eval_rows(self, prog, seg, rows: list[int]) -> list:
+        """One K12 launch of ``prog`` over ``rows`` of ``seg``."""
+        dev = self.reader.device
+        idx = torch.tensor(rows, dtype=torch.int64, device=dev)
+        n = len(rows)
+        products = []
+        for cosine, query, fld in prog.products:
+            vcol = self.reader.fetch_vectors(seg, fld, "f32")
+            if vcol is None:
+                raise QueryParsingError(f"no vector field [{fld}]")
+            qv = torch.tensor(query, dtype=torch.float32, device=dev)
+            if cosine:
+                qv = qv / torch.sqrt((qv * qv).sum() + 1e-12)
+            products.append((torch.matmul(vcol.vecs[idx], qv)[None, :]
+                             .contiguous(), vcol.exists[idx]))
+        out = script_ops.script_eval(
+            prog.code, slot_columns(prog, seg, idx), None, products, None,
+            torch.zeros((0, n), dtype=torch.int32, device=dev), 1, n)
+        return out[0].cpu().tolist()
 
 
 def _filter_source(src: dict, spec) -> dict | None:

@@ -804,7 +804,13 @@ def parse_query(body: dict | None) -> Query:  # noqa: C901 — one arm per query
     if qtype == "template":
         # template QUERY (ref: core/index/query/TemplateQueryParser.java):
         # render the mustache body to a query dict, then parse it
-        raise NotPortedError("the [template] query is not ported yet")
+        from elasticsearch_tpu_torch.search.templates import (
+            render_search_template)
+        spec = dict(qbody)
+        if "query" in spec and "inline" not in spec and "source" not in spec:
+            spec["template"] = spec.pop("query")
+        rendered = render_search_template(spec, lambda _i: None)
+        return parse_query(rendered)
 
     if qtype == "has_child":
         if "type" not in qbody or "query" not in qbody:

@@ -484,7 +484,8 @@ def test_filter_mask_matches_jax(shard, spec):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("spec", [
-    {"scripted_metric": {"map_script": "_agg.x = 1"}},
+    {"geohash_grid": {"field": "loc", "precision": 3}, "aggs": {
+        "c": {"geo_centroid": {"field": "loc"}}}},
     {"geohash_grid": {"field": "loc"}},
     {"geo_distance": {"field": "loc", "origin": "0,0", "ranges": []}},
     {"geo_bounds": {"field": "loc"}},
@@ -492,11 +493,11 @@ def test_filter_mask_matches_jax(shard, spec):
     {"nested": {"path": "n"}},
     {"reverse_nested": {}},
     {"children": {"type": "c"}},
-    {"top_hits": {"highlight": {"fields": {"t": {}}}}},
-    {"terms": {"field": "tag"}, "aggs": {"s": {"bucket_script": {
-        "buckets_path": {"c": "_count"}, "script": "c"}}}},
-    {"terms": {"field": "tag"}, "aggs": {"s": {"bucket_selector": {
-        "buckets_path": {"c": "_count"}, "script": "c > 1"}}}},
+    {"global": {}, "aggs": {"r": {"reverse_nested": {}}}},
+    {"terms": {"field": "tag"}, "aggs": {"g": {"geo_bounds": {
+        "field": "loc"}}}},
+    {"filter": {"match_all": {}}, "aggs": {"c": {"children": {
+        "type": "c"}}}},
 ])
 def test_refused_aggregation_is_not_ported(spec):
     with pytest.raises(NotPortedError):

@@ -11,7 +11,8 @@ vectors; K5 adds 1e-6 relative for sums of up to 150 token maxima). K9
 (masked double-double stats) must give the plain version's count and
 extrema bit for bit and its f32 sums within 1e-6 relative (a tree against
 torch's reduction order), the same bits on every run. K10 (the
-percolator's match reduction) and K11 (sloppy-phrase scan) must be
+percolator's match reduction), K11 (sloppy-phrase scan) and K12 (the
+script evaluator, over scripts that use every opcode) must be
 bit-identical to their plain versions (NaN as NaN). These tests need
 an NVIDIA GPU and nvcc (the kernels have no CPU mode) and skip elsewhere.
 On a machine with a card, run them without the JAX test bootstrap:
@@ -26,7 +27,9 @@ import torch
 from elasticsearch_tpu_torch.index.segment import (
     TextFieldColumn, build_impact_column, quantize_vectors)
 from elasticsearch_tpu_torch.ops import (
-    aggs_ops, blockmax, lexical, maxsim, percolate, phrase, topk, vector)
+    aggs_ops, blockmax, lexical, maxsim, percolate, phrase, script_ops, topk,
+    vector)
+from elasticsearch_tpu_torch.search import scripts
 
 pytestmark = pytest.mark.cuda
 
@@ -915,7 +918,8 @@ def test_stable_topk_deep_page_shapes_match_plain(cuda, m, k, merge):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("kernel", ["stable_topk", "bm25_scan"])
+@pytest.mark.parametrize("kernel", ["stable_topk", "bm25_scan",
+                                    "script_eval"])
 def test_kernels_launch_from_many_threads_at_once(cuda, kernel):
     """Shards call the kernels from several threads at once, with shapes
     that take different shared memory (K2: a row split over chunks and a
@@ -932,6 +936,12 @@ def test_kernels_launch_from_many_threads_at_once(cuda, kernel):
             mask = torch.from_numpy(rng.random((1, m)) < 0.5).to(cuda)
             cases.append(((s, 10), {"mask": mask}))
         run, plain = topk.select_top_k, topk.select_top_k_plain
+    elif kernel == "script_eval":
+        # a short program, one past the shared-memory stage and a deep one
+        cases = [(_script_case(cuda, src, 3, 5001), {})
+                 for src in (SCRIPT_GRAMMAR[0], LONG_SCRIPT, DEEP_SCRIPT)]
+        run = script_ops.script_eval
+        plain = script_ops.script_eval_plain
     else:
         vocab = 300
         uterms, utf, doc_len = _segment(rng, 20000, 24, vocab)
@@ -952,6 +962,9 @@ def test_kernels_launch_from_many_threads_at_once(cuda, kernel):
             c = (i + j) % len(cases)
             got = run(*cases[c][0], **cases[c][1])
             torch.cuda.synchronize()
+            if kernel == "script_eval":
+                _script_bits_equal(got, want[c])
+                continue
             assert all(torch.equal(g, w) for g, w in zip(got, want[c]))
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(worker, range(8)))
@@ -1351,3 +1364,140 @@ def test_percolator_on_the_card_matches_the_cpu(cuda):
         np.testing.assert_allclose([m["_score"] for m in g["matches"]],
                                    [m["_score"] for m in w["matches"]],
                                    rtol=1e-6)
+
+
+#: scripts that between them use every opcode of K12
+SCRIPT_GRAMMAR = [
+    "doc['a'].value * 2 + 1 - doc['b'].value / 3",
+    "doc['a'].value % -2.5 + min(doc['a'].value, doc['b'].value, 40)",
+    "max(doc['a'].value, -doc['a'].value) + abs(doc['b'].value)",
+    "floor(doc['a'].value) + ceil(doc['b'].value) + doc['a'].value ** 3",
+    "doc['a'].value ** -2 + doc['b'].value ** 0.5 "
+    "+ pow(doc['b'].value, 1.5)",
+    "log(doc['b'].value + 1) * _score + ln(2) + log10(doc['b'].value)",
+    "sqrt(doc['b'].value) + exp(-doc['b'].value / 50) + 1/3 * _score",
+    "sigmoid(doc['b'].value) + sigmoid(doc['b'].value, 2, 3) "
+    "+ saturation(doc['b'].value, 10)",
+    "(doc['a'].value if doc['a'].value > params.t else _score) "
+    "+ params.w * 2",
+    "1 < doc['a'].value < 30 and doc['b'].value >= 5 or doc['a'].empty",
+    "not doc['a'].value or not 0",
+    "doc['a'].value == doc['a'].value and True",
+    "doc['a'].value != doc['b'].value",
+    "doc['a'].value <= doc['b'].value",
+    "(doc['a'].empty + 7) % 3 + (doc['a'].empty - 3) % -2 "
+    "+ (doc['a'].empty + 1) % 0",
+    "(doc['a'].empty + 2) ** (doc['a'].empty + 1) + doc['a'].empty ** 2 "
+    "+ abs(-3) * (doc['b'].empty + 0)",
+    "-(doc['a'].empty + 0) + 2147483647 + min(doc['a'].empty, 2) "
+    "+ max(doc['a'].empty + 0, 1)",
+    "(doc['a'].empty + 1) > 1 or (doc['a'].empty + 1) < 2 "
+    "or (doc['a'].empty + 1) <= 0 or (doc['a'].empty + 1) >= 3 "
+    "or (doc['a'].empty + 1) == 1 or (doc['a'].empty + 1) != 2",
+    "max(doc['a'].empty, doc['b'].empty) + min(doc['a'].empty, "
+    "doc['b'].empty) + doc['a'].empty * doc['b'].empty",
+    "1 if doc['a'].empty else 2.5",
+    "doc['a'].empty if doc['a'].value else 3",
+    "cosineSimilarity(params.qv, 'v') + 1.0",
+    "dotProduct(params.qv, 'v') * 0.5 + _score",
+    "doc['a'].value / 0 + doc['a'].value * 1e40 + doc['a'].value % 0",
+    "(doc['a'].empty + 1) / 2",
+    "log(2 + doc['a'].value) * params.w",
+]
+#: 500 parenthesized 60-term products: past K12's shared-memory stage
+LONG_SCRIPT = " + ".join(
+    "(" + " * ".join(["doc['b'].value"] * 60) + ")" for _ in range(500))
+#: a stack deeper than 32
+DEEP_SCRIPT = "+".join(["(doc['a'].value"] * 40) + ")" * 40
+SCRIPT_PARAMS = {"t": 10.0, "w": 1.5, "qv": [0.0] * 16}
+#: a bucket pipeline's per-row names, every kind of per-row value
+PIPELINE_SCRIPT = "log(a) * b + min(b, 2) + (c and a > 0)"
+
+
+def _script_bits_equal(got, want):
+    assert got.dtype == want.dtype
+    if got.dtype == torch.float32:
+        _bits_equal(got, want)
+    else:
+        assert torch.equal(got, want)
+
+
+def _script_inputs(cuda, b, n, seed=12):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-40.0, 40.0, n).astype(np.float32)
+    special = [np.nan, np.inf, -np.inf, -0.0, 0.0, 2.0][:n]
+    a[:len(special)] = special
+    bcol = rng.uniform(0.5, 100.0, n).astype(np.float32)
+    bcol[n // 2] = -0.0
+    vecs = rng.standard_normal((n, 16)).astype(np.float32)
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    t = lambda x: torch.from_numpy(x).to(cuda)   # noqa: E731
+    return {"a": (t(a), t(rng.random(n) > 0.2)),
+            "b": (t(bcol), t(rng.random(n) > 0.1)),
+            "score": t(rng.uniform(0.0, 12.0, (b, n)).astype(np.float32)),
+            "vecs": t(vecs), "vexists": t(rng.random(n) > 0.1),
+            "qv": t(rng.standard_normal((b, 16)).astype(np.float32))}
+
+
+def _script_case(cuda, source, b, n):
+    """→ the arguments of script_eval for ``source`` over seeded inputs."""
+    inp = _script_inputs(cuda, b, n)
+    prog = scripts.compile_script(source).lower("query", SCRIPT_PARAMS)
+    cols = [inp[f] for f in prog.columns]
+    prods = []
+    for cosine, _, _ in prog.products:
+        q = inp["qv"]
+        if cosine:
+            q = q / torch.sqrt((q * q).sum(dim=-1, keepdim=True) + 1e-12)
+        prods.append((torch.matmul(q, inp["vecs"].T).contiguous(),
+                      inp["vexists"]))
+    params = torch.tensor([[10.0 + i, 1.5 - i] for i in range(b)],
+                          dtype=torch.float32, device=cuda)
+    params = params[:, [["t", "w"].index(k) for k in prog.params]]
+    return (prog.code, cols, inp["score"], prods, params.contiguous(),
+            torch.zeros((0, n), dtype=torch.int32, device=cuda), b, n)
+
+
+@pytest.mark.parametrize("b,n", [(1, 1), (3, 1001), (64, 4099),
+                                 (64, 1 << 16)])
+def test_script_eval_bit_identical_to_plain(cuda, b, n):
+    """Every script of the grammar, the long and the deep one, at odd N and
+    B in {1, 3, 64}: one launch each, bit-identical to the plain version
+    (NaN as NaN, -0.0 kept)."""
+    opcodes = set()
+    for source in SCRIPT_GRAMMAR + [LONG_SCRIPT, DEEP_SCRIPT]:
+        if source is LONG_SCRIPT and b * n > 300_000:
+            continue              # 60,000 ops a cell: seconds at this size
+        args = _script_case(cuda, source, b, n)
+        opcodes |= {int(o) for o in args[0].ops[:, 0]}
+        before = script_ops.SCRIPT_EVAL.launches
+        got = script_ops.script_eval(*args)
+        torch.cuda.synchronize()
+        assert script_ops.SCRIPT_EVAL.launches == before + 1
+        want = script_ops.script_eval_plain(*args)
+        assert got.dtype == want.dtype and got.shape == (b, n)
+        _script_bits_equal(got, want)
+    prog = scripts.compile_script(PIPELINE_SCRIPT).lower(
+        "pipeline", {}, {"a": 2.0, "b": 3, "c": True})
+    rows = [{"a": 0.5 + i, "b": i - 3, "c": bool(i % 2)} for i in range(n)]
+    words = torch.from_numpy(prog.row_words(rows)).to(cuda)
+    args = (prog.code, [], None, [], None, words, 1, n)
+    opcodes |= {int(o) for o in prog.code.ops[:, 0]}
+    _script_bits_equal(script_ops.script_eval(*args),
+                       script_ops.script_eval_plain(*args))
+    every = {v for k, v in vars(script_ops).items()
+             if k.isupper() and isinstance(v, int)}
+    assert every <= opcodes
+
+
+def test_script_eval_refuses_what_it_does_not_take(cuda):
+    code, cols, score, prods, params, rows, b, n = _script_case(
+        cuda, SCRIPT_GRAMMAR[8], 3, 100)
+    with pytest.raises(ValueError):
+        script_ops.script_eval(code, cols, score[:, :50], prods, params,
+                               rows, b, n)
+    with pytest.raises(TypeError):
+        script_ops.script_eval(code, cols, score.double(), prods, params,
+                               rows, b, n)
+    with pytest.raises(ValueError):
+        script_ops.script_eval(code, [], score, prods, params, rows, b, n)

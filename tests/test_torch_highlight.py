@@ -6,7 +6,7 @@ and ``bool`` combinations, drawn the way ``tests/test_highlight_fuzz.py``
 draws them (its vocabulary, highlighter types and positional oracle) —
 across the four highlighter types; the fragments must be identical. Then
 ``fetch_phase`` with ``highlight`` through both packages' ShardSearcher on
-one corpus, and ``script_fields``, which the port still refuses.
+one corpus, with ``script_fields`` beside the highlights.
 """
 
 import random
@@ -19,7 +19,6 @@ from elasticsearch_tpu.search.highlight import (
 from elasticsearch_tpu.search.phase import (
     parse_search_request as jax_parse_search_request)
 from elasticsearch_tpu.search.query_dsl import parse_query as jax_parse_query
-from elasticsearch_tpu_torch.common.errors import NotPortedError
 from elasticsearch_tpu_torch.index.device_reader import device_reader_for
 from elasticsearch_tpu_torch.mapping import MapperService
 from elasticsearch_tpu_torch.search.highlight import highlight_hit
@@ -108,7 +107,11 @@ def test_fetch_phase_highlights_like_jax(tmp_path):
         [h["highlight"] for h in jhits]
     assert len(hits) == 8 and all("[w00]" in h["highlight"]["body"][0]
                                   for h in hits)
-    with pytest.raises(NotPortedError):
-        sreq = parse_search_request(dict(body, script_fields={
-            "x": {"script": "doc['rank'].value"}}))
-        ps.fetch_phase(sreq, res, "idx", pos)
+    # script fields beside the highlights, as the JAX package renders them
+    sbody = dict(body, script_fields={"x": {"script": "doc['rank'].value"}})
+    sreq, jsreq = parse_search_request(sbody), jax_parse_search_request(sbody)
+    shits = ps.fetch_phase(sreq, res, "idx", pos)
+    jshits = js.fetch_phase(jsreq, jres, "idx", pos)
+    assert [h["fields"] for h in shits] == [h["fields"] for h in jshits]
+    assert [h["highlight"] for h in shits] == \
+        [h["highlight"] for h in jshits]

@@ -1,8 +1,10 @@
 """The port stands alone: serving searches through it (a match, a bool with a
 match_phrase, a function_score, on the knn lane a dense knn in f32 and int8,
 a hybrid and a rank_vectors MaxSim, on the impact lane the eager, pruned
-and rescore arms, aggregations reduced by the coordinator's merge, and the
-percolator's registry, _mpercolate and serial paths) loads neither JAX nor
+and rescore arms, aggregations reduced by the coordinator's merge, the
+percolator's registry, _mpercolate and serial paths, and scripts: a
+script_score query and function, script_fields, the template query, the
+script aggregations and a script_score registration) loads neither JAX nor
 the JAX package, its entry points
 never fall back to the CPU on their own, and its CUDA sources include no
 header of torch or of the JAX package's native code."""
@@ -108,6 +110,45 @@ perc_out = [
                 {"doc": {"body": "quick red fox"}}], device="cpu")],
     percolator.percolate_serial(pmeta, {"body": "quick fox"},
                                 device="cpu")["total"]]
+script_ids = [
+    ids_of({"query": {"script_score": {
+        "query": {"match_all": {}},
+        "script": {"source": "cosineSimilarity(params.q, 'vec') + 1.0",
+                   "params": {"q": [1.0, 0.0, 0.0]}}}}}),
+    ids_of({"query": {"function_score": {
+        "query": {"match": {"body": "dog fox"}},
+        "functions": [{"script_score": {"script": "log(2 + doc['rank']"
+                                                  ".value) * 2"}}]}}}),
+    ids_of({"query": {"template": {"query": {"match": {
+        "body": "{{w}}"}}, "params": {"w": "quick"}}}})]
+sf_req = parse_search_request({
+    "query": {"match": {"body": "dog"}}, "script_fields": {
+        "e": {"script": "doc['rank'].value * 2"},
+        "g": {"script": "def r = doc['rank'].value; "
+                        "if (r > 15) { return 'big' } else { return r }"}}})
+sf_res = searcher.query_phase(sf_req)
+script_fields = [h["fields"] for h in searcher.fetch_phase(
+    sf_req, sf_res, "idx", list(range(len(sf_res.doc_ids))))]
+sa_req = parse_search_request({
+    "query": {"match_all": {}}, "size": 0, "aggs": {
+        "m": {"scripted_metric": {"map_script": "doc['rank'].value * 2"}},
+        "h": {"histogram": {"field": "rank", "interval": 10}, "aggs": {
+            "s": {"bucket_script": {"buckets_path": {"c": "_count"},
+                                    "script": "log(c + 1) * 2"}},
+            "f": {"bucket_selector": {"buckets_path": {"c": "_count"},
+                                      "script": "c > 0"}}}}}})
+sa = merge_responses("idx", sa_req, [searcher.query_phase(sa_req)],
+                     [searcher], 0.0, sa_req.aggs)["aggregations"]
+script_aggs = [sa["m"]["value"], len(sa["h"]["buckets"]),
+               round(sa["h"]["buckets"][0]["s"]["value"], 6)]
+smeta = types.SimpleNamespace(
+    name="sidx", uuid="u", settings={}, version=1,
+    mappings=pmeta.mappings,
+    percolators={"s": {"query": {"script_score": {
+        "query": {"match": {"body": "fox"}},
+        "script": {"source": "_score * 2"}}}}})
+script_perc = [m["_id"] for m in percolator.percolate(
+    smeta, {"body": "quick brown fox"}, device="cpu")["matches"]]
 try:
     DeviceReader(eng.acquire_searcher())
     refused = False
@@ -123,6 +164,8 @@ print(json.dumps({
     "knn_ids": knn_ids,
     "impact_ids": impact_ids, "impact_admissions": impact_admissions,
     "agg_out": agg_out, "perc_out": perc_out,
+    "script_ids": script_ids, "script_fields": script_fields,
+    "script_aggs": script_aggs, "script_perc": script_perc,
     "leaked": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "elasticsearch_tpu")),
@@ -147,6 +190,12 @@ def test_port_serves_without_jax_or_the_jax_package(tmp_path):
     assert got["impact_admissions"] == 3
     assert got["agg_out"] == [3, [1, 1, 1], ["2", "1"]]
     assert got["perc_out"] == [["a", "b"], [["c"], ["a", "b"]], 2]
+    assert got["script_ids"] == [["0", "2", "1"], ["0", "1", "2"],
+                                 ["2", "0"]]
+    assert got["script_fields"] == [{"e": [40.0], "g": ["big"]},
+                                    {"e": [20.0], "g": [10.0]}]
+    assert got["script_aggs"] == [120.0, 3, 1.386294]
+    assert got["script_perc"] == ["s"]
     assert got["leaked"] == []
     assert got["no_card_refused"]
 
@@ -182,7 +231,8 @@ def test_cuda_sources_have_a_plain_c_interface():
     sources = sorted((REPO / "elasticsearch_tpu_torch" / "csrc").glob("*.cu"))
     assert {p.name for p in sources} >= {"impact_scan.cu",
                                          "blockmax_sweep.cu",
-                                         "agg_counts.cu", "agg_stats.cu"}
+                                         "agg_counts.cu", "agg_stats.cu",
+                                         "script_eval.cu"}
     bad = []
     for path in sources:
         text = path.read_text()

@@ -261,10 +261,10 @@ def test_register_unregister_touches_exactly_one_bucket(setup):
 
 @pytest.mark.parametrize("query", [
     {"has_child": {"type": "c", "query": {"match_all": {}}}},
-    {"script_score": {"query": {"match_all": {}},
-                      "script": {"source": "1"}}},
-    {"function_score": {"query": {"match": {"body": "pw001"}},
-                        "functions": [{"script_score": {"script": "2"}}]}},
+    {"has_parent": {"parent_type": "p", "query": {"match_all": {}}}},
+    {"bool": {"must": [{"match": {"body": "pw001"}}],
+              "should": [{"has_child": {"type": "c",
+                                        "query": {"match_all": {}}}}]}},
     {"bool": {"should": [{"prefix": {"body": "pw"}}]}},
 ])
 def test_unported_registrations_raise(query):
@@ -303,3 +303,56 @@ def test_a_phrase_longer_than_the_probe_matches_nothing():
     for out in (percolator.percolate(pmeta, doc, device="cpu"),
                 percolator.percolate_serial(pmeta, doc, device="cpu")):
         assert [m["_id"] for m in out["matches"]] == ["m"]
+
+
+def _script_registrations(n=24, seed=79):
+    """Matches and ranges, every third a function_score with a script_score
+    function and every fourth a script_score query (the shape-fallback
+    lane: one K12 launch a registration)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i in range(n):
+        w = VOCAB[int(rng.integers(0, len(VOCAB)))]
+        if i % 4 == 3:
+            qq = {"script_score": {
+                "query": {"match": {"body": w}},
+                "script": {"source": "_score * params.k + "
+                                     "doc['rank'].value / 100",
+                           "params": {"k": 1.0 + i}}}}
+        elif i % 3 == 2:
+            qq = {"function_score": {
+                "query": {"match": {"body": w}},
+                "functions": [{"script_score": {"script": {
+                    "source": "log(2 + doc['rank'].value) * params.w",
+                    "params": {"w": 0.5 + i / 10}}}}]}}
+        elif i % 2:
+            qq = {"match": {"body": w}}
+        else:
+            qq = {"range": {"rank": {"gte": int(rng.integers(0, 90))}}}
+        out[f"s{i}"] = {"query": qq, "group": f"g{i % 2}"}
+    return out
+
+
+def test_script_score_registrations_match_jax():
+    jax_perc.clear_registries()
+    percolator.clear_registries()
+    try:
+        jmeta, pmeta = _metas(_script_registrations(), name="perc_script")
+        docs = _docs(seed=80)
+        for d in docs:
+            _assert_same(percolator.percolate(pmeta, d, score=True,
+                                              device="cpu"),
+                         jax_perc.percolate(jmeta, d, score=True))
+        items = [{"doc": d, "score": True, "sort": True} for d in docs]
+        for got, want in zip(
+                percolator.percolate_many(pmeta, items, device="cpu"),
+                jax_perc.percolate_many(jmeta, items)):
+            _assert_same(got, want)
+        st = percolator.registry_stats("perc_script", "cpu")
+        assert st["fallback_queries"] > 0
+        assert any(m["_id"] in ("s2", "s3", "s5") for d in docs
+                   for m in percolator.percolate(pmeta, d, device="cpu")
+                   ["matches"])
+    finally:
+        jax_perc.clear_registries()
+        percolator.clear_registries()

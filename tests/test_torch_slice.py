@@ -188,8 +188,8 @@ def test_carried_segment_scores_like_jax(tmp_path):
 @pytest.mark.parametrize("body,error", [
     ({"query": {"prefix": {"tag": "t"}}}, QueryParsingError),
     ({"query": {"wildcard": {"tag": "t*"}}}, QueryParsingError),
-    ({"query": {"match_all": {}}, "aggs": {"a": {"scripted_metric": {
-        "map_script": "_agg.x = 1"}}}}, NotPortedError),
+    ({"query": {"match_all": {}}, "aggs": {"a": {"geohash_grid": {
+        "field": "tag"}}}}, NotPortedError),
     ({"query": {"match_all": {}}, "sort": [{"tag": "asc"}]}, NotPortedError),
     ({"query": {"match": {"body": "w01"}}, "terminate_after": 5},
      NotPortedError),
