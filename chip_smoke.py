@@ -166,6 +166,40 @@ no result line:
             percolate_many of the 12 probes, against a float64 recompute.
 38. profile — one batch of config 3s and of config 4s under
             torch.profiler.
+39. leaf kernels — K13 (span programs), K14 (flat span_near), K15 (the
+            classic and LM-Dirichlet similarities in K1's scan) and K16
+            (term-set membership) against their plain versions at the
+            shapes the leaf paths give them on segment 0 (B = 64, N = 2^20,
+            L = 224) and at odd shapes: bit-identical for K13-K15, equal
+            masks for K16; timed beside the plain versions (on queries 0,
+            31, 32 and 63 where a batch takes seconds), the bounds and
+            torch.isin for K16.
+40. span_near — 3 span_terms of the sampled terms, unordered with slop 3
+            and in order with slop 2 (K14, K2), 2 batches each.
+41. span tree — span_not over span_near(span_or, span_multi of a 4-digit
+            prefix (100 terms), span_term), pre 1, post 1 (K13, K2).
+42. containing, within, first — span_containing and span_within of a
+            span_term in a span_near with slop 8, span_first (end 10) over
+            a span_or (K13, K2). Phases 40-42 re-count the first request's
+            hits on the host's token rows.
+43. multi-term filters — bool with config 1's match and a prefix (10, 100
+            and 1,000 terms), a wildcard (1,000 terms) or a fuzzy term
+            (K16, K1, K2), each request with its own pattern (a plan
+            signature holds one set size, so one batch a size; a fuzzy
+            batch holds FUZZY_BATCH requests), the expanded sets counted
+            with numpy.
+44. similarities — config 1's match on the body field mapped classic,
+            then LMDirichlet (mu 2000), over the same installed segments
+            (K15, K2; K1 must not run).
+45. compound leaves — one batch each of multi_match (best_fields,
+            tie_breaker 0.3), dis_max, boosting, common (cutoff 0.001),
+            query_string and more_like_this on 4 like-texts (K1, K2).
+            Phases 40-45 hold the first and the last request of every
+            batch against the plain versions on the card's tensors (totals
+            exact, the hits' scores bit for bit) and a float64 recompute
+            from the host's rows (scores within 1e-5, tie-tolerant recall
+            1.0).
+46. profile — one batch of the span tree under torch.profiler.
 
 The last lines are one JSON object of per-kernel numbers, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -220,6 +254,33 @@ K9_REPLACES = "elasticsearch_tpu/ops/aggs_ops.py:79"
 K10_REPLACES = "elasticsearch_tpu/ops/percolate.py:19"
 K11_REPLACES = "elasticsearch_tpu/ops/phrase.py:72"
 K12_REPLACES = "elasticsearch_tpu/search/scripts.py:114"
+K13_SOURCE = "elasticsearch_tpu_torch/csrc/span_program.cu"
+K14_SOURCE = "elasticsearch_tpu_torch/csrc/span_near.cu"
+K15_SOURCE = K1_SOURCE            # sim_scan_launch, K1's scan instantiated
+K16_SOURCE = "elasticsearch_tpu_torch/csrc/term_set_scan.cu"
+K13_REPLACES = "elasticsearch_tpu/ops/spans.py:32"
+K14_REPLACES = "elasticsearch_tpu/ops/phrase.py:130"
+K15_REPLACES = "elasticsearch_tpu/ops/lexical.py:58"
+K16_REPLACES = "elasticsearch_tpu/search/execute.py:820"
+# the query leaves: batches of each span and similarity path; a fuzzy
+# batch's size (each value costs a Levenshtein pass over the 500,000-term
+# dictionary of each segment on the host)
+LEAF_BATCHES = 2
+FUZZY_BATCH = 1
+
+
+def plain_queries(b):
+    """The queries of a batch of b that the leaf kernel phase holds against
+    the plain versions where a batch of them takes seconds: the first and
+    the last of each half (0, 31, 32 and 63 at b = 64), so both 32-query
+    passes of K13 and K14 are compared."""
+    return sorted({0, max(b // 2 - 1, 0), b // 2, b - 1})
+
+
+def checked_requests(n):
+    """The requests of a batch of n that the leaf paths hold against the
+    plain versions and float64: the first and the last."""
+    return sorted({0, n - 1})
 # config 4 (bench.py:703-717): 768-d unit vectors, k = num_candidates = 100
 VEC_DIMS = 768
 KNN_K = 100
@@ -497,7 +558,9 @@ def phase_build():
     sources = [Path(src).name for src in (K1_SOURCE, K2_SOURCE, K3_SOURCE,
                                           K4_SOURCE, K5_SOURCE, K6_SOURCE,
                                           K7_SOURCE, K8_SOURCE, K9_SOURCE,
-                                          K10_SOURCE, K11_SOURCE, K12_SOURCE)]
+                                          K10_SOURCE, K11_SOURCE, K12_SOURCE,
+                                          K13_SOURCE, K14_SOURCE,
+                                          K16_SOURCE)]
     t0 = time.perf_counter()
     built = cuda_build.build_libraries(sources)
     BUILD_LOGS.update({src: info["log"] for src, info in built.items()})
@@ -537,7 +600,14 @@ def phase_build():
         "row); sloppy_phrase_scan K3's layout and table, an f32 "
         "sum per (query, row) (45.875 KiB at B = 64, T = 2); script_eval "
         "the program and its constants, 8 B an op or constant (a program "
-        "past 200 KiB runs from global memory)")
+        "past 200 KiB runs from global memory); span_program per warp each "
+        "field's row, a key index per position a term set, the stack of "
+        "maps, four scratch maps and an f32 per (query, row) (up to 8 "
+        "warps as the row width allows); span_near_scan per warp a row and "
+        "a term mask per position and an f32 per (query, row); sim_scan "
+        "bm25_scan's layout (LM Dirichlet a second word per (query, term)); "
+        "term_set_scan the batch's sorted union of set terms when it holds "
+        "40,960 ids or fewer, else none")
 
 
 def phrase_pairs(rng, tokens, lens, n):
@@ -897,7 +967,7 @@ def path_kernels():
     line (K5's f32 and int8 instantiations have one each)."""
     from elasticsearch_tpu_torch.ops import (
         aggs_ops, blockmax, lexical, maxsim, percolate, phrase, script_ops,
-        topk, vector)
+        spans, topk, vector)
     return {"bm25_scan": lexical.BM25_SCAN, "stable_topk": topk.TOPK,
             "phrase_scan": phrase.PHRASE_SCAN,
             "sloppy_phrase_scan": phrase.SLOPPY_PHRASE_SCAN,
@@ -908,7 +978,11 @@ def path_kernels():
             "blockmax_sweep": blockmax.BLOCKMAX_SWEEP,
             "agg_counts": aggs_ops.AGG_COUNTS,
             "agg_stats": aggs_ops.AGG_STATS,
-            "script_eval": script_ops.SCRIPT_EVAL}
+            "script_eval": script_ops.SCRIPT_EVAL,
+            "span_program": spans.SPAN_PROGRAM,
+            "span_near_scan": phrase.SPAN_NEAR_SCAN,
+            "sim_scan": lexical.SIM_SCAN,
+            "term_set_scan": lexical.TERM_SET_SCAN}
 
 
 def drive(torch, searcher, batches):
@@ -1314,7 +1388,7 @@ def profile_batch(torch, label, run, plan_ms, plan_gc, size,
             f"the busy share is not measured; GC: planning {plan_gc}, "
             f"batch {batch_gc}")
         return {"wall_ms": wall_ms, "plan_ms": plan_ms, "busy_ms": None}
-    by_kernel = {"K1": ("bm25_scan_kernel",),
+    by_kernel = {"K1": ("bm25_scan_kernel<0>",),
                  "K2": ("chunk_topk_kernel", "merge_candidates_kernel",
                         "split_candidates_kernel", "select_run_kernel",
                         "sort_tiles_kernel", "merge_runs_kernel",
@@ -1328,6 +1402,10 @@ def profile_batch(torch, label, run, plan_ms, plan_gc, size,
                  "K10": ("percolate_reduce_kernel",),
                  "K11": ("sloppy_phrase_kernel",),
                  "K12": ("script_eval_kernel",),
+                 "K13": ("span_program_kernel",),
+                 "K14": ("span_near_kernel",),
+                 "K15": ("bm25_scan_kernel<1>", "bm25_scan_kernel<2>"),
+                 "K16": ("term_set_scan_kernel",),
                  "cuBLAS": ("gemm", "xmma", "cutlass")}
     parts = {}
     for kname, keys in by_kernel.items():
@@ -4555,6 +4633,877 @@ def phase_percolate_scripts(torch, args, data, name, smi_line) -> dict:
     return stats
 
 
+# --------------------------------------------------------------------------
+# the query leaves (phases 39-46): the span family (K13, K14), the classic
+# and LM-Dirichlet similarities (K15), multi-term filters (K16), and the
+# compound leaves (K1, K2)
+# --------------------------------------------------------------------------
+
+def plain_leaf_kernels():
+    """A context in which the wrappers of K1 and K13-K16 run their plain
+    versions also on CUDA tensors (the resolvers call the wrappers through
+    their modules). Launches made there count nowhere."""
+    import contextlib
+    from elasticsearch_tpu_torch.ops import lexical, phrase, spans
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (lexical.bm25_match_batch, lexical.sim_match_batch,
+                 lexical.term_set_scan, phrase.span_near_score_batch,
+                 spans.span_program_score_batch)
+        lexical.bm25_match_batch = (
+            lambda *a, trailing_pad=False, want_nmatch=True:
+            lexical.bm25_match_batch_plain(*a, want_nmatch=want_nmatch))
+        lexical.sim_match_batch = (
+            lambda sim, ut, utf, dl, qt, qa, qw, mu=None, trailing_pad=False:
+            lexical.classic_match_batch_plain(ut, utf, dl, qt, qa, qw)
+            if sim == lexical.SIM_CLASSIC else
+            lexical.lm_dirichlet_match_batch_plain(ut, utf, dl, qt, qa, qw,
+                                                   mu))
+        lexical.term_set_scan = (lambda ut, tids, trailing_pad=False:
+                                 lexical.term_set_scan_plain(ut, tids))
+        phrase.span_near_score_batch = (
+            lambda *a, extent: phrase.span_near_score_batch_plain(*a))
+        spans.span_program_score_batch = (
+            lambda prog, tk, ext, *a:
+            spans.span_program_score_batch_plain(prog, tk, *a))
+        try:
+            yield
+        finally:
+            (lexical.bm25_match_batch, lexical.sim_match_batch,
+             lexical.term_set_scan, phrase.span_near_score_batch,
+             spans.span_program_score_batch) = saved
+    return ctx()
+
+
+def plain_over_reader(searcher, query):
+    """The query through every segment with the plain versions on the
+    card's tensors → (scores [docs] f32, mask [docs] bool) in corpus order
+    (the smoke installs the corpus in order, segment after segment)."""
+    from elasticsearch_tpu_torch.search import segment_exec
+    scores, masks = [], []
+    with plain_leaf_kernels():
+        for seg in searcher.reader.segments:
+            s, m = segment_exec.execute(seg, searcher.ctx, query)
+            nr = seg.seg.num_docs
+            scores.append(s[:nr].cpu().numpy())
+            masks.append(m[:nr].cpu().numpy())
+    return np.concatenate(scores), np.concatenate(masks)
+
+
+def check_leaf_batches(label, args, searcher, batches, results, score64):
+    """The first and the last request of every batch (``score64(i)`` takes
+    the request's index over the batches): the total against the plain
+    versions run on the card's tensors, exact, the hits' scores theirs bit
+    for bit; then against ``score64(i)`` → (float64 score of every doc, its
+    mask): the same docs matched, the hits' scores within 1e-5,
+    tie-tolerant recall@k 1.0."""
+    orig_of = gid_to_orig(searcher.reader)
+    t0 = time.perf_counter()
+    totals = []
+    for bi, (reqs, res_b) in enumerate(zip(batches, results)):
+        for j in checked_requests(len(reqs)):
+            req, res = reqs[j], res_b[j]
+            p_s, p_m = plain_over_reader(searcher, req.query)
+            orig = orig_of[np.asarray(res.doc_ids, np.int64)]
+            check(res.total == int(p_m.sum()),
+                  f"{label} request {j}: total {res.total} != the plain "
+                  f"versions' {int(p_m.sum())}")
+            check(np.array_equal(np.asarray(res.scores, np.float32),
+                                 p_s[orig]),
+                  f"{label} request {j}: the hits' scores differ from the "
+                  f"plain versions'")
+            s64, m64 = score64(bi * len(batches[0]) + j)
+            check(np.array_equal(m64, p_m), f"{label} request {j}: the "
+                  f"float64 recompute matches other docs than the plain "
+                  f"versions")
+            check_vs_cpu(label, args, [res], [s64], [m64], orig_of,
+                         k=req.size)
+            totals.append(res.total)
+    log(f"{label}: the first and the last request of each batch: totals "
+        f"{totals} exact against the plain versions on the card and a "
+        f"float64 recompute, the hits' scores the plain versions' bit for "
+        f"bit and within 1e-5 of float64, tie-tolerant recall@k = 1.0 "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+class Float64:
+    """float64 BM25 pieces over the host's columns, from one postings pass
+    over the terms the leaf phases query."""
+
+    def __init__(self, data, n_requests):
+        self.data = data
+        self.df = data["df"]
+        self.lens = data["lens"]
+        self.n = len(self.lens)
+        self.avgdl = float(self.lens.sum()) / self.n
+        self.norm = 1.2 * (0.25 + 0.75 * self.lens.astype(np.float64)
+                           / self.avgdl)
+        self.post = postings(data["uterms"], data["utf"],
+                             data["qtids"][:n_requests])
+
+    def idf(self, terms):
+        return float(sum(cpu_idf(self.df, int(t), self.n) for t in terms))
+
+    def bm25(self, terms):
+        """→ (Σ BM25 over ``terms``, how many of them each doc holds)."""
+        s = np.zeros(self.n, np.float64)
+        cnt = np.zeros(self.n, np.int32)
+        for t in terms:
+            d, f = self.post[int(t)]
+            s[d] += cpu_idf(self.df, t, self.n) * f * 2.2 / (f + self.norm[d])
+            cnt[d] += 1
+        return s, cnt
+
+    def freq_score(self, freq, sum_idf, rows=None):
+        """BM25 over a span frequency (freq_score), for ``rows`` or all."""
+        norm = self.norm if rows is None else self.norm[rows]
+        f = freq.astype(np.float64)
+        return np.where(f > 0, sum_idf * f * 2.2 / (f + norm), 0.0)
+
+
+def leaf_terms(data, i):
+    """The four sampled terms of request i (the smoke's df-weighted
+    sampler), as names."""
+    return [data["term_names"][int(t)] for t in data["qtids"][i]]
+
+
+def host_rows(torch, data, rows):
+    return torch.from_numpy(np.ascontiguousarray(data["tokens"][rows]))
+
+
+def span_terms(args, data, n):
+    """[n, 4] term ids of the span requests: (a, b, c) at three
+    consecutive positions p, p + 1, p + 2 (p < 8) of a seeded random doc,
+    so each request's spans occur (a token at a random position is drawn
+    by collection frequency, like the df-weighted sampler's), and d the
+    sampler's fourth term of the request."""
+    rng = np.random.default_rng([args.seed, 40])
+    docs = rng.integers(0, len(data["lens"]), n)
+    pos = rng.integers(0, 8, n)
+    abc = np.stack([data["tokens"][docs, pos + j] for j in range(3)], axis=1)
+    return np.concatenate([abc, data["qtids"][:n, 3:4]], axis=1).astype(
+        np.int32)
+
+
+def span_bodies(data, kind, n):
+    """n request bodies of one span shape over data["span_terms"]."""
+    names = data["term_names"]
+    out = []
+    for i in range(n):
+        a, b_, c, d = (names[int(t)] for t in data["span_terms"][i])
+
+        def st(w):
+            return {"span_term": {"body": w}}
+        if kind == "near_unordered":
+            q = {"span_near": {"clauses": [st(a), st(b_), st(c)],
+                               "slop": 3, "in_order": False}}
+        elif kind == "near_in_order":
+            q = {"span_near": {"clauses": [st(a), st(b_), st(c)],
+                               "slop": 2, "in_order": True}}
+        elif kind == "not_tree":
+            q = {"span_not": {
+                "include": {"span_near": {"clauses": [
+                    {"span_or": {"clauses": [st(a), st(b_)]}},
+                    {"span_multi": {"match": {"prefix": {"body": {
+                        "value": c[:len(c) - 2]}}}}},
+                    st(c)], "slop": 4, "in_order": False}},
+                "exclude": st(d), "pre": 1, "post": 1}}
+        elif kind in ("containing", "within"):
+            q = {f"span_{kind}": {
+                "big": {"span_near": {"clauses": [st(a), st(c)],
+                                      "slop": 8, "in_order": False}},
+                "little": st(b_)}}
+        else:                            # first
+            q = {"span_first": {"match": {"span_or": {
+                "clauses": [st(a), st(b_)]}}, "end": 10}}
+        out.append({"query": q, "size": 1000})
+    return out
+
+
+def prefix_ids(prefix, vocab):
+    """Term ids of the smoke's names (t000000.., fixed width) that start
+    with ``prefix``."""
+    digits = prefix[1:]
+    span = 10 ** (len(str(vocab - 1)) - len(digits))
+    lo = int(digits) * span
+    return np.arange(lo, min(lo + span, vocab))
+
+
+def span_idf64(f64, kind, terms):
+    """The float64 Σ idf the span query of ``kind`` over ``terms`` (ids
+    a, b, c, d) scores with."""
+    a, b_, c, _d = terms
+    if kind.startswith("near"):
+        return f64.idf((a, b_, c))
+    if kind == "not_tree":
+        name = f64.data["term_names"][int(c)]
+        ids = prefix_ids(name[:len(name) - 2], len(f64.data["term_names"]))
+        multi = float(np.mean([cpu_idf(np.maximum(f64.df, 1), t, f64.n)
+                               for t in ids]))
+        return f64.idf((a, b_)) + multi + f64.idf((c,))
+    if kind == "containing":
+        return f64.idf((a, c))           # the big span's
+    if kind == "first":
+        return f64.idf((a, b_))
+    return f64.idf((b_,))                # within: the little span's
+
+
+def span_lowered(searcher, seg, query):
+    """The span tree lowered on one segment as the resolver lowers it →
+    (SpanProgram, term ids, term sets, Σ idf, scoring field, avgdl)."""
+    from elasticsearch_tpu_torch.ops import spans
+    from elasticsearch_tpu_torch.search.execute import (
+        ConstTable, SegmentResolver, _SpanLowering)
+    ct = ConstTable()
+    low = _SpanLowering()
+    res = SegmentResolver(seg, searcher.ctx, ct)
+    code, sum_idf, field = res._span_ends(query, low)
+    prog = spans.SpanProgram(code=tuple(code), fields=tuple(low.fields),
+                             n_terms=len(low.term_refs),
+                             n_sets=len(low.set_refs),
+                             depth=spans.program_depth(code))
+    return (prog, [int(ct.values[r]) for r in low.term_refs],
+            [np.asarray(ct.values[r], np.int32) for r in low.set_refs],
+            sum_idf, field, res._avgdl(field))
+
+
+def span_freq(torch, kind, query, tids, tokens, lowered):
+    """Span frequency per row of ``tokens``, with the plain span bodies:
+    the flat span_near's counts, or the lowered program."""
+    from elasticsearch_tpu_torch.ops import phrase, spans
+    dev = tokens.device
+    if kind.startswith("near"):
+        qt = torch.tensor(tids[:3], dtype=torch.int32, device=dev)
+        if kind == "near_in_order":
+            return phrase.sloppy_phrase_count(tokens, qt, [0, 1, 2], 2)
+        return phrase.span_near_freq_unordered(tokens, qt, 3)
+    prog, ptids, sets = lowered[:3]
+    return spans.span_program_freq(
+        prog, [tokens], torch.tensor(ptids, dtype=torch.int32, device=dev),
+        [torch.from_numpy(s).to(dev) for s in sets])
+
+
+def phase_span_paths(torch, args, data, f64, name, smi_line) -> dict:
+    """Phases 40-42: flat span_near unordered (slop 3) and in order (slop
+    2) (K14); a span_not over span_near(span_or, span_multi prefix, term)
+    (K13); span_containing, span_within and span_first over span_or (K13).
+    LEAF_BATCHES batches of each through query_phase_batch, checked; the
+    first request's hits re-counted on the host's token rows."""
+    searcher = data["searcher"]
+    reader = searcher.reader
+    orig_of = gid_to_orig(reader)
+    out = {}
+    for kind, kern in (("near_unordered", "span_near_scan"),
+                       ("near_in_order", "span_near_scan"),
+                       ("not_tree", "span_program"),
+                       ("containing", "span_program"),
+                       ("within", "span_program"),
+                       ("first", "span_program")):
+        # the span tree's span_multi expands each request's prefix on each
+        # segment on the host (seconds a batch): one batch of it
+        n_b = 1 if kind == "not_tree" else LEAF_BATCHES
+        batches = batches_of(args, span_bodies(data, kind, n_b * args.batch))
+        results, per_batch, wall, launches, peak = drive(torch, searcher,
+                                                         batches)
+        stats = report(f"span {kind}", args, data, batches, per_batch, wall,
+                       launches, peak, name, smi_line, (kern, "stable_topk"))
+
+        def score64(i, kind=kind):
+            query = batches[i // args.batch][i % args.batch].query
+            freqs = []
+            for seg in reader.segments:
+                lowered = None if kind.startswith("near") else \
+                    span_lowered(searcher, seg, query)
+                f = span_freq(torch, kind, query, data["span_terms"][i],
+                              seg.text["body"].tokens, lowered)
+                freqs.append(f[:seg.seg.num_docs].cpu().numpy())
+            freq = np.concatenate(freqs)
+            s64 = f64.freq_score(freq, span_idf64(f64, kind,
+                                                  data["span_terms"][i]))
+            return s64, freq > 0
+        check_leaf_batches(f"span {kind}", args, searcher, batches, results,
+                           score64)
+        # the first request's hits re-counted on the host's rows
+        res0 = results[0][0]
+        orig = orig_of[np.asarray(res0.doc_ids, np.int64)]
+        lowered = None if kind.startswith("near") else span_lowered(
+            searcher, reader.segments[0], batches[0][0].query)
+        host = span_freq(torch, kind, batches[0][0].query,
+                         data["span_terms"][0], host_rows(torch, data, orig),
+                         lowered).numpy()
+        want = f64.freq_score(host, span_idf64(f64, kind,
+                                               data["span_terms"][0]),
+                              rows=orig)
+        check(len(orig) > 0 and bool((host > 0).all()) and np.allclose(
+            np.asarray(res0.scores), want, rtol=1e-5, atol=1e-5),
+            f"span {kind}: the hits re-counted on the host's rows score "
+            f"otherwise")
+        log(f"span {kind}: the first request's {len(orig)} hits re-counted "
+            f"on the host's token rows (span frequencies "
+            f"{int(host.min()) if len(host) else '-'}.."
+            f"{int(host.max()) if len(host) else '-'}): scores within 1e-5 "
+            f"of float64")
+        out[kind] = stats
+    return out
+
+
+def fuzzy1_ids(value, vocab):
+    """Term ids within one edit of ``value`` among the smoke's names, all
+    of one length: exactly the one-digit substitutions (an insertion or a
+    deletion makes a name of another length, and there is none)."""
+    out = set()
+    for pos in range(1, len(value)):
+        for dig in "0123456789":
+            out.add(int(value[1:pos] + dig + value[pos + 1:]))
+    return np.array(sorted(t for t in out if t < vocab))
+
+
+def docs_with_any(data, ids):
+    """Docs holding any of the term ids ``ids``."""
+    lut = np.zeros(int(data["uterms"].max()) + 2, bool)
+    lut[ids] = True
+    return lut[data["uterms"]].any(axis=1)
+
+
+def wildcard_ids(name, names):
+    """Term ids of the names that the wildcard ``name[:3]?name[4]*``
+    matches (1,000 of the smoke's fixed-width names)."""
+    return np.array([t for t, nm in enumerate(names)
+                     if nm[:3] == name[:3] and nm[4] == name[4]])
+
+
+def phase_multi_term_paths(torch, args, data, f64, name, smi_line) -> dict:
+    """Phase 43: bool with config 1's match as must and, as filter, a
+    prefix (10, 100 and 1,000 terms), a wildcard (1,000 terms) or a fuzzy
+    term (fuzziness 1) (K16, K1, K2), each request with its own pattern
+    drawn from its first sampled term, one batch each (FUZZY_BATCH
+    requests for fuzzy), against float64 BM25 over the must and the
+    expanded sets counted with numpy. The resolver expands each request's
+    pattern on each segment: a host scan of the dictionary."""
+    names = data["term_names"]
+    vocab = len(names)
+    w = len(names[0])
+    out = {}
+    for label, make, ids_of, n in (
+            ("prefix10", lambda s: {"prefix": {"body": s[:w - 1]}},
+             lambda s: prefix_ids(s[:w - 1], vocab), args.batch),
+            ("prefix100", lambda s: {"prefix": {"body": s[:w - 2]}},
+             lambda s: prefix_ids(s[:w - 2], vocab), args.batch),
+            ("prefix1000", lambda s: {"prefix": {"body": s[:w - 3]}},
+             lambda s: prefix_ids(s[:w - 3], vocab), args.batch),
+            ("wildcard", lambda s: {"wildcard": {"body": f"{s[:3]}?{s[4]}*"}},
+             lambda s: wildcard_ids(s, names), args.batch),
+            ("fuzzy", lambda s: {"fuzzy": {"body": {"value": s,
+                                                    "fuzziness": 1}}},
+             lambda s: fuzzy1_ids(s, vocab), FUZZY_BATCH)):
+        seeds = [names[int(t)] for t in data["qtids"][:n, 0]]
+        bodies = [{"query": {"bool": {"must": [{"match": {"body": t}}],
+                                      "filter": [make(sd)]}},
+                   "size": args.k}
+                  for t, sd in zip(data["texts"][:n], seeds)]
+        batches = batches_of(args, bodies)
+        results, per_batch, wall, launches, peak = drive(
+            torch, data["searcher"], batches)
+        sizes = [len(ids_of(seeds[j])) for j in checked_requests(n)]
+        stats = report(f"bool + {label} filter (own pattern a request, "
+                       f"{'/'.join(map(str, sizes))} terms)", args, data,
+                       batches, per_batch, wall, launches, peak, name,
+                       smi_line, ("term_set_scan", "bm25_scan",
+                                  "stable_topk"))
+
+        def score64(i):
+            s, cnt = f64.bm25(data["qtids"][i])
+            m = (cnt > 0) & docs_with_any(data, ids_of(seeds[i]))
+            return np.where(m, s, 0.0), m
+        check_leaf_batches(f"bool + {label}", args, data["searcher"],
+                           batches, results, score64)
+        stats["expanded_terms"] = sizes
+        stats["requests"] = n
+        out[label] = stats
+    return out
+
+
+def phase_similarity_paths(torch, args, data, f64, name,
+                           smi_line) -> dict:
+    """Phase 44: config 1's 4-term match on the body field mapped
+    ``classic``, then ``LMDirichlet`` (mu 2000), over the same installed
+    segments (a second MapperService: the reader does not depend on the
+    mapping), LEAF_BATCHES batches each (K15, K2), against float64 scoring
+    from the host's columns."""
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.search.phase import ShardSearcher
+    dl = f64.lens.astype(np.float64)
+    total_tokens = float(f64.lens.sum())
+    out = {}
+    for sim in ("classic", "LMDirichlet"):
+        ms = MapperService()
+        ms.merge("_doc", {"properties": {
+            "body": {"type": "text", "analyzer": "whitespace",
+                     "similarity": sim},
+            "rank": {"type": "double"},
+            "vec": {"type": "dense_vector", "dims": VEC_DIMS}}})
+        searcher = ShardSearcher(0, data["reader"], ms)
+        bodies = [{"query": {"match": {"body": t}}, "size": args.k}
+                  for t in data["texts"][:LEAF_BATCHES * args.batch]]
+        batches = batches_of(args, bodies)
+        results, per_batch, wall, launches, peak = drive(torch, searcher,
+                                                         batches)
+        stats = report(f"config 1 match, {sim} similarity", args, data,
+                       batches, per_batch, wall, launches, peak, name,
+                       smi_line, ("sim_scan", "stable_topk"))
+        check(launches["bm25_scan"] == 0, f"the {sim} match ran K1's BM25")
+
+        def score64(i, sim=sim):
+            s = np.zeros(f64.n, np.float64)
+            m = np.zeros(f64.n, bool)
+            for t in data["qtids"][i]:
+                d, f = f64.post[int(t)]
+                m[d] = True
+                if sim == "classic":
+                    idf = 1.0 + np.log(f64.n / (f64.df[t] + 1.0))
+                    s[d] += idf * idf * np.sqrt(f) / np.sqrt(dl[d])
+                else:
+                    frac = float(f.sum()) / total_tokens
+                    s[d] += np.maximum(
+                        np.log1p(f / (2000.0 * max(frac, 1e-12)))
+                        + np.log(2000.0 / (dl[d] + 2000.0)), 0.0)
+            return np.where(m, s, 0.0), m
+        check_leaf_batches(f"{sim} match", args, searcher, batches, results,
+                           score64)
+        out[sim] = stats
+    return out
+
+
+def compound_terms(args, data, n):
+    """Terms whose plans every request of a batch shares: for common, two
+    terms above the cutoff frequency (0.001 of the docs) and two at or
+    below it; for more_like_this, 16 distinct terms by df (4 like-texts of
+    4), so each request picks all 16."""
+    df = data["df"]
+    cut = 0.001 * len(data["lens"])
+    rng = np.random.default_rng([args.seed, 45])
+    high = np.nonzero(df > cut)[0]
+    low = np.nonzero((df > 0) & (df <= cut))[0]
+    common = np.concatenate([rng.choice(high, (n, 2)),
+                             rng.choice(low, (n, 2))], axis=1)
+    present = np.nonzero(df > 0)[0]
+    w = df[present] / df[present].sum()
+    mlt = np.stack([rng.choice(present, 16, replace=False, p=w)
+                    for _ in range(n)])
+    return {"common": common, "more_like_this": mlt}
+
+
+def compound_bodies(data, kind, n, terms):
+    names = data["term_names"]
+    out = []
+    for i in range(n):
+        a, b_, c, d = leaf_terms(data, i)
+        if kind == "multi_match":
+            q = {"multi_match": {"query": f"{a} {b_} {c} {d}",
+                                 "fields": ["body", "body^0.5"],
+                                 "tie_breaker": 0.3}}
+        elif kind == "dis_max":
+            q = {"dis_max": {"queries": [{"match": {"body": a}},
+                                         {"match": {"body": b_}}],
+                             "tie_breaker": 0.2}}
+        elif kind == "boosting":
+            q = {"boosting": {"positive": {"match": {"body": f"{a} {b_}"}},
+                              "negative": {"match": {"body": c}},
+                              "negative_boost": 0.5}}
+        elif kind == "common":
+            q = {"common": {"body": {"query": " ".join(
+                names[t] for t in terms["common"][i]),
+                "cutoff_frequency": 0.001}}}
+        elif kind == "query_string":
+            q = {"query_string": {"query": f"{a} AND {b_}",
+                                  "default_field": "body"}}
+        else:
+            ts = [names[t] for t in terms["more_like_this"][i]]
+            q = {"more_like_this": {"fields": ["body"], "like": [
+                " ".join(ts[j:j + 4]) for j in range(0, 16, 4)],
+                "min_term_freq": 1, "min_doc_freq": 1}}
+        out.append({"query": q, "size": 1000})
+    return out
+
+
+def compound_score64(f64, kind, qt, i, terms):
+    """float64 scores and mask of compound request i of ``kind``."""
+    a, b_, c, d = qt[i]
+    if kind == "multi_match":
+        s, cnt = f64.bm25((a, b_, c, d))     # body, and body at boost 0.5
+        return np.where(cnt > 0, s + 0.3 * 0.5 * s, 0.0), cnt > 0
+    if kind == "dis_max":
+        (sa, ca), (sb, cb) = f64.bm25((a,)), f64.bm25((b_,))
+        best = np.maximum(sa, sb)
+        m = (ca > 0) | (cb > 0)
+        return np.where(m, best + 0.2 * (sa + sb - best), 0.0), m
+    if kind == "boosting":
+        s, cnt = f64.bm25((a, b_))
+        neg = f64.bm25((c,))[1] > 0
+        return np.where(neg, s * 0.5, s), cnt > 0
+    if kind == "common":
+        ts = [int(t) for t in terms["common"][i]]
+        low = [t for t in ts if f64.df[t] <= 0.001 * f64.n]
+        high = [t for t in ts if f64.df[t] > 0.001 * f64.n]
+        s, cnt = f64.bm25(low or high)
+        if low and high:
+            s = s + f64.bm25(high)[0]
+        return np.where(cnt > 0, s, 0.0), cnt > 0
+    if kind == "query_string":
+        s, cnt = f64.bm25((a, b_))       # bool must: both clauses
+        return np.where(cnt == 2, s, 0.0), cnt == 2
+    # more_like_this, re-selected here: the like texts' terms ranked by
+    # idf · tf (then name), the top 25, at least 30% of them per doc
+    tf = {}
+    for t in terms["more_like_this"][i]:
+        tf[int(t)] = tf.get(int(t), 0) + 1
+    names = f64.data["term_names"]
+    picked = [t for _, _, t in sorted(
+        ((cpu_idf(f64.df, t, f64.n) * n_, names[t], t)
+         for t, n_ in tf.items()), key=lambda x: (-x[0], x[1]))[:25]]
+    s, cnt = f64.bm25(picked)
+    m = cnt >= int(len(picked) * 30 / 100.0)
+    return np.where(m, s, 0.0), m
+
+
+def phase_compound_paths(torch, args, data, f64, name, smi_line) -> dict:
+    """Phase 45: one batch each of multi_match (best_fields, tie_breaker
+    0.3), dis_max, boosting, common (cutoff 0.001), query_string and
+    more_like_this on 4 like-texts (K1, K2), against float64 BM25."""
+    out = {}
+    terms = compound_terms(args, data, args.batch)
+    f64.post.update(postings(data["uterms"], data["utf"], np.concatenate(
+        [terms["common"].ravel(), terms["more_like_this"].ravel()])))
+    for kind in ("multi_match", "dis_max", "boosting", "common",
+                 "query_string", "more_like_this"):
+        batches = batches_of(args, compound_bodies(data, kind, args.batch,
+                                                   terms))
+        results, per_batch, wall, launches, peak = drive(
+            torch, data["searcher"], batches)
+        out[kind] = report(kind, args, data, batches, per_batch, wall,
+                           launches, peak, name, smi_line,
+                           ("bm25_scan", "stable_topk"))
+        check_leaf_batches(kind, args, data["searcher"], batches, results,
+                           lambda i, kind=kind: compound_score64(
+                               f64, kind, data["qtids"], i, terms))
+    return out
+
+
+def span_program_args(torch, searcher, seg, queries):
+    """K13's arguments for a batch of same-signature span queries on one
+    segment, stacked as the batch path stacks them."""
+    dev = seg.live.device
+    rows = [span_lowered(searcher, seg, q) for q in queries]
+    prog, field, avg = rows[0][0], rows[0][4], rows[0][5]
+    b = len(queries)
+    p = searcher.ctx.bm25
+    cols = [seg.text[f] for f in prog.fields]
+    return (prog, [c.tokens for c in cols], [c.tok_extent for c in cols],
+            seg.text[field].doc_len,
+            torch.tensor([r[1] for r in rows], dtype=torch.int32,
+                         device=dev).reshape(b, prog.n_terms),
+            [torch.from_numpy(np.stack([r[2][j] for r in rows])).to(dev)
+             for j in range(prog.n_sets)],
+            torch.tensor(np.asarray([r[3] for r in rows], np.float32),
+                         device=dev), p.k1, p.b,
+            torch.full((b,), float(np.float32(avg)), device=dev))
+
+
+def same_bits(torch, got, want, what):
+    torch.cuda.synchronize()
+    check(torch.equal(got[1], want[1]) and torch.equal(
+        got[0].view(torch.int32), want[0].view(torch.int32)),
+        f"{what} is not bit-identical to its plain version")
+
+
+def token_scan_bytes(col, b):
+    """Least bytes of a position-matrix scan for a batch of b: each row read
+    up to its extent, the extents and lengths once, [B, N] scores and mask
+    bytes written."""
+    n = col.tokens.shape[0]
+    return (4 * int(col.tok_extent.sum()) + nbytes(col.tok_extent)
+            + nbytes(col.doc_len) + b * n * 5)
+
+
+def row_scan_bytes(torch, col):
+    """Least bytes of reading each forward row up to its first pad."""
+    u = col.uterms.shape[1]
+    return 4 * int(torch.clamp((col.uterms >= 0).sum(dim=1) + 1,
+                               max=u).sum())
+
+
+def phase_leaf_kernels(torch, args, data) -> list[dict]:
+    """Phase 39: K13-K16 against their plain versions at the shapes the
+    leaf paths give them on segment 0 (B = 64, N = 2^20, L = 224) and at
+    odd shapes (N = 100,003, holes, a second query group, absent and
+    repeated terms): bit-identical for K13-K15, equal masks for K16; each
+    timed beside its plain version (on plain_queries(B) where a batch
+    takes seconds), its bound and a library call where one exists."""
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.ops import lexical, phrase, spans
+    from elasticsearch_tpu_torch.search import query_dsl
+    from elasticsearch_tpu_torch.search.phase import ShardSearcher
+    from elasticsearch_tpu_torch.search.execute import _pad_pow2
+    from elasticsearch_tpu_torch.search.segment_exec import (
+        _plan_segment_batch)
+    searcher, reader = data["searcher"], data["reader"]
+    for s_ in reader.segments:          # config 2 put them there already
+        reader.fetch_tokens(s_, "body")
+    seg = reader.segments[0]
+    col = seg.text["body"]
+    dev = col.uterms.device
+    n, length = col.tokens.shape
+    b = args.batch
+    qi = torch.tensor(plain_queries(b), device=dev)
+    pq = len(qi)
+    rng = np.random.default_rng([args.seed, 39])
+    n_odd = min(n, 100_003)
+    p = searcher.ctx.bm25
+    kernels = []
+
+    # ---- K13 span_program: the span tree and the containing program -----
+    plans = {}
+    for kind in ("not_tree", "containing", "within", "first"):
+        queries = [query_dsl.parse_query(bd["query"])
+                   for bd in span_bodies(data, kind, b)]
+        plans[kind] = span_program_args(torch, searcher, seg, queries)
+        a13 = plans[kind]
+        got = spans.span_program_score_batch(*a13)
+        sub = (a13[0], a13[1], a13[2], a13[3], a13[4][qi],
+               [s[qi] for s in a13[5]], a13[6][qi], a13[7], a13[8],
+               a13[9][qi])
+        want = spans.span_program_score_batch_plain(
+            sub[0], sub[1], *sub[3:])
+        same_bits(torch, (got[0][qi], got[1][qi]), want,
+                  f"K13 ({kind}, B={b}, N={n}, {len(a13[0].code)} ops)")
+        check(bool(got[1].any()), f"K13 {kind}: nothing matched")
+    a13 = plans["not_tree"]
+    k13_ms = timed(torch, "K13 span tree", lambda:
+                   spans.span_program_score_batch(*a13), reps=5)
+    sub = (a13[0], a13[1], a13[3], a13[4][qi], [s[qi] for s in a13[5]],
+           a13[6][qi], a13[7], a13[8], a13[9][qi])
+    k13_plain = timed(torch, f"K13 plain ({pq} queries)", lambda:
+                      spans.span_program_score_batch_plain(*sub), reps=1,
+                      warmup=0)
+    k13_bytes = token_scan_bytes(col, b) + sum(nbytes(s) for s in a13[5]) \
+        + nbytes(a13[4])
+    k13_b, k13_by = bound(k13_bytes, 0)
+    # odd: the containing program on N = 100,003 rows with holes, B = 3
+    tok = col.tokens[:n_odd].clone()
+    holes = torch.arange(0, n_odd, 7, device=dev)
+    tok[holes, (col.doc_len[holes] // 3).long()] = -1
+    ext = phrase.token_extent(tok)
+    c13 = plans["containing"]
+    o13 = (c13[0], [tok], [ext], col.doc_len[:n_odd], c13[4][:3],
+           [s[:3] for s in c13[5]], c13[6][:3], p.k1, p.b, c13[9][:3])
+    same_bits(torch, spans.span_program_score_batch(*o13),
+              spans.span_program_score_batch_plain(o13[0], o13[1],
+                                                   *o13[3:]),
+              f"K13 at the odd shape B=3, N={n_odd}")
+    log(f"K13 span_program [B={b}, N={n}, L={length}, span tree of "
+        f"{len(a13[0].code)} ops, a 128-term set]: bit-identical to plain "
+        f"(and the containing, within and first programs; the odd shape); "
+        f"kernel_ms={k13_ms:.4f} plain_ms={k13_plain:.4f} ({pq} queries) "
+        f"bound_ms={k13_b:.4f} ({k13_by}: {k13_bytes} B) library_ms=null")
+    kernels.append({
+        "name": "span_program", "route": "cuda", "source": K13_SOURCE,
+        "replaces": K13_REPLACES, "launches": 0, "max_abs_err": 0.0,
+        "ms": k13_ms, "plain_ms": k13_plain, "plain_queries": pq,
+        "bound_ms": k13_b, "bound_by": k13_by, "library_ms": None,
+        "library_null": "no single torch call runs a span program",
+        "shape": {"B": b, "N": n, "L": length, "ops": len(a13[0].code)}})
+
+    # ---- K14 span_near_scan: unordered slop 3 and in order slop 2 --------
+    a14s = {}
+    for kind, slop, in_order in (("near_unordered", 3, False),
+                                 ("near_in_order", 2, True)):
+        queries = [query_dsl.parse_query(bd["query"])
+                   for bd in span_bodies(data, kind, b)]
+        c = _plan_segment_batch(seg, searcher.ctx, queries, args.k)["consts"]
+        a14 = (col.tokens, col.doc_len, torch.stack(c[:3], dim=1), slop,
+               in_order, c[3], p.k1, p.b, c[4])
+        got = phrase.span_near_score_batch(*a14, extent=col.tok_extent)
+        want = phrase.span_near_score_batch_plain(
+            a14[0], a14[1], a14[2][qi], slop, in_order, a14[5][qi], p.k1,
+            p.b, a14[8][qi])
+        same_bits(torch, (got[0][qi], got[1][qi]), want,
+                  f"K14 ({kind}, B={b}, N={n})")
+        check(bool(got[1].any()), f"K14 {kind}: nothing matched")
+        a14s[kind] = a14
+    a14 = a14s["near_unordered"]
+    k14_ms = timed(torch, "K14 unordered", lambda:
+                   phrase.span_near_score_batch(*a14, extent=col.tok_extent),
+                   reps=5)
+    k14_io_ms = timed(torch, "K14 in order", lambda:
+                      phrase.span_near_score_batch(
+                          *a14s["near_in_order"], extent=col.tok_extent),
+                      reps=5)
+    k14_plain = timed(torch, f"K14 plain ({pq} queries)", lambda:
+                      phrase.span_near_score_batch_plain(
+                          a14[0], a14[1], a14[2][qi], 3, False,
+                          a14[5][qi], p.k1, p.b, a14[8][qi]), reps=1,
+                      warmup=0)
+    k14_bytes = token_scan_bytes(col, b) + 3 * nbytes(a14[5])
+    k14_b, k14_by = bound(k14_bytes, 0)
+    row = tok[1].cpu().numpy()
+    o_tids = torch.tensor([[row[0], row[2], row[1], row[4], row[3]],
+                           [row[2]] * 5,
+                           [row[0], -1, row[3], row[4], row[6]]],
+                          dtype=torch.int32, device=dev)
+    o_idf = torch.tensor([1.5, 7.0, 2.25], device=dev)
+    o_av = a14[8][:3]
+    for slop, in_order in ((0, True), (6, True), (0, False), (6, False)):
+        oa = (tok, col.doc_len[:n_odd], o_tids, slop, in_order, o_idf, p.k1,
+              p.b, o_av)
+        same_bits(torch, phrase.span_near_score_batch(*oa, extent=ext),
+                  phrase.span_near_score_batch_plain(*oa),
+                  f"K14 at the odd shape B=3, N={n_odd}, T=5, slop {slop}, "
+                  f"in_order {in_order}")
+    log(f"K14 span_near_scan [B={b}, N={n}, L={length}, T=3]: bit-identical "
+        f"to plain (unordered slop 3, in order slop 2; the odd shapes); "
+        f"kernel_ms={k14_ms:.4f} (in order {k14_io_ms:.4f}) "
+        f"plain_ms={k14_plain:.4f} ({pq} queries) bound_ms={k14_b:.4f} "
+        f"({k14_by}: {k14_bytes} B) library_ms=null")
+    kernels.append({
+        "name": "span_near_scan", "route": "cuda", "source": K14_SOURCE,
+        "replaces": K14_REPLACES, "launches": 0, "max_abs_err": 0.0,
+        "ms": k14_ms, "in_order_ms": k14_io_ms, "plain_ms": k14_plain,
+        "plain_queries": pq, "bound_ms": k14_b, "bound_by": k14_by,
+        "library_ms": None,
+        "library_null": "no single torch call counts span_near windows",
+        "shape": {"B": b, "N": n, "L": length, "T": 3, "slop": 3}})
+
+    # ---- K15 sim_scan: classic and LM Dirichlet at config 1's match ------
+    texts = data["texts"][:b]
+    k15 = {}
+    for sim, code in (("classic", lexical.SIM_CLASSIC),
+                      ("LMDirichlet", lexical.SIM_LM_DIRICHLET)):
+        ms_ = MapperService()
+        ms_.merge("_doc", {"properties": {"body": {
+            "type": "text", "analyzer": "whitespace", "similarity": sim}}})
+        s2 = ShardSearcher(0, reader, ms_)
+        c = _plan_segment_batch(seg, s2.ctx, [query_dsl.parse_query(
+            {"match": {"body": t}}) for t in texts], args.k)["consts"]
+        tids, qa = c[0], c[3]
+        mu = c[4] if code == lexical.SIM_LM_DIRICHLET else None
+        ones = torch.ones(tids.shape, dtype=torch.float32, device=dev)
+        a15 = (code, col.uterms, col.utf, col.doc_len, tids, qa, ones, mu)
+
+        def plain15(a):
+            if a[0] == lexical.SIM_CLASSIC:
+                return lexical.classic_match_batch_plain(*a[1:7])
+            return lexical.lm_dirichlet_match_batch_plain(*a[1:])
+        got = lexical.sim_match_batch(*a15, trailing_pad=col.trailing_pad)
+        same_bits(torch, (got[0], got[1]), plain15(a15),
+                  f"K15 ({sim}, B={b}, N={n})")
+        ms15 = timed(torch, f"K15 {sim}", lambda: lexical.sim_match_batch(
+            *a15, trailing_pad=col.trailing_pad), reps=10)
+        plain_ms = timed(torch, f"K15 {sim} plain", lambda: plain15(a15),
+                         reps=1, warmup=0)
+        # odd: B = 65 (two groups) x T = 11 with an absent and a repeated
+        # term, N = 100,003
+        o_t = torch.from_numpy(make_queries(rng, 65, 11, data["df"])).to(dev)
+        o_t[0, -1] = o_t[0, 0]
+        o_t[1, 3] = -1
+        o_a = torch.from_numpy(rng.uniform(
+            1e-7, 3.0, (65, 11)).astype(np.float32)).to(dev)
+        o_mu = torch.full((65,), 2000.0, device=dev) if mu is not None \
+            else None
+        oa = (code, col.uterms[:n_odd], col.utf[:n_odd],
+              col.doc_len[:n_odd], o_t, o_a, torch.ones_like(o_a), o_mu)
+        same_bits(torch, lexical.sim_match_batch(
+            *oa, trailing_pad=col.trailing_pad), plain15(oa),
+            f"K15 {sim} at the odd shape B=65, T=11, N={n_odd}")
+        hits = int(got[1].sum())
+        k15[sim] = {"ms": ms15, "plain_ms": plain_ms, "hits": hits,
+                    "args": a15}
+    read, _ = k1_work(torch, col.uterms, col.doc_len, k15["classic"][
+        "args"][4], k15["classic"]["args"][5][:, 0], k15["classic"]["hits"])
+    k15_bytes = read + b * n * 8
+    k15_b, k15_by = bound(k15_bytes, 4 * b * n + 8 * k15["classic"]["hits"])
+    log(f"K15 sim_scan [B={b}, N={n}, U={col.uterms.shape[1]}, T=4]: "
+        f"bit-identical to plain, classic and LM Dirichlet (the odd shapes "
+        f"too); kernel_ms classic={k15['classic']['ms']:.4f} LM Dirichlet="
+        f"{k15['LMDirichlet']['ms']:.4f} plain_ms classic="
+        f"{k15['classic']['plain_ms']:.4f} LM Dirichlet="
+        f"{k15['LMDirichlet']['plain_ms']:.4f} bound_ms={k15_b:.4f} "
+        f"({k15_by}: {k15_bytes} B) library_ms=null")
+    kernels.append({
+        "name": "sim_scan", "route": "cuda", "source": K15_SOURCE,
+        "replaces": K15_REPLACES, "launches": 0, "max_abs_err": 0.0,
+        "ms": k15["classic"]["ms"], "lm_dirichlet_ms":
+        k15["LMDirichlet"]["ms"], "plain_ms": k15["classic"]["plain_ms"],
+        "lm_dirichlet_plain_ms": k15["LMDirichlet"]["plain_ms"],
+        "bound_ms": k15_b, "bound_by": k15_by, "library_ms": None,
+        "library_null": "no single torch call scores a similarity over "
+                        "forward rows",
+        "shape": {"B": b, "N": n, "U": int(col.uterms.shape[1]), "T": 4}})
+
+    # ---- K16 term_set_scan: prefix sets of 10, 100 and 1,000 terms -------
+    # each query's set as the resolver builds it (the prefix's ids padded
+    # to a power of 2 with -1), from the names' digits: the resolver's scan
+    # of the dictionary takes ~0.1 s a query on the host
+    k16 = {}
+    names = data["term_names"]
+    w = len(names[0])
+    for size, cut in ((10, w - 1), (100, w - 2), (1000, w - 3)):
+        tids = torch.tensor(np.array([_pad_pow2(list(prefix_ids(
+            names[int(t)][:cut], len(names))), -1)
+            for t in data["qtids"][:b, 0]], np.int32), device=dev)
+        got = lexical.term_set_scan(col.uterms, tids,
+                                    trailing_pad=col.trailing_pad)
+        rows = slice(None) if size < 1000 else qi
+        want = lexical.term_set_scan_plain(col.uterms, tids[rows])
+        torch.cuda.synchronize()
+        check(torch.equal(got[rows], want), f"K16 masks differ from its plain "
+              f"version ({size}-term sets, B={b}, N={n})")
+        ms16 = timed(torch, f"K16 {size} terms", lambda:
+                     lexical.term_set_scan(col.uterms, tids,
+                                           trailing_pad=col.trailing_pad),
+                     reps=10)
+        k16[size] = {"ms": ms16, "tids": tids}
+    tids = k16[100]["tids"]
+    k16_plain = timed(torch, f"K16 plain (100 terms, {pq} queries)", lambda:
+                      lexical.term_set_scan_plain(col.uterms, tids[qi]),
+                      reps=1, warmup=0)
+    one = tids[0][tids[0] >= 0]
+    k16_lib = timed(torch, "torch.isin, one query", lambda:
+                    torch.isin(col.uterms, one).any(dim=1), reps=10)
+    keys, bits = lexical.term_set_index(tids)
+    k16_bytes = row_scan_bytes(torch, col) + nbytes(keys) + nbytes(bits) \
+        + b * n
+    k16_b, k16_by = bound(k16_bytes, 0)
+    o_sets = np.full((70, 1024), -1, np.int32)
+    for i in range(70):
+        k_ = int(rng.integers(0, 1025))
+        o_sets[i, :k_] = rng.choice(len(data["df"]), k_, replace=False)
+    o_sets[1, :4] = data["qtids"][0]
+    ot = torch.from_numpy(o_sets).to(dev)
+    check(torch.equal(lexical.term_set_scan(
+        col.uterms[:n_odd], ot, trailing_pad=col.trailing_pad),
+        lexical.term_set_scan_plain(col.uterms[:n_odd], ot)),
+        f"K16 differs from its plain version at B=70, N={n_odd}")
+    log(f"K16 term_set_scan [B={b}, N={n}, U={col.uterms.shape[1]}]: masks "
+        f"equal to plain at 10-, 100- and 1,000-term sets (and B=70 with "
+        f"empty sets, N={n_odd}); kernel_ms 10={k16[10]['ms']:.4f} "
+        f"100={k16[100]['ms']:.4f} 1000={k16[1000]['ms']:.4f} "
+        f"plain_ms={k16_plain:.4f} (100 terms, {pq} queries) "
+        f"bound_ms={k16_b:.4f} ({k16_by}: {k16_bytes} B) "
+        f"library_ms={k16_lib:.4f} (torch.isin(uterms, set).any(1), ONE "
+        f"query)")
+    kernels.append({
+        "name": "term_set_scan", "route": "cuda", "source": K16_SOURCE,
+        "replaces": K16_REPLACES, "launches": 0, "max_abs_err": 0.0,
+        "ms": k16[100]["ms"], "ms_by_set_size": {s: v["ms"]
+                                                  for s, v in k16.items()},
+        "plain_ms": k16_plain, "plain_queries": pq, "bound_ms": k16_b,
+        "bound_by": k16_by, "library_ms": k16_lib, "library_queries": 1,
+        "shape": {"B": b, "N": n, "U": int(col.uterms.shape[1]),
+                  "T": 128}})
+    return kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1 << 21,
@@ -4713,6 +5662,37 @@ def main(argv=None) -> int:
                       config3s_bodies(args, data))
         phase_profile(torch, args, data, "config 4s",
                       config4s_bodies(data["qv4"][:args.batch]))
+        # the query leaves
+        t_leaves = time.perf_counter()
+        data["span_terms"] = span_terms(args, data, LEAF_BATCHES * args.batch)
+        k13, k14, k15, k16 = phase_leaf_kernels(torch, args, data)
+        kernels.extend((k13, k14, k15, k16))
+        f64 = Float64(data, LEAF_BATCHES * args.batch)
+        leaf_paths = {}
+        for kind, st in phase_span_paths(torch, args, data, f64, name,
+                                         smi_line).items():
+            leaf_paths[f"span-{kind}"] = st
+        for label, st in phase_multi_term_paths(torch, args, data, f64,
+                                                name, smi_line).items():
+            leaf_paths[f"filter-{label}"] = st
+        for sim, st in phase_similarity_paths(torch, args, data, f64, name,
+                                              smi_line).items():
+            leaf_paths[f"match-{sim}"] = st
+        for kind, st in phase_compound_paths(torch, args, data, f64, name,
+                                             smi_line).items():
+            leaf_paths[kind.replace("_", "-")] = st
+        by_config.update(leaf_paths)
+        for kern in kernels:
+            kern["launches_by_config"] = {
+                cfg: st["launches"][kern["name"]]
+                for cfg, st in by_config.items()}
+        for kern in (k13, k14, k15, k16):
+            kern["launches"] = sum(st["launches"][kern["name"]]
+                                   for st in leaf_paths.values())
+        phase_profile(torch, args, data, "span tree",
+                      span_bodies(data, "not_tree", args.batch))
+        log(f"query leaves: phases 39-46 in "
+            f"{time.perf_counter() - t_leaves:.1f} s")
     except Exception as e:                  # noqa: BLE001 — report, then fail
         traceback.print_exc()
         print(f"[chip_smoke] FAILED: {type(e).__name__}: {e}",

@@ -53,6 +53,21 @@
 // Numerics: every operation is rounded on its own (__fmul_rn / __fadd_rn /
 // __fdiv_rn, no FMA contraction, no fast math), in the reference's order, so
 // the result is bit-identical to the plain PyTorch version on the card.
+//
+// K15 (sim_scan_launch): the classic TF-IDF and LM-Dirichlet similarities,
+// replacing elasticsearch_tpu/ops/lexical.py:classic_match and
+// lm_dirichlet_match (search/execute.py:_match_alt_similarity), are this
+// scan instantiated with another per-term formula. Their stamps always carry
+// tf (the mode above for queries whose avgdl differ), and each query
+// finishes its term's share in term order:
+//   classic:      (qweight * (qidf * qidf)) * (sqrt(tf) * inv_norm),
+//                 inv_norm = dl > 0 ? 1 / sqrt(dl) : 0
+//   LM Dirichlet: qweight * max(log1p(tf / (mu * max(frac, floor)))
+//                               + log(mu / (dl + mu)), 0)
+// with the counts always written (their mask is nmatch >= required). The
+// bound and the design are K1's: the same bytes, a few more operations per
+// hit (a square root or two logarithms). The BM25 instantiation is the code
+// above unchanged (the similarity is a template argument).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -78,14 +93,20 @@ constexpr int kSmemOptIn = 232448;
 // run's staged scores (and counts).
 struct Layout {
   int qg, tc, n_chunks, hbits;
-  int off_key, off_slot, off_c, off_avg, off_stamp, off_val, off_score,
-      off_cnt, bytes;
+  int off_key, off_slot, off_c, off_c2, off_avg, off_stamp, off_val,
+      off_score, off_cnt, bytes;
 };
+
+// the similarity of an instantiation (sim_scan_launch's `sim`)
+constexpr int kBm25 = 0;
+constexpr int kClassic = 1;
+constexpr int kLmDirichlet = 2;
 
 __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
 __host__ __device__ inline Layout make_layout(int n_queries, int n_terms,
-                                              bool with_counts) {
+                                              bool with_counts,
+                                              int sim = kBm25) {
   Layout l;
   l.tc = n_terms < kMaxSlots ? n_terms : kMaxSlots;
   int qg = kMaxSlots / l.tc;
@@ -103,6 +124,8 @@ __host__ __device__ inline Layout make_layout(int n_queries, int n_terms,
   l.off_key = o;   o = align16(o + h * 4);
   l.off_slot = o;  o = align16(o + pairs * 4);
   l.off_c = o;     o = align16(o + pairs * 4);
+  l.off_c2 = o;
+  if (sim == kLmDirichlet) o = align16(o + pairs * 4);
   l.off_avg = o;   o = align16(o + l.qg * 4);
   l.off_stamp = o; o = align16(o + kWarps * h);
   l.off_val = o;   o = align16(o + kWarps * h * 4);
@@ -126,6 +149,9 @@ __device__ __forceinline__ float tf_norm(float tf, float k1p1, float norm) {
   return __fdiv_rn(__fmul_rn(tf, k1p1), __fadd_rn(tf, norm));
 }
 
+// kSim == kBm25: qidf, qweight, avgdl as named. kClassic: qidf is the
+// classic idf, avgdl unused. kLmDirichlet: qidf is P(t|C), avgdl is mu.
+template <int kSim>
 __global__ void __launch_bounds__(kThreads)
 bm25_scan_kernel(const int32_t* __restrict__ uterms,
                  const float* __restrict__ utf,
@@ -135,9 +161,10 @@ bm25_scan_kernel(const int32_t* __restrict__ uterms,
                  const float* __restrict__ qweight,
                  const float* __restrict__ avgdl, int n_queries, int n_terms,
                  float k1, float k1p1, float omb, float b, int trailing_pad,
-                 float* __restrict__ scores, int32_t* __restrict__ nmatch) {
+                 float lm_floor, float* __restrict__ scores,
+                 int32_t* __restrict__ nmatch) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(n_queries, n_terms, nmatch != nullptr);
+  const Layout L = make_layout(n_queries, n_terms, nmatch != nullptr, kSim);
   const int qg = L.qg;
   const int hbits = L.hbits;
   const int hsize = 1 << hbits;
@@ -145,6 +172,7 @@ bm25_scan_kernel(const int32_t* __restrict__ uterms,
   int32_t* s_key = reinterpret_cast<int32_t*>(smem + L.off_key);
   int32_t* s_slot = reinterpret_cast<int32_t*>(smem + L.off_slot);  // [t][q]
   float* s_c = reinterpret_cast<float*>(smem + L.off_c);            // [t][q]
+  float* s_c2 = reinterpret_cast<float*>(smem + L.off_c2);          // [t][q]
   float* s_avg = reinterpret_cast<float*>(smem + L.off_avg);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -169,7 +197,9 @@ bm25_scan_kernel(const int32_t* __restrict__ uterms,
     // ---- the table of this group's (query, term) pairs ------------------
     __syncthreads();  // every warp is done with the previous table
     for (int i = threadIdx.x; i < hsize; i += kThreads) s_key[i] = -1;
-    for (int q = threadIdx.x; q < nq; q += kThreads) s_avg[q] = avgdl[q0 + q];
+    if (kSim != kClassic)
+      for (int q = threadIdx.x; q < nq; q += kThreads)
+        s_avg[q] = avgdl[q0 + q];
     __syncthreads();
     for (int i = threadIdx.x; i < nt * qg; i += kThreads) {
       const int t = i / qg;
@@ -179,7 +209,14 @@ bm25_scan_kernel(const int32_t* __restrict__ uterms,
       if (q < nq) {
         const int64_t at = (int64_t)(q0 + q) * n_terms + t0 + t;
         const int32_t term = qtids[at];
-        c = __fmul_rn(qidf[at], qweight[at]);
+        if (kSim == kBm25) {
+          c = __fmul_rn(qidf[at], qweight[at]);
+        } else if (kSim == kClassic) {
+          c = __fmul_rn(qweight[at], __fmul_rn(qidf[at], qidf[at]));
+        } else {
+          c = qweight[at];
+          s_c2[i] = __fmul_rn(s_avg[q], fmaxf(qidf[at], lm_floor));
+        }
         if (term >= 0) {
           uint32_t h = slot_hash(term, hbits);
           for (;;) {
@@ -193,11 +230,13 @@ bm25_scan_kernel(const int32_t* __restrict__ uterms,
       s_slot[i] = slot;
       s_c[i] = c;
     }
-    const float avg0 = s_avg[0];
-    // do the group's queries differ in avgdl? then stamps carry tf
+    const float avg0 = kSim == kBm25 ? s_avg[0] : 0.0f;
+    // do the group's queries differ in avgdl? then stamps carry tf (as they
+    // always do for the other similarities)
     const bool mixed = __syncthreads_or(
-        threadIdx.x < nq &&
-        __float_as_uint(s_avg[threadIdx.x]) != __float_as_uint(avg0));
+        kSim != kBm25 || (threadIdx.x < nq &&
+                          __float_as_uint(s_avg[threadIdx.x]) !=
+                              __float_as_uint(avg0)));
 
     // ---- this warp's runs of rows -----------------------------------------
     int run = blockIdx.x * kWarps + warp;
@@ -227,7 +266,12 @@ bm25_scan_kernel(const int32_t* __restrict__ uterms,
           fetch((int64_t)d + 1);
         else if (run + run_step < runs)
           fetch((int64_t)(run + run_step) * kRun);
-        const float norm0 = length_norm(k1, omb, b, dl, avg0);
+        const float norm0 =
+            kSim == kBm25 ? length_norm(k1, omb, b, dl, avg0) : 0.0f;
+        // classic: the row's 1 / sqrt(dl)
+        const float inv_norm =
+            kSim == kClassic && dl > 0.0f
+                ? __fdiv_rn(1.0f, __fsqrt_rn(dl)) : 0.0f;
         const uint8_t stamp = (uint8_t)(r + 1);
         for (int u0 = 0;;) {
           const int u = u0 + lane;
@@ -267,14 +311,30 @@ bm25_scan_kernel(const int32_t* __restrict__ uterms,
           const int64_t at = (int64_t)(q0 + q) * n_docs + d;
           float score = ch > 0 ? scores[at] : 0.0f;
           int32_t count = ch > 0 && my_cnt ? nmatch[at] : 0;
-          const float norm =
-              mixed ? length_norm(k1, omb, b, dl, s_avg[q]) : norm0;
+          float norm = norm0;
+          if (kSim == kBm25) {
+            if (mixed) norm = length_norm(k1, omb, b, dl, s_avg[q]);
+          } else if (kSim == kLmDirichlet) {
+            const float mu = s_avg[q];
+            norm = logf(__fdiv_rn(mu, __fadd_rn(dl, mu)));
+          }
           for (int t = 0; t < nt; ++t) {
             const int32_t slot = s_slot[t * qg + q];
             if (slot < 0 || my_stamp[slot] != stamp) continue;
             const float v = my_val[slot];
-            const float tfn = mixed ? tf_norm(v, k1p1, norm) : v;
-            score = __fadd_rn(score, __fmul_rn(s_c[t * qg + q], tfn));
+            float share;
+            if (kSim == kBm25) {
+              const float tfn = mixed ? tf_norm(v, k1p1, norm) : v;
+              share = __fmul_rn(s_c[t * qg + q], tfn);
+            } else if (kSim == kClassic) {
+              share = __fmul_rn(s_c[t * qg + q],
+                                __fmul_rn(__fsqrt_rn(v), inv_norm));
+            } else {
+              const float ts = __fadd_rn(
+                  log1pf(__fdiv_rn(v, s_c2[t * qg + q])), norm);
+              share = __fmul_rn(s_c[t * qg + q], ts > 0.0f ? ts : 0.0f);
+            }
+            score = __fadd_rn(score, share);
             ++count;
           }
           my_score[q * kStride + r] = score;
@@ -298,22 +358,18 @@ bm25_scan_kernel(const int32_t* __restrict__ uterms,
   }
 }
 
-}  // namespace
-
-// `nmatch` may be NULL: the counts are then neither kept nor written.
-extern "C" int bm25_scan_launch(const void* uterms, const void* utf,
-                                const void* doc_len, int n_docs, int n_unique,
-                                const void* qtids, const void* qidf,
-                                const void* qweight, const void* avgdl,
-                                int n_queries, int n_terms, float k1,
-                                float k1p1, float omb, float b,
-                                int trailing_pad, void* scores, void* nmatch,
-                                void* stream) {
+template <int kSim>
+int scan_launch(const void* uterms, const void* utf, const void* doc_len,
+                int n_docs, int n_unique, const void* qtids, const void* qidf,
+                const void* qweight, const void* avgdl, int n_queries,
+                int n_terms, float k1, float k1p1, float omb, float b,
+                int trailing_pad, float lm_floor, void* scores, void* nmatch,
+                void* stream) {
   if (n_docs <= 0 || n_queries <= 0 || n_terms <= 0 || n_unique <= 0)
     return (int)cudaErrorInvalidValue;
-  const Layout l = make_layout(n_queries, n_terms, nmatch != nullptr);
+  const Layout l = make_layout(n_queries, n_terms, nmatch != nullptr, kSim);
   cudaError_t err = cudaFuncSetAttribute(
-      bm25_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bm25_scan_kernel<kSim>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemOptIn);
   if (err != cudaSuccess) return (int)err;
   int device = 0, sms = 0, per_sm = 0;
@@ -322,7 +378,7 @@ extern "C" int bm25_scan_launch(const void* uterms, const void* utf,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bm25_scan_kernel, kThreads, l.bytes);
+        &per_sm, bm25_scan_kernel<kSim>, kThreads, l.bytes);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int groups = (n_queries + l.qg - 1) / l.qg;
@@ -334,12 +390,55 @@ extern "C" int bm25_scan_launch(const void* uterms, const void* utf,
   if (want < 1) want = 1;
   if (want > blocks_needed) want = blocks_needed;
   dim3 grid((unsigned)want, (unsigned)groups);
-  bm25_scan_kernel<<<grid, kThreads, l.bytes, (cudaStream_t)stream>>>(
+  bm25_scan_kernel<kSim><<<grid, kThreads, l.bytes, (cudaStream_t)stream>>>(
       (const int32_t*)uterms, (const float*)utf, (const int32_t*)doc_len,
       n_docs, n_unique, (const int32_t*)qtids, (const float*)qidf,
       (const float*)qweight, (const float*)avgdl, n_queries, n_terms, k1,
-      k1p1, omb, b, trailing_pad, (float*)scores, (int32_t*)nmatch);
+      k1p1, omb, b, trailing_pad, lm_floor, (float*)scores,
+      (int32_t*)nmatch);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// `nmatch` may be NULL: the counts are then neither kept nor written.
+extern "C" int bm25_scan_launch(const void* uterms, const void* utf,
+                                const void* doc_len, int n_docs, int n_unique,
+                                const void* qtids, const void* qidf,
+                                const void* qweight, const void* avgdl,
+                                int n_queries, int n_terms, float k1,
+                                float k1p1, float omb, float b,
+                                int trailing_pad, void* scores, void* nmatch,
+                                void* stream) {
+  return scan_launch<kBm25>(uterms, utf, doc_len, n_docs, n_unique, qtids,
+                            qidf, qweight, avgdl, n_queries, n_terms, k1,
+                            k1p1, omb, b, trailing_pad, 0.0f, scores, nmatch,
+                            stream);
+}
+
+// K15. sim 1 (classic): qa is the classic idf, mu unused (may be NULL);
+// sim 2 (LM Dirichlet): qa is P(t|C), mu [n_queries], floor the f32 floor
+// of P(t|C). The counts are always written.
+extern "C" int sim_scan_launch(const void* uterms, const void* utf,
+                               const void* doc_len, int n_docs, int n_unique,
+                               const void* qtids, const void* qa,
+                               const void* qweight, const void* mu,
+                               int n_queries, int n_terms, int sim,
+                               float floor, int trailing_pad, void* scores,
+                               void* nmatch, void* stream) {
+  if (nmatch == nullptr) return (int)cudaErrorInvalidValue;
+  if (sim == kClassic)
+    return scan_launch<kClassic>(uterms, utf, doc_len, n_docs, n_unique,
+                                 qtids, qa, qweight, nullptr, n_queries,
+                                 n_terms, 0.0f, 0.0f, 0.0f, 0.0f,
+                                 trailing_pad, floor, scores, nmatch, stream);
+  if (sim == kLmDirichlet && mu != nullptr)
+    return scan_launch<kLmDirichlet>(uterms, utf, doc_len, n_docs, n_unique,
+                                     qtids, qa, qweight, mu, n_queries,
+                                     n_terms, 0.0f, 0.0f, 0.0f, 0.0f,
+                                     trailing_pad, floor, scores, nmatch,
+                                     stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* bm25_scan_error_string(int code) {

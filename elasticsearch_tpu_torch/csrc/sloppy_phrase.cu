@@ -37,7 +37,8 @@
 // first terms lets most positions skip the probes). The query is taken there
 // only if s is its SMALLEST such shift (no earlier shift holds term 1),
 // then its later terms are looked for at their smallest shifts, giving up
-// as soon as the shifts so far leave no room in the slop. (Keyed by the
+// as soon as the shifts so far leave no room in the slop (the search of
+// sloppy_shifts.cuh, which K14 shares). (Keyed by the
 // first term alone, every occurrence of a common first term walked its
 // chain of queries: 4.82 ms at B = 64, N = 2^20, slop 2 on an H100, 6.2x
 // K3.)
@@ -55,6 +56,8 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sloppy_shifts.cuh"
 
 namespace {
 
@@ -127,25 +130,6 @@ __device__ __forceinline__ uint32_t slot_hash(int32_t t0, int32_t t1,
                                               int hbits) {
   return ((uint32_t)t0 * 0x9E3779B1u ^ (uint32_t)t1 * 0x85EBCA77u) >>
          (32 - hbits);
-}
-
-// The summed smallest shifts of query qt's terms 2.. for the match
-// anchored at p, or -1 when they do not fit in `budget`. No term matches
-// at or past the row's extent `ext`.
-template <typename Tok>
-__device__ __forceinline__ int rest_shifts(const int32_t* qt, int n_terms,
-                                           const int32_t* delta, int budget,
-                                           int p, int ext, const Tok& tok) {
-  int total = 0;
-  for (int k = 2; k < n_terms; ++k) {
-    const int32_t want = qt[k];
-    const int at = p + delta[k];
-    int s = 0;
-    while (s <= budget - total && at + s < ext && tok(at + s) != want) ++s;
-    if (s > budget - total || at + s >= ext) return -1;
-    total += s;
-  }
-  return total;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -304,8 +288,9 @@ sloppy_phrase_kernel(const int32_t* __restrict__ tokens,
             first = tok(p + delta1 + s2) != x1;
           if (!first) continue;
           for (int q = head; q >= 0; q = s_next[q]) {
-            const int rest = rest_shifts(s_qt + q * n_terms, n_terms,
-                                         s_delta, slop - sh, p, ext, tok);
+            const int rest = sloppy_rest_shifts(s_qt + q * n_terms, 2,
+                                                n_terms, s_delta, slop - sh,
+                                                p, ext, tok);
             if (rest < 0) continue;
             if (!add) return true;
             float* f = &my_freq[q * kStride + r];

@@ -45,8 +45,13 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """The built library for ``csrc/<source>``: keyed by its content."""
-    digest = hashlib.sha256((CSRC_DIR / source).read_bytes()).hexdigest()
+    """The built library for ``csrc/<source>``: keyed by its content and
+    the content of the headers in ``csrc/`` (a source may include them)."""
+    h = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
 
 

@@ -23,8 +23,14 @@ semantics (:func:`_sloppy_displacement`): on a CUDA tensor the batch is
 kernel K11 (``csrc/sloppy_phrase.cu``, :func:`sloppy_phrase_score_batch`),
 the same row scan as K3; on a CPU tensor it is
 :func:`sloppy_phrase_score_batch_plain`. Both sum a doc's positions in
-ascending order, so they agree bit for bit. The span_near bodies
-(``sloppy_phrase_count``, unordered span-near) come with the span queries.
+ascending order, so they agree bit for bit.
+
+A flat ``span_near`` (every clause a ``span_term``) counts its spans with
+:func:`sloppy_phrase_count` (in order) or :func:`span_near_freq_unordered`
+and scores them with :func:`freq_score`: on a CUDA tensor the batch is
+kernel K14 (``csrc/span_near.cu``, :func:`span_near_score_batch`), whose
+in-order search is K11's (``csrc/sloppy_shifts.cuh``); on a CPU tensor it
+is :func:`span_near_score_batch_plain`.
 """
 
 from __future__ import annotations
@@ -50,6 +56,14 @@ PHRASE_SCAN = cuda_build.CudaKernel(
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
      ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
      ctypes.c_void_p])
+
+SPAN_NEAR_SCAN = cuda_build.CudaKernel(
+    "span_near_scan", "span_near.cu", "span_near_launch",
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_float, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+     ctypes.c_void_p, ctypes.c_void_p])
 
 SLOPPY_PHRASE_SCAN = cuda_build.CudaKernel(
     "sloppy_phrase_scan", "sloppy_phrase.cu", "sloppy_phrase_launch",
@@ -274,8 +288,75 @@ def sloppy_phrase_score_batch_plain(tokens, doc_len, qtids, deltas, slop,
     return scores, mask
 
 
-def span_near_freq_unordered(*args, **kwargs):
-    raise NotPortedError("unordered span_near is not ported yet")
+def sloppy_phrase_count(tokens, qtids, deltas: list[int], slop: int):
+    """Number of in-order matches within the slop budget (each anchored
+    occurrence counts 1, not the 1/(1+d) sloppyFreq weight) — span_near's
+    in-order frequency. → freq [N] f32."""
+    total = _sloppy_displacement(tokens, qtids, deltas, slop)
+    return (total <= slop).sum(dim=1).to(torch.float32)
+
+
+def span_near_freq_unordered(tokens, qtids, slop: int):
+    """Unordered span-near frequency (Lucene NearSpansUnordered analog): a
+    span starts at ``p`` when EVERY clause term occurs somewhere in
+    ``tokens[p : p + T + slop]``; runs of matching starts collapse to their
+    first position, so each region counts once. As in the JAX package,
+    span widths feed no sloppyFreq weight, and two clause terms may map
+    onto one occurrence when the clauses repeat a term. → freq [N] f32."""
+    window = len(qtids) + slop
+    match = None
+    for k in range(len(qtids)):
+        tid = qtids[k]
+        present = None
+        for d in range(window):
+            h = (_shift_left(tokens, d) == tid) & (tid >= 0)
+            present = h if present is None else (present | h)
+        match = present if match is None else (match & present)
+    prev = torch.zeros_like(match)
+    prev[:, 1:] = match[:, :-1]
+    return (match & ~prev).sum(dim=1).to(torch.float32)
+
+
+def span_near_score_batch(tokens, doc_len, qtids, slop: int, in_order: bool,
+                          sum_idf, k1, b, avgdl, *, extent):
+    """Score a batch of flat span_near queries (every clause a span_term;
+    one shared clause count, ``slop`` and ``in_order``) against one
+    segment: the span frequency (:func:`sloppy_phrase_count` over
+    consecutive positions, or :func:`span_near_freq_unordered`), then
+    :func:`freq_score`.
+
+    tokens [N, L] i32, doc_len [N] i32, qtids [B, T] i32 (-1 = absent),
+    sum_idf [B] f32 (Σ idf summed on the host, cast once), avgdl [B] f32,
+    extent [N] i32 (:func:`token_extent`). → (scores [B, N] f32, mask
+    [B, N] bool)."""
+    if qtids.shape[1] > MAX_TERMS:
+        raise NotPortedError(
+            f"a span_near of [{qtids.shape[1]}] clauses is above the port's "
+            f"limit [{MAX_TERMS}]")
+    if tokens.device.type == "cpu":
+        return span_near_score_batch_plain(tokens, doc_len, qtids, slop,
+                                           in_order, sum_idf, k1, b, avgdl)
+    return _span_near_cuda(tokens, doc_len, qtids, int(slop), bool(in_order),
+                           sum_idf, k1, b, avgdl, extent)
+
+
+def span_near_score_batch_plain(tokens, doc_len, qtids, slop, in_order,
+                                sum_idf, k1, b, avgdl):
+    """K14's plain version, one query at a time with [N, L] temporaries."""
+    n = tokens.shape[0]
+    n_queries, n_terms = qtids.shape
+    scores = torch.empty((n_queries, n), dtype=torch.float32,
+                         device=tokens.device)
+    mask = torch.empty((n_queries, n), dtype=torch.bool, device=tokens.device)
+    for q in range(n_queries):
+        if in_order:
+            freq = sloppy_phrase_count(tokens, qtids[q],
+                                       list(range(n_terms)), slop)
+        else:
+            freq = span_near_freq_unordered(tokens, qtids[q], slop)
+        scores[q], mask[q] = freq_score(freq, doc_len, sum_idf[q], k1, b,
+                                        avgdl[q])
+    return scores, mask
 
 
 def _phrase_scan_cuda(tokens, doc_len, qtids, deltas, sum_idf, k1, b, avgdl,
@@ -357,4 +438,42 @@ def _sloppy_phrase_cuda(tokens, doc_len, qtids, deltas, slop, idfs, k1, b,
         n_queries, n_terms, ctypes.addressof(host_deltas), slop, p(idfs),
         p(avgdl), float(k1_), float(k1p1), float(omb), float(b_), p(scores),
         p(mask))
+    return scores, mask
+
+
+def _span_near_cuda(tokens, doc_len, qtids, slop, in_order, sum_idf, k1, b,
+                    avgdl, extent):
+    dev = tokens.device
+    n, length = tokens.shape
+    n_queries, n_terms = qtids.shape
+    for arg, t, dt in (("tokens", tokens, torch.int32),
+                       ("extent", extent, torch.int32),
+                       ("doc_len", doc_len, torch.int32),
+                       ("qtids", qtids, torch.int32),
+                       ("sum_idf", sum_idf, torch.float32),
+                       ("avgdl", avgdl, torch.float32)):
+        cuda_build.check_dtype("span_near_scan", arg, t, dt)
+    if extent.shape != (n,) or doc_len.shape != (n,) or \
+            sum_idf.shape != (n_queries,) or avgdl.shape != (n_queries,) or \
+            slop < 0:
+        raise ValueError(
+            f"span_near_scan: shapes disagree: tokens {tuple(tokens.shape)}, "
+            f"extent {tuple(extent.shape)}, doc_len {tuple(doc_len.shape)}, "
+            f"qtids {tuple(qtids.shape)}, slop {slop}, sum_idf "
+            f"{tuple(sum_idf.shape)}, avgdl {tuple(avgdl.shape)}")
+    cuda_build.check_cuda("span_near_scan", dev, tokens=tokens,
+                          extent=extent, doc_len=doc_len, qtids=qtids,
+                          sum_idf=sum_idf, avgdl=avgdl)
+    scores = torch.empty((n_queries, n), dtype=torch.float32, device=dev)
+    mask = torch.empty((n_queries, n), dtype=torch.bool, device=dev)
+    if n == 0 or n_queries == 0:
+        return scores, mask
+    if n_terms == 0 or length == 0:      # nothing can match
+        return scores.zero_(), mask.zero_()
+    k1_, k1p1, omb, b_ = bm25_constants(k1, b)
+    p = cuda_build.ptr
+    SPAN_NEAR_SCAN.launch(
+        dev, p(tokens), p(extent), p(doc_len), n, length, p(qtids),
+        n_queries, n_terms, slop, int(in_order), p(sum_idf), p(avgdl),
+        float(k1_), float(k1p1), float(omb), float(b_), p(scores), p(mask))
     return scores, mask

@@ -200,3 +200,9 @@ def unpack_batch_result(packed: np.ndarray, k: int):
 def count_matches(mask):
     """Total hits per row (the search response's hits.total)."""
     return mask.sum(dim=-1, dtype=torch.int32)
+
+
+def max_score(scores, mask):
+    """The largest score under ``mask`` (−inf when none): the reference's
+    ``ops/topk.py`` ``max_score``. A plain body; no path calls it."""
+    return torch.where(mask, scores, NEG_INF).max()

@@ -15,25 +15,35 @@ Lucene's Query.createWeight/scorer split as driven by QueryPhase.execute
   and every emit returns ``(scores [B, N] f32, mask [B, N] bool)``.
 
 The port serves ``match`` with BM25 scoring (the ``msm1`` shortcut
-included), ``match_all``, ``match_none``, ``match_phrase`` (kernel K3 exact,
-kernel K11 with slop), ``bool``, ``constant_score``, ``term``, ``terms``,
-``range``, ``exists`` on keyword, numeric, text and dense_vector fields, the
-``knn`` leaf (cosine over a dense_vector field, the alias of the top-level
-``knn`` section that ``segment_exec``'s knn lane serves) and
-``function_score`` with weight, random_score, field_value_factor,
-numeric/date decay and script_score functions, and the ``script_score``
-query (the script lowered by ``search/scripts.py`` and run by kernel K12,
-``ops/script_ops.script_eval``; ``cosineSimilarity`` / ``dotProduct`` one
-``torch.matmul`` a segment). Every
-other query type is refused with ``QueryParsingError("no executor for query
-type [...]")``, as the reference refuses an unknown type, and a feature of a
-served type that is not ported yet (geo decay) raises ``NotPortedError`` —
-never a fallback.
+included) or the classic and LM-Dirichlet similarities (kernel K15,
+``ops/lexical.sim_match_batch``), ``match_all``, ``match_none``,
+``match_phrase`` (kernel K3 exact, kernel K11 with slop), ``multi_match``,
+``bool``, ``dis_max``, ``boosting``, ``constant_score``, ``common``,
+``term``, ``terms``, ``ids``, ``range``, ``exists`` on keyword, numeric,
+text and dense_vector fields, ``prefix`` / ``wildcard`` / ``regexp`` /
+``fuzzy`` (the vocabulary expanded on the host; a text field's rows tested
+against the expanded set by kernel K16, ``ops/lexical.term_set_scan``), the
+span family (a flat ``span_near`` on kernel K14, ``ops/phrase.
+span_near_score_batch``; every other span tree lowered to a postfix program
+for kernel K13, ``ops/spans.span_program_score_batch``), ``indices``,
+``more_like_this``, the ``knn`` leaf (cosine over a dense_vector field, the
+alias of the top-level ``knn`` section that ``segment_exec``'s knn lane
+serves) and ``function_score`` with weight, random_score,
+field_value_factor, numeric/date decay and script_score functions, and the
+``script_score`` query (the script lowered by ``search/scripts.py`` and run
+by kernel K12, ``ops/script_ops.script_eval``; ``cosineSimilarity`` /
+``dotProduct`` one ``torch.matmul`` a segment). Every other query type
+(nested, parent/child, geo) is refused with ``QueryParsingError("no
+executor for query type [...]")``, as the reference refuses an unknown type,
+and a feature of a served type that is not ported yet (geo decay) raises
+``NotPortedError`` — never a fallback.
 """
 
 from __future__ import annotations
 
 import bisect
+import fnmatch
+import re
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -52,6 +62,7 @@ from elasticsearch_tpu_torch.ops import functionscore as fs_ops
 from elasticsearch_tpu_torch.ops import lexical
 from elasticsearch_tpu_torch.ops import phrase as phrase_ops
 from elasticsearch_tpu_torch.ops import script_ops
+from elasticsearch_tpu_torch.ops import spans as span_ops
 from elasticsearch_tpu_torch.ops import vector as vector_ops
 from elasticsearch_tpu_torch.ops.similarity import BM25Params, idf as bm25_idf
 from elasticsearch_tpu_torch.search import query_dsl as q
@@ -153,7 +164,9 @@ class ExecutionContext:
     # and avgdl come from here instead of the shard-local reader.
     dfs_stats: dict | None = None
     # the shard's index name: the knn and impact lanes read their settings
-    # by it (segment_exec.knn_plane_config, impact_plane_config)
+    # by it (segment_exec.knn_plane_config, impact_plane_config), and the
+    # ``indices`` query picks its branch by it. None → standalone searchers
+    # take the match branch
     index_name: str | None = None
 
 
@@ -207,6 +220,82 @@ def impact_terms(query: "q.Query", mapper_service,
     return field, terms, float(query.boost)
 
 
+def fuzzy_kmax(value: str, fuzziness) -> int:
+    """The AUTO edit-distance ladder (FuzzyQuery defaults): 0 below 3
+    chars, 1 below 6, else 2."""
+    if fuzziness == "AUTO":
+        return 0 if len(value) < 3 else (1 if len(value) < 6 else 2)
+    return int(fuzziness)
+
+
+def multi_term_pred(inner):
+    """The term predicate of a multi-term query node (prefix / wildcard /
+    regexp / fuzzy): the one rewrite seam shared by the ``_res_*`` arms and
+    the span_multi expansion (Lucene's MultiTermQuery TermsEnum)."""
+    it = type(inner).__name__
+    if it == "PrefixQuery":
+        val = inner.value
+        return lambda term: term.startswith(val)
+    if it == "WildcardQuery":
+        rx = re.compile(fnmatch.translate(inner.pattern))
+        return lambda term: rx.match(term) is not None
+    if it == "RegexpQuery":
+        rx = re.compile(inner.pattern)
+        return lambda term: rx.fullmatch(term) is not None
+    if it == "FuzzyQuery":
+        v = inner.value
+        kmax = fuzzy_kmax(v, inner.fuzziness)
+        return lambda term: _edit_distance_le(term, v, kmax)
+    return None
+
+
+def _edit_distance_le(a: str, b: str, k: int) -> bool:
+    """Banded Levenshtein ≤ k (the fuzzy query's vocabulary scan)."""
+    if abs(len(a) - len(b)) > k:
+        return False
+    prev = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        cur = [i] + [0] * len(b)
+        lo = max(1, i - k)
+        hi = min(len(b), i + k)
+        if lo > 1:
+            cur[lo - 1] = k + 1
+        for j in range(lo, hi + 1):
+            cost = 0 if ca == b[j - 1] else 1
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, prev[j - 1] + cost)
+        for j in range(hi + 1, len(b) + 1):
+            cur[j] = k + 1
+        prev = cur
+        if min(prev) > k:
+            return False
+    return prev[len(b)] <= k
+
+
+def _expansion(values: list[str], inner) -> list[int]:
+    """The ids of ``values`` (a segment column's terms or keyword
+    vocabulary) that the multi-term node ``inner`` accepts: one scan of the
+    dictionary at each resolve (Lucene's TermsEnum rewrite)."""
+    pred = multi_term_pred(inner)
+    return [i for i, t in enumerate(values) if pred(t)]
+
+
+class _SpanLowering:
+    """What one span tree's lowering collects: the text fields its leaves
+    read (by index), the const refs of its term slots and term sets."""
+
+    __slots__ = ("fields", "term_refs", "set_refs")
+
+    def __init__(self):
+        self.fields: list[str] = []
+        self.term_refs: list[int] = []
+        self.set_refs: list[int] = []
+
+    def field_index(self, field: str) -> int:
+        if field not in self.fields:
+            self.fields.append(field)
+        return self.fields.index(field)
+
+
 class SegmentResolver:
     """Host-side "createWeight": resolves query ASTs against one segment's
     dictionaries into emit closures + a ConstTable."""
@@ -241,12 +330,43 @@ class SegmentResolver:
         if sim is None:
             sim = getattr(self.ctx.mapper_service, "default_similarity",
                           None)
+        # phrase, common and span queries score BM25 whatever the field's
+        # similarity: like idf, the other similarities apply to the
+        # term-frequency paths (match, term on text, multi_match's matches)
         sim = str(sim or "BM25").lower()
         if sim in ("default", "classic", "tfidf", "tf/idf"):
             return "classic"
         if sim in ("lmdirichlet", "lm_dirichlet"):
             return "lm_dirichlet"
         return "bm25"
+
+    def _ctf_frac(self, field: str, term: str) -> float:
+        """Collection term frequency over the collection's tokens (LM
+        Dirichlet's P(t|C)): from global DFS statistics when present (like
+        idf), else summed over this reader's segments and cached per
+        reader."""
+        dfs = self.ctx.dfs_stats
+        if dfs is not None and (field, term) in dfs.get("ctf", {}):
+            total = dfs.get("total_tokens", {}).get(field, 0)
+            if total:
+                return dfs["ctf"][(field, term)] / total
+        cache = self.ctx.reader.__dict__.setdefault("_ctf_cache", {})
+        key = (field, term)
+        if key in cache:
+            return cache[key]
+        ctf = 0
+        total = 0
+        for s in self.ctx.reader.segments:
+            col = s.seg.text_fields.get(field)
+            if col is None:
+                continue
+            total += int(col.total_tokens)
+            t2 = col.tid(term)
+            if t2 >= 0:
+                ctf += col.ctf(t2)
+        frac = ctf / total if total else 0.0
+        cache[key] = frac
+        return frac
 
     def _numeric_value(self, field: str, value):
         fm = self.ctx.mapper_service.field_mapper(field)
@@ -372,8 +492,9 @@ class SegmentResolver:
             required = 1
         similarity = self._similarity_for(field)
         if similarity != "bm25":
-            raise NotPortedError(
-                f"the [{similarity}] similarity is not ported yet")
+            stats = [self._term_stats(field, t) for t in terms]
+            return self._match_alt_similarity(query, field, terms, tids,
+                                              similarity, required, stats)
         r_tids = self.c(tids, np.int32)
         r_idfs = self.c(idfs, np.float32)
         r_avgdl = self.c(self._avgdl(field), np.float32)
@@ -410,6 +531,45 @@ class SegmentResolver:
                 return scores * boost, scores > 0
             mask = nmatch >= em.get(r_req)[:, None]
             return torch.where(mask, scores * boost, 0.0), mask
+        return emit
+
+    def _match_alt_similarity(self, query, field: str, terms: list[str],
+                              tids: list[int], similarity: str,
+                              required: int,
+                              stats: list[tuple[int, int]]) -> Emit:
+        """Classic TF-IDF and LM-Dirichlet scoring of a match query (K15);
+        the plan signature carries the module name, so differently scored
+        fields never share a batch."""
+        self.sig("match-sim", similarity)
+        r_tids = self.c(tids, np.int32)
+        r_req = self.c(required, np.int32)
+        r_boost = self.c(query.boost, np.float32)
+        if similarity == "classic":
+            # the resolver's own formula, in doubles, cast once
+            idfs = [1.0 + np.log(max(doc_count, 1) / (df + 1.0))
+                    if df > 0 else 0.0 for df, doc_count in stats]
+            r_a = self.c(idfs, np.float32)
+            sim, r_mu = lexical.SIM_CLASSIC, None
+        else:
+            fm = self.ctx.mapper_service.field_mapper(field)
+            mu = float(fm.params.get("similarity_mu", 2000.0)
+                       if fm is not None else 2000.0)
+            r_a = self.c([self._ctf_frac(field, t) for t in terms],
+                         np.float32)
+            sim, r_mu = lexical.SIM_LM_DIRICHLET, self.c(mu, np.float32)
+
+        def emit(em):
+            col = em.seg.text[field]
+            qtids = em.get(r_tids)
+            scores, nmatch = lexical.sim_match_batch(
+                sim, col.uterms, col.utf, col.doc_len, qtids, em.get(r_a),
+                torch.ones(qtids.shape, dtype=torch.float32,
+                           device=em.device),
+                None if r_mu is None else em.get(r_mu),
+                trailing_pad=col.trailing_pad)
+            mask = nmatch >= em.get(r_req)[:, None]
+            return torch.where(mask, scores * em.get(r_boost)[:, None],
+                               0.0), mask
         return emit
 
     def _res_MatchPhraseQuery(self, query: q.MatchPhraseQuery) -> Emit:
@@ -463,6 +623,48 @@ class SegmentResolver:
                     em.get(r_idf), p.k1, p.b, em.get(r_avgdl),
                     extent=col.tok_extent)
             return scores * em.get(r_boost)[:, None], mask
+        return emit
+
+    def _res_MultiMatchQuery(self, query: q.MultiMatchQuery) -> Emit:
+        self.sig("multi_match", query.type, query.tie_breaker > 0,
+                 len(query.fields))
+        subs = []
+        for fspec in query.fields:
+            fname, _, fboost = fspec.partition("^")
+            boost = float(fboost) if fboost else 1.0
+            if query.type == "phrase":
+                sub = q.MatchPhraseQuery(field=fname, text=query.text,
+                                         boost=boost)
+            else:
+                sub = q.MatchQuery(field=fname, text=query.text,
+                                   operator=query.operator, boost=boost)
+            subs.append(self.resolve(sub))
+        if not subs:
+            return self._zeros()
+        mm_type = query.type
+        r_tie = self.c(query.tie_breaker, np.float32) \
+            if query.tie_breaker > 0 else None
+        r_boost = self.c(query.boost, np.float32)
+
+        def emit(em):
+            scores = mask = None
+            for sub in subs:
+                s, m = sub(em)
+                if scores is None:
+                    scores, mask = s, m
+                    continue
+                mask = mask | m
+                if mm_type == "most_fields":
+                    scores = scores + s
+                else:              # best_fields: max + tie_breaker · others
+                    mx = torch.maximum(scores, s)
+                    if r_tie is not None:
+                        scores = mx + em.get(r_tie)[:, None] * (
+                            scores + s - mx)
+                    else:
+                        scores = mx
+            return torch.where(mask, scores * em.get(r_boost)[:, None],
+                               0.0), mask
         return emit
 
     def _keyword_or_text_term_mask(self, field: str, value):
@@ -638,6 +840,84 @@ class SegmentResolver:
         return lambda em: bool_ops.constant_score(mask_emit(em),
                                                   em.get(r_boost))
 
+    # --- the vocabulary-scan leaves (prefix / wildcard / regexp / fuzzy) --
+
+    def _vocab_scan_mask(self, field: str, inner):
+        """Expand a multi-term node against the segment's vocabulary —
+        Lucene's MultiTermQuery rewrite (a TermsEnum scan) stays on the host.
+        The matching id lists are padded to power-of-2 lengths, so queries
+        whose expansions differ in size share a plan. On a text field the
+        rows are tested against the set by K16."""
+        kcol = self.seg.keyword.get(field)
+        if kcol is not None:
+            self.sig("scan-kw", field)
+            qords = _expansion(kcol.column.vocab, inner)
+            if not qords:
+                self.sig("scan-empty")
+                return _no_docs
+            r_ords = self.c(_pad_pow2(qords, -1), np.int32)
+            return lambda em: filter_ops.keyword_terms(
+                em.seg.keyword[field].ords, em.get(r_ords))
+        tcol = self.seg.text.get(field)
+        if tcol is not None:
+            self.sig("scan-text", field)
+            tids = _expansion(tcol.column.terms, inner)
+            if not tids:
+                self.sig("scan-empty")
+                return _no_docs
+            r_tids = self.c(_pad_pow2(tids, -1), np.int32)
+
+            def emit(em):
+                col = em.seg.text[field]
+                return lexical.term_set_scan(col.uterms, em.get(r_tids),
+                                             trailing_pad=col.trailing_pad)
+            return emit
+        self.sig("scan-none", field)
+        return _no_docs
+
+    def _res_PrefixQuery(self, query: q.PrefixQuery) -> Emit:
+        kcol = self.seg.keyword.get(query.field)
+        if kcol is not None:   # sorted vocab → ordinal interval, no scan
+            self.sig("prefix-kw", query.field)
+            field = query.field
+            vocab = kcol.column.vocab
+            r_lo = self.c(bisect.bisect_left(vocab, query.value), np.int32)
+            r_hi = self.c(bisect.bisect_left(vocab, query.value + "\uffff"),
+                          np.int32)
+            return self._constant_mask_emit(
+                lambda em: filter_ops.keyword_ord_range(
+                    em.seg.keyword[field].ords, em.get(r_lo), em.get(r_hi)),
+                query.boost)
+        return self._constant_mask_emit(
+            self._vocab_scan_mask(query.field, query),
+            query.boost)
+
+    def _res_WildcardQuery(self, query: q.WildcardQuery) -> Emit:
+        return self._constant_mask_emit(
+            self._vocab_scan_mask(query.field, query),
+            query.boost)
+
+    def _res_RegexpQuery(self, query: q.RegexpQuery) -> Emit:
+        return self._constant_mask_emit(
+            self._vocab_scan_mask(query.field, query),
+            query.boost)
+
+    def _res_FuzzyQuery(self, query: q.FuzzyQuery) -> Emit:
+        return self._constant_mask_emit(
+            self._vocab_scan_mask(query.field, query),
+            query.boost)
+
+    def _res_IdsQuery(self, query: q.IdsQuery) -> Emit:
+        wanted = set(query.values)
+        hits = np.zeros(self.n, bool)
+        for local, did in enumerate(self.seg.seg.ids):
+            if did in wanted:
+                hits[local] = True
+        r_hits = self.c(hits)
+        r_boost = self.c(query.boost, np.float32)
+        return lambda em: bool_ops.constant_score(em.get(r_hits),
+                                                  em.get(r_boost))
+
     def _res_KnnQuery(self, query: q.KnnQuery) -> Emit:
         """The query-DSL ``knn`` leaf: ``(cosine + 1) · boost`` on every doc
         with a vector, 0 and no match elsewhere. It reads the field's
@@ -688,6 +968,103 @@ class SegmentResolver:
     def _res_ConstantScoreQuery(self, query: q.ConstantScoreQuery) -> Emit:
         return self._constant_mask_emit(
             self.resolve_mask(query.filter_query), query.boost)
+
+    def _res_DisMaxQuery(self, query: q.DisMaxQuery) -> Emit:
+        self.sig("dis_max", len(query.queries), query.tie_breaker > 0)
+        subs = [self.resolve(sub) for sub in query.queries]
+        if not subs:
+            return self._zeros()
+        r_tie = self.c(query.tie_breaker, np.float32) \
+            if query.tie_breaker > 0 else None
+        r_boost = self.c(query.boost, np.float32)
+
+        def emit(em):
+            best = total = mask = None
+            for sub in subs:
+                s, m = sub(em)
+                s = torch.where(m, s, 0.0)
+                if best is None:
+                    best, total, mask = s, s, m
+                    continue
+                best = torch.maximum(best, s)
+                total = total + s
+                mask = mask | m
+            scores = best if r_tie is None else \
+                best + em.get(r_tie)[:, None] * (total - best)
+            return torch.where(mask, scores * em.get(r_boost)[:, None],
+                               0.0), mask
+        return emit
+
+    def _res_BoostingQuery(self, query: q.BoostingQuery) -> Emit:
+        pos = self.resolve(query.positive or q.MatchAllQuery())
+        neg = self.resolve_mask(query.negative or q.MatchNoneQuery())
+        r_neg = self.c(query.negative_boost, np.float32)
+        r_boost = self.c(query.boost, np.float32)
+
+        def emit(em):
+            scores, mask = pos(em)
+            demote = torch.where(neg(em), em.get(r_neg)[:, None], 1.0)
+            return scores * demote * em.get(r_boost)[:, None], mask
+        return emit
+
+    def _res_CommonTermsQuery(self, query: q.CommonTermsQuery) -> Emit:
+        field = query.field
+        analyzer = self._analyzer_for(field, query.analyzer)
+        terms = [t.term for t in analyzer.analyze(query.text)]
+        if not terms or self.seg.text.get(field) is None:
+            return self._zeros()
+        # split by document frequency (ExtendedCommonTermsQuery: ≥ 1 is an
+        # absolute df cutoff, < 1 a fraction of docCount)
+        low, high = [], []
+        for t in terms:
+            df, doc_count = self._term_stats(field, t)
+            cutoff = query.cutoff_frequency if query.cutoff_frequency >= 1 \
+                else query.cutoff_frequency * doc_count
+            idf = bm25_idf(df, doc_count) if df > 0 else 0.0
+            tid = self.seg.text[field].column.tid(t)
+            (high if df > cutoff else low).append((tid, idf))
+        self.sig("common", len(low), len(high))
+        msm_low = len(low) if query.low_freq_operator == "and" else \
+            _resolve_msm(query.minimum_should_match_low, len(low)) \
+            if query.minimum_should_match_low is not None else 1
+        msm_high = len(high) if query.high_freq_operator == "and" else \
+            _resolve_msm(query.minimum_should_match_high, len(high)) \
+            if query.minimum_should_match_high is not None else 1
+        r_avgdl = self.c(self._avgdl(field), np.float32)
+        r_boost = self.c(query.boost, np.float32)
+        p = self.ctx.bm25
+
+        def group(pairs):
+            if not pairs:
+                return None
+            return (self.c([t for t, _ in pairs], np.int32),
+                    self.c([i for _, i in pairs], np.float32))
+        g_low, g_high = group(low), group(high)
+        r_msm_low = self.c(msm_low, np.int32) if g_low else None
+        r_msm_high = self.c(msm_high, np.int32) if g_high else None
+
+        def emit(em):
+            col = em.seg.text[field]
+
+            def score_group(g):
+                r_tids, r_idfs = g
+                qtids = em.get(r_tids)
+                return lexical.bm25_match_batch(
+                    col.uterms, col.utf, col.doc_len, qtids, em.get(r_idfs),
+                    torch.ones(qtids.shape, dtype=torch.float32,
+                               device=em.device),
+                    p.k1, p.b, em.get(r_avgdl), trailing_pad=col.trailing_pad)
+            if g_low is not None:
+                scores, low_n = score_group(g_low)
+                mask = low_n >= em.get(r_msm_low)[:, None]
+                if g_high is not None:
+                    scores = scores + score_group(g_high)[0]
+            else:
+                scores, high_n = score_group(g_high)
+                mask = high_n >= em.get(r_msm_high)[:, None]
+            return torch.where(mask, scores * em.get(r_boost)[:, None],
+                               0.0), mask
+        return emit
 
     def _res_FunctionScoreQuery(self, query: q.FunctionScoreQuery) -> Emit:
         self.sig("function_score", query.score_mode, query.boost_mode,
@@ -891,6 +1268,380 @@ class SegmentResolver:
         return emit
 
 
+    # ---- the span family ----------------------------------------------
+
+    def _res_SpanTermQuery(self, query: q.SpanTermQuery) -> Emit:
+        # a lone span_term scores like a single-term match (SpanWeight's
+        # sloppyFreq over unit-width spans is the term frequency)
+        return self.resolve(q.MatchQuery(field=query.field,
+                                         text=query.value,
+                                         analyzer="keyword",
+                                         boost=query.boost))
+
+    def _res_SpanNearQuery(self, query: q.SpanNearQuery) -> Emit:
+        if not all(type(c).__name__ == "SpanTermQuery"
+                   for c in query.clauses):
+            # composite clauses (or / not / multi / masking / nested near)
+            # run through the span algebra (K13)
+            return self._span_score_emit(query, query.boost)
+        field = query.clauses[0].field
+        col = self.seg.text.get(field)
+        if col is None:
+            return self._zeros()
+        if not col.column.has_positions:
+            raise QueryParsingError(
+                f"field [{field}] was not indexed with positions — "
+                f"span queries need index_options [positions]")
+        self.ct.positions_needed.add(field)
+        terms = [c.value for c in query.clauses]
+        resolved = self._match_terms(field, terms)
+        if resolved is None:
+            return self._zeros()
+        tids, idfs = resolved
+        slop = query.slop
+        self.sig("span_near", len(tids), slop, query.in_order, field)
+        r_tids = [self.c(t, np.int32) for t in tids]
+        r_sum_idf = self.c(sum(idfs), np.float32)
+        r_avgdl = self.c(self._avgdl(field), np.float32)
+        r_boost = self.c(query.boost, np.float32)
+        in_order = query.in_order
+        p = self.ctx.bm25
+
+        def emit(em):
+            # in order: sloppy_phrase_count over consecutive positions (each
+            # anchored match counts 1, the reference's simplification of
+            # sloppyFreq); unordered: span_near_freq_unordered
+            tcol = em.seg.text[field]
+            scores, mask = phrase_ops.span_near_score_batch(
+                tcol.tokens, tcol.doc_len,
+                torch.stack([em.get(r) for r in r_tids], dim=1), slop,
+                in_order, em.get(r_sum_idf), p.k1, p.b, em.get(r_avgdl),
+                extent=tcol.tok_extent)
+            return scores * em.get(r_boost)[:, None], mask
+        return emit
+
+    def _span_ends(self, query, low: _SpanLowering):
+        """Lower a span query to postfix code over min-end maps.
+
+        → (code, sum_idf, field) or None when a required field or term is
+        absent from the segment (no spans). ``field`` supplies doc_len and
+        avgdl for scoring (the masked field for field_masking_span). The
+        leaves' fields and const refs are collected in ``low``."""
+        t = type(query).__name__
+        self.sig("span", t)
+
+        def leaf(field, tids, idfs, multi: bool):
+            col = self.seg.text.get(field)
+            if col is None or not tids:
+                return None
+            if not col.column.has_positions:
+                raise QueryParsingError(
+                    f"field [{field}] was not indexed with positions — "
+                    f"span queries need index_options [positions]")
+            self.ct.positions_needed.add(field)
+            # span_multi expansions weigh like ONE term (the mean idf of the
+            # rewritten set); explicit clauses sum like SpanWeight stats
+            sum_idf = (sum(idfs) / len(idfs)) if multi else sum(idfs)
+            fi = low.field_index(field)
+            if len(tids) == 1:
+                low.term_refs.append(self.c(tids[0], np.int32))
+                self.sig("span-term", field)
+                return ([(span_ops.OP_TERM, fi, len(low.term_refs) - 1, 0)],
+                        sum_idf, field)
+            padded = _pad_pow2(tids, -1)
+            low.set_refs.append(self.c(padded, np.int32))
+            self.sig("span-terms", field, len(padded))
+            return ([(span_ops.OP_TERM_SET, fi, len(low.set_refs) - 1, 0)],
+                    sum_idf, field)
+
+        if t == "SpanTermQuery":
+            resolved = self._match_terms(query.field, [query.value])
+            if resolved is None:
+                return None
+            tids, idfs = resolved
+            return leaf(query.field, tids, idfs, multi=False)
+
+        if t == "SpanMultiQuery":
+            inner = query.match
+            field = getattr(inner, "field", "")
+            col = self.seg.text.get(field)
+            if col is None:
+                return None
+            if multi_term_pred(inner) is None:
+                raise QueryParsingError(
+                    f"[span_multi] does not support inner query "
+                    f"[{type(inner).__name__}]")
+            tids = _expansion(col.column.terms, inner)
+            if not tids:
+                return None
+            idfs = []
+            for tid in tids:
+                df, doc_count = self._term_stats(
+                    field, col.column.terms[tid])
+                idfs.append(bm25_idf(max(df, 1), doc_count))
+            return leaf(field, tids, idfs, multi=True)
+
+        if t == "FieldMaskingSpanQuery":
+            plan = self._span_ends(query.query, low)
+            if plan is None:
+                return None
+            if self.seg.text.get(query.field) is None:
+                return None
+            code, sum_idf, _inner_field = plan
+            self.sig("span-mask", query.field)
+            return code, sum_idf, query.field
+
+        if t == "SpanOrQuery":
+            plans = [self._span_ends(c, low) for c in query.clauses]
+            plans = [p for p in plans if p is not None]
+            if not plans:
+                return None
+            code = [ins for p in plans for ins in p[0]]
+            code.append((span_ops.OP_OR, len(plans), 0, 0))
+            return code, sum(p[1] for p in plans), plans[0][2]
+
+        if t == "SpanNearQuery":
+            plans = [self._span_ends(c, low) for c in query.clauses]
+            if any(p is None for p in plans) or not plans:
+                return None
+            slop = int(query.slop)
+            in_order = bool(query.in_order)
+            self.sig("span-near-ends", len(plans), slop, in_order)
+            code = [ins for p in plans for ins in p[0]]
+            code.append((span_ops.OP_NEAR, len(plans), slop, int(in_order)))
+            return code, sum(p[1] for p in plans), plans[0][2]
+
+        if t == "SpanNotQuery":
+            inc = self._span_ends(query.include, low)
+            if inc is None:
+                return None
+            exc = self._span_ends(query.exclude, low)
+            if exc is None:
+                return inc
+            pre, post = int(query.pre), int(query.post)
+            self.sig("span-not", pre, post)
+            return (inc[0] + exc[0] + [(span_ops.OP_NOT, pre, post, 0)],
+                    inc[1], inc[2])
+
+        if t == "SpanFirstQuery":
+            plan = self._span_ends(query.match, low)
+            if plan is None:
+                return None
+            end = int(query.end)
+            self.sig("span-first", end)
+            return (plan[0] + [(span_ops.OP_FIRST, end, 0, 0)], plan[1],
+                    plan[2])
+
+        if t in ("SpanContainingQuery", "SpanWithinQuery"):
+            big = self._span_ends(query.big, low)
+            little = self._span_ends(query.little, low)
+            if big is None or little is None:
+                return None
+            containing = t == "SpanContainingQuery"
+            op = span_ops.OP_CONTAINING if containing else span_ops.OP_WITHIN
+            code = big[0] + little[0] + [(op, 0, 0, 0)]
+            return (code, big[1], big[2]) if containing \
+                else (code, little[1], little[2])
+
+        raise QueryParsingError(f"[{t}] is not a span query")
+
+    def _span_score_emit(self, query, boost: float) -> Emit:
+        """A top-level span query → scored emit: the tree's program run by
+        K13, freq = spans per doc, BM25 over (freq, Σ idf) like the
+        span_near scorer."""
+        low = _SpanLowering()
+        plan = self._span_ends(query, low)
+        if plan is None:
+            return self._zeros()
+        code, sum_idf, field = plan
+        program = span_ops.SpanProgram(
+            code=tuple(code), fields=tuple(low.fields),
+            n_terms=len(low.term_refs), n_sets=len(low.set_refs),
+            depth=span_ops.program_depth(code))
+        term_refs, set_refs = list(low.term_refs), list(low.set_refs)
+        r_sum_idf = self.c(sum_idf, np.float32)
+        r_avgdl = self.c(self._avgdl(field), np.float32)
+        r_boost = self.c(boost, np.float32)
+        p = self.ctx.bm25
+
+        def emit(em):
+            cols = [em.seg.text[f] for f in program.fields]
+            tids = torch.stack([em.get(r) for r in term_refs], dim=1) \
+                if term_refs else torch.zeros((em.batch, 0),
+                                              dtype=torch.int32,
+                                              device=em.device)
+            scores, mask = span_ops.span_program_score_batch(
+                program, [c.tokens for c in cols],
+                [c.tok_extent for c in cols], em.seg.text[field].doc_len,
+                tids, [em.get(r) for r in set_refs], em.get(r_sum_idf),
+                p.k1, p.b, em.get(r_avgdl))
+            return scores * em.get(r_boost)[:, None], mask
+        return emit
+
+    def _res_SpanOrQuery(self, query: q.SpanOrQuery) -> Emit:
+        return self._span_score_emit(query, query.boost)
+
+    def _res_SpanNotQuery(self, query: q.SpanNotQuery) -> Emit:
+        return self._span_score_emit(query, query.boost)
+
+    def _res_SpanFirstQuery(self, query: q.SpanFirstQuery) -> Emit:
+        return self._span_score_emit(query, query.boost)
+
+    def _res_SpanContainingQuery(self, query) -> Emit:
+        return self._span_score_emit(query, query.boost)
+
+    def _res_SpanWithinQuery(self, query) -> Emit:
+        return self._span_score_emit(query, query.boost)
+
+    def _res_SpanMultiQuery(self, query: q.SpanMultiQuery) -> Emit:
+        return self._span_score_emit(query, query.boost)
+
+    def _res_FieldMaskingSpanQuery(self, query) -> Emit:
+        return self._span_score_emit(query, query.boost)
+
+    # ---- more_like_this and indices ------------------------------------
+
+    def _res_MoreLikeThisQuery(self, query: q.MoreLikeThisQuery) -> Emit:
+        fields = query.fields or sorted(self.seg.text)
+        self.sig("mlt", tuple(fields), query.include,
+                 tuple(query.unlike_texts), len(query.unlike_docs))
+        # the like text per field: raw texts apply to every field; liked
+        # docs contribute their own field values
+        texts_by_field: dict[str, list[str]] = {f: list(query.like_texts)
+                                                for f in fields}
+        like_rows: list[tuple[int, int]] = []     # (segment idx, local row)
+        for spec in query.like_docs:
+            did = str(spec.get("_id", ""))
+            for si, seg in enumerate(self.ctx.reader.segments):
+                host = seg.seg
+                for local, hid in enumerate(host.ids[:host.num_docs]):
+                    if hid != did:
+                        continue
+                    like_rows.append((si, local))
+                    src = host.sources[local]
+                    for f in fields:
+                        v = src.get(f)
+                        if isinstance(v, str):
+                            texts_by_field[f].append(v)
+        # `unlike` terms are struck from the candidates
+        # (MoreLikeThisQuery setUnlikeText)
+        unlike_terms: dict[str, set] = {}
+        unlike_texts = list(query.unlike_texts)
+        for spec in query.unlike_docs:
+            did = str(spec.get("_id", ""))
+            for seg in self.ctx.reader.segments:
+                host = seg.seg
+                for local, hid in enumerate(host.ids[:host.num_docs]):
+                    if hid == did:
+                        src = host.sources[local]
+                        unlike_texts.extend(
+                            v for v in src.values() if isinstance(v, str))
+        # significant terms: tf in the like text ≥ min_term_freq, df ≥
+        # min_doc_freq, ranked by idf · tf (MoreLikeThis.createQueue)
+        candidates: list[tuple[float, str, str, float]] = []
+        for f in fields:
+            analyzer = self._analyzer_for(f, None)
+            if unlike_texts and f not in unlike_terms:
+                unlike_terms[f] = {
+                    tok.term for text in unlike_texts
+                    for tok in analyzer.analyze(text)}
+            tf: dict[str, int] = {}
+            for text in texts_by_field[f]:
+                for tok in analyzer.analyze(text):
+                    tf[tok.term] = tf.get(tok.term, 0) + 1
+            for term, n in tf.items():
+                if term in unlike_terms.get(f, ()):
+                    continue
+                if n < query.min_term_freq:
+                    continue
+                df, doc_count = self._term_stats(f, term)
+                if df < query.min_doc_freq or df <= 0:
+                    continue
+                idf = bm25_idf(df, doc_count)
+                candidates.append((idf * n, f, term, idf))
+        candidates.sort(key=lambda x: (-x[0], x[1], x[2]))
+        picked = candidates[:query.max_query_terms]
+        if not picked:
+            return self._zeros()
+        # one K1 call a field PRESENT in this segment; minimum_should_match
+        # still counts every picked term
+        by_field: dict[str, list[tuple[int, float]]] = {}
+        for _, f, term, idf in picked:
+            col = self.seg.text.get(f)
+            if col is None:
+                continue
+            by_field.setdefault(f, []).append((col.column.tid(term), idf))
+        if not by_field:
+            return self._zeros()
+        msm = _resolve_msm(query.minimum_should_match, len(picked)) \
+            if query.minimum_should_match is not None else 1
+        self.sig("mlt-groups",
+                 tuple((f, len(v)) for f, v in sorted(by_field.items())))
+        groups = []
+        for f in sorted(by_field):
+            pairs = by_field[f]
+            groups.append((f, self.c([t for t, _ in pairs], np.int32),
+                           self.c([i for _, i in pairs], np.float32)))
+        r_msm = self.c(msm, np.int32)
+        r_boost = self.c(query.boost, np.float32)
+        # the liked docs themselves and `exclude` ids are dropped unless
+        # `include`
+        exclude = None
+        if (like_rows or query.exclude_ids) and not query.include:
+            my_idx = next((i for i, s in enumerate(self.ctx.reader.segments)
+                           if s is self.seg), None)
+            hits = np.zeros(self.n, bool)
+            for sj, local in like_rows:
+                if sj == my_idx:
+                    hits[local] = True
+            if query.exclude_ids:
+                wanted = set(query.exclude_ids)
+                host = self.seg.seg
+                for local, hid in enumerate(host.ids[:host.num_docs]):
+                    if hid in wanted:
+                        hits[local] = True
+            if hits.any():
+                exclude = self.c(hits)
+        self.sig("mlt-excl", exclude is not None)
+        r_avgdl = {f: self.c(self._avgdl(f), np.float32)
+                   for f, *_ in groups}
+        p = self.ctx.bm25
+
+        def emit(em):
+            scores = torch.zeros((em.batch, em.n), dtype=torch.float32,
+                                 device=em.device)
+            nmatch = torch.zeros((em.batch, em.n), dtype=torch.int32,
+                                 device=em.device)
+            for f, r_tids, r_idfs in groups:
+                col = em.seg.text[f]
+                qtids = em.get(r_tids)
+                s, nm = lexical.bm25_match_batch(
+                    col.uterms, col.utf, col.doc_len, qtids, em.get(r_idfs),
+                    torch.ones(qtids.shape, dtype=torch.float32,
+                               device=em.device),
+                    p.k1, p.b, em.get(r_avgdl[f]),
+                    trailing_pad=col.trailing_pad)
+                scores = scores + s
+                nmatch = nmatch + nm
+            mask = nmatch >= em.get(r_msm)[:, None]
+            if exclude is not None:
+                mask = mask & ~em.get(exclude)
+            return torch.where(mask, scores * em.get(r_boost)[:, None],
+                               0.0), mask
+        return emit
+
+    def _res_IndicesQuery(self, query: q.IndicesQuery) -> Emit:
+        name = self.ctx.index_name
+        # the branch is picked per shard (IndicesQueryParser); a standalone
+        # searcher with no index name takes the match branch
+        if name is None or name in query.indices:
+            picked = query.query or q.MatchAllQuery()
+        else:
+            picked = query.no_match_query or q.MatchAllQuery()
+        self.sig("indices", name in query.indices if name else True)
+        return self.resolve(picked)
+
+
 def _no_docs(em) -> torch.Tensor:
     """The mask of a clause that matches nothing: [B, N] False."""
     return torch.zeros((em.batch, em.n), dtype=torch.bool, device=em.device)
@@ -907,3 +1658,11 @@ def _resolve_msm(msm, num_clauses: int) -> int:
             else num_clauses - int(num_clauses * -pct / 100.0)
         return max(val, 0)
     return int(s)
+
+
+def _pad_pow2(ids: list[int], fill: int) -> list[int]:
+    """Pad an id list to the next power-of-2 length, so vocabulary
+    expansions of different sizes share a plan per bucket."""
+    n = max(len(ids), 1)
+    target = 1 << (n - 1).bit_length()
+    return ids + [fill] * (target - len(ids))

@@ -978,7 +978,9 @@ def parse_query(body: dict | None) -> Query:  # noqa: C901 — one arm per query
                                    bottom=float(br["lat"]), right=float(br["lon"]))
 
     if qtype in ("query_string", "simple_query_string"):
-        raise NotPortedError(f"the [{qtype}] query is not ported yet")
+        from elasticsearch_tpu_torch.search.query_string import (
+            parse_query_string)
+        return parse_query_string(qbody)
 
     # ---- span algebra (SpanOr/Not/First/Containing/Within/MultiTerm,
     # FieldMaskingSpan parsers under core/index/query/) -------------------

@@ -13,7 +13,11 @@ extrema bit for bit and its f32 sums within 1e-6 relative (a tree against
 torch's reduction order), the same bits on every run. K10 (the
 percolator's match reduction), K11 (sloppy-phrase scan) and K12 (the
 script evaluator, over scripts that use every opcode) must be
-bit-identical to their plain versions (NaN as NaN). These tests need
+bit-identical to their plain versions (NaN as NaN), and so must K13 (span
+programs), K14 (flat span_near, in order and unordered) and K15 (the
+classic and LM-Dirichlet instantiations of K1's scan, K1's own BM25 results
+unchanged beside them); K16 (term-set membership) must give equal masks.
+These tests need
 an NVIDIA GPU and nvcc (the kernels have no CPU mode) and skip elsewhere.
 On a machine with a card, run them without the JAX test bootstrap:
 
@@ -27,8 +31,8 @@ import torch
 from elasticsearch_tpu_torch.index.segment import (
     TextFieldColumn, build_impact_column, quantize_vectors)
 from elasticsearch_tpu_torch.ops import (
-    aggs_ops, blockmax, lexical, maxsim, percolate, phrase, script_ops, topk,
-    vector)
+    aggs_ops, blockmax, lexical, maxsim, percolate, phrase, script_ops, spans,
+    topk, vector)
 from elasticsearch_tpu_torch.search import scripts
 
 pytestmark = pytest.mark.cuda
@@ -919,7 +923,9 @@ def test_stable_topk_deep_page_shapes_match_plain(cuda, m, k, merge):
 
 
 @pytest.mark.parametrize("kernel", ["stable_topk", "bm25_scan",
-                                    "script_eval"])
+                                    "script_eval", "sim_scan",
+                                    "term_set_scan", "span_near_scan",
+                                    "span_program"])
 def test_kernels_launch_from_many_threads_at_once(cuda, kernel):
     """Shards call the kernels from several threads at once, with shapes
     that take different shared memory (K2: a row split over chunks and a
@@ -942,6 +948,9 @@ def test_kernels_launch_from_many_threads_at_once(cuda, kernel):
                  for src in (SCRIPT_GRAMMAR[0], LONG_SCRIPT, DEEP_SCRIPT)]
         run = script_ops.script_eval
         plain = script_ops.script_eval_plain
+    elif kernel in ("sim_scan", "term_set_scan", "span_near_scan",
+                    "span_program"):
+        cases, run, plain = _new_kernel_cases(cuda, kernel, rng)
     else:
         vocab = 300
         uterms, utf, doc_len = _segment(rng, 20000, 24, vocab)
@@ -1501,3 +1510,254 @@ def test_script_eval_refuses_what_it_does_not_take(cuda):
                                rows, b, n)
     with pytest.raises(ValueError):
         script_ops.script_eval(code, [], score, prods, params, rows, b, n)
+
+
+# ---------------------------------------------------------------------------
+# K13-K16: the query leaves
+# ---------------------------------------------------------------------------
+
+def _sim_inputs(rng, cuda, n, u, b, t, vocab=300):
+    uterms, utf, doc_len = _segment(rng, n, u, vocab)
+    qtids = rng.integers(-1, vocab, size=(b, t)).astype(np.int32)
+    qtids[0, -1] = qtids[0, 0]                    # a repeated term
+    qtids[-1, 0] = uterms[np.argmax(uterms[:, 0] >= 0), 0]   # a sure hit
+    qa = rng.uniform(0.0, 4.0, size=(b, t)).astype(np.float32)
+    qa[0, 0] = 0.0                                # LM: P(t|C) at the floor
+    qw = rng.uniform(0.5, 2.0, size=(b, t)).astype(np.float32)
+    mu = rng.uniform(100.0, 3000.0, size=b).astype(np.float32)
+    return [torch.from_numpy(a).to(cuda)
+            for a in (uterms, utf, doc_len, qtids, qa / 50.0, qw, mu, qa)]
+
+
+@pytest.mark.parametrize("sim", [lexical.SIM_CLASSIC,
+                                 lexical.SIM_LM_DIRICHLET])
+@pytest.mark.parametrize("n,u,b,t,trailing_pad", [
+    (5000, 24, 9, 4, True), (1001, 40, 64, 3, False), (333, 7, 70, 11, True),
+    (8, 1, 1, 1, True)])
+def test_sim_scan_bit_identical_to_plain(cuda, sim, n, u, b, t,
+                                         trailing_pad):
+    rng = np.random.default_rng(n + b + sim)
+    ut, utf, dl, qt, frac, qw, mu, idf = _sim_inputs(rng, cuda, n, u, b, t)
+    qa = idf if sim == lexical.SIM_CLASSIC else frac
+    before = lexical.SIM_SCAN.launches
+    got_s, got_n = lexical.sim_match_batch(sim, ut, utf, dl, qt, qa, qw, mu,
+                                           trailing_pad=trailing_pad)
+    torch.cuda.synchronize()
+    assert lexical.SIM_SCAN.launches == before + 1
+    if sim == lexical.SIM_CLASSIC:
+        want_s, want_n = lexical.classic_match_batch_plain(ut, utf, dl, qt,
+                                                           qa, qw)
+    else:
+        want_s, want_n = lexical.lm_dirichlet_match_batch_plain(
+            ut, utf, dl, qt, qa, qw, mu)
+    assert torch.equal(got_n, want_n)
+    assert bool((want_n > 0).any())
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+
+
+def test_bm25_instantiation_unchanged_beside_the_similarities(cuda):
+    """K1's BM25 results are the plain version's bit for bit before and
+    after K15's instantiations run from the same library."""
+    rng = np.random.default_rng(15)
+    ut, utf, dl, qt, frac, qw, mu, idf = _sim_inputs(rng, cuda, 20000, 24,
+                                                     64, 4)
+    avg = torch.full((64,), 17.5, device=cuda)
+    want = lexical.bm25_match_batch_plain(ut, utf, dl, qt, idf, qw, 1.2,
+                                          0.75, avg)
+    for sim, qa in ((lexical.SIM_CLASSIC, idf),
+                    (lexical.SIM_LM_DIRICHLET, frac), (None, None)):
+        got = lexical.bm25_match_batch(ut, utf, dl, qt, idf, qw, 1.2, 0.75,
+                                       avg)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert torch.equal(got[1], want[1])
+        if sim is not None:
+            lexical.sim_match_batch(sim, ut, utf, dl, qt, qa, qw, mu)
+
+
+def _set_tids(rng, b, t, vocab):
+    """Power-of-two padded sets of 1..t ids, some sets empty, one shared by
+    every query."""
+    tids = np.full((b, t), -1, np.int32)
+    for i in range(b):
+        k = int(rng.integers(0, min(t, vocab) + 1))
+        tids[i, :k] = rng.choice(vocab, size=k, replace=False)
+    tids[-1, 0] = min(5, vocab - 1)
+    return tids
+
+
+@pytest.mark.parametrize("n,u,b,t,vocab,trailing_pad", [
+    (20000, 24, 64, 16, 300, True), (4099, 40, 70, 128, 3000, False),
+    (1001, 7, 3, 1024, 50000, True), (9, 1, 1, 1, 10, True),
+    (262144, 24, 64, 1024, 60000, True)])
+def test_term_set_scan_equals_plain(cuda, n, u, b, t, vocab, trailing_pad):
+    rng = np.random.default_rng(n + t)
+    uterms, _, _ = _segment(rng, n, u, vocab)
+    ut = torch.from_numpy(uterms).to(cuda)
+    qt = torch.from_numpy(_set_tids(rng, b, t, vocab)).to(cuda)
+    before = lexical.TERM_SET_SCAN.launches
+    got = lexical.term_set_scan(ut, qt, trailing_pad=trailing_pad)
+    torch.cuda.synchronize()
+    assert lexical.TERM_SET_SCAN.launches == before + 1
+    want = lexical.term_set_scan_plain(ut, qt)
+    assert torch.equal(got, want)
+    assert bool(want.any())
+    keys, bits = lexical.term_set_index(qt)
+    assert bool((keys[1:] > keys[:-1]).all())
+    assert bits.shape == (keys.shape[0], (b + 63) // 64)
+
+
+@pytest.mark.parametrize("n,length,n_queries,t,slop,in_order", [
+    (1001, 24, 3, 2, 1, False), (4099, 40, 64, 3, 3, False),
+    (4099, 40, 64, 3, 2, True), (333, 20, 70, 2, 0, True),
+    (517, 300, 9, 4, 2, False), (64, 8, 5, 3, 5, True),
+    (2000, 224, 64, 3, 3, False), (128, 16, 1024, 2, 1, True)])
+def test_span_near_scan_bit_identical_to_plain(cuda, n, length, n_queries, t,
+                                               slop, in_order):
+    rng = np.random.default_rng(n + t + slop)
+    tokens, doc_len, qtids, sum_idf, avgdl = _phrase_inputs(
+        rng, n, length, n_queries, list(range(t)), vocab=5)
+    tk, dl, qt, idf, av = (torch.from_numpy(a).to(cuda) for a in (
+        tokens, doc_len, qtids, sum_idf, avgdl))
+    before = phrase.SPAN_NEAR_SCAN.launches
+    got_s, got_m = phrase.span_near_score_batch(
+        tk, dl, qt, slop, in_order, idf, 1.2, 0.75, av,
+        extent=phrase.token_extent(tk))
+    torch.cuda.synchronize()
+    assert phrase.SPAN_NEAR_SCAN.launches == before + 1
+    want_s, want_m = phrase.span_near_score_batch_plain(
+        tk, dl, qt, slop, in_order, idf, 1.2, 0.75, av)
+    assert torch.equal(got_m, want_m)
+    assert bool(want_m.any())
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+
+
+#: span programs over fields a and b (ops/spans.py opcodes), every opcode
+SPAN_PROGRAMS = {
+    "near_or_not_first": ((spans.OP_TERM, 0, 0, 0),
+                          (spans.OP_TERM_SET, 1, 0, 0),
+                          (spans.OP_NEAR, 2, 2, 0), (spans.OP_TERM, 0, 1, 0),
+                          (spans.OP_OR, 2, 0, 0), (spans.OP_TERM, 0, 2, 0),
+                          (spans.OP_NOT, 1, 1, 0), (spans.OP_FIRST, 12, 0, 0)),
+    "containing": ((spans.OP_TERM, 0, 0, 0), (spans.OP_TERM, 0, 1, 0),
+                   (spans.OP_NEAR, 2, 3, 1), (spans.OP_TERM, 1, 2, 0),
+                   (spans.OP_CONTAINING, 0, 0, 0)),
+    "within": ((spans.OP_TERM_SET, 0, 0, 0), (spans.OP_TERM, 0, 1, 0),
+               (spans.OP_NEAR, 2, 4, 0), (spans.OP_TERM, 0, 2, 0),
+               (spans.OP_WITHIN, 0, 0, 0)),
+    "nested_near": ((spans.OP_TERM, 0, 0, 0), (spans.OP_TERM, 0, 1, 0),
+                    (spans.OP_NEAR, 2, 1, 0), (spans.OP_TERM, 1, 2, 0),
+                    (spans.OP_TERM_SET, 1, 0, 0), (spans.OP_OR, 2, 0, 0),
+                    (spans.OP_NEAR, 2, 2, 1)),
+    "three_way": ((spans.OP_TERM, 0, 0, 0), (spans.OP_TERM, 0, 1, 0),
+                  (spans.OP_TERM_SET, 0, 0, 0), (spans.OP_NEAR, 3, 3, 1),
+                  (spans.OP_TERM, 0, 2, 0), (spans.OP_NOT, 0, 2, 0)),
+}
+
+
+def _span_program_case(cuda, rng, name, n, la, lb, b, set_t):
+    tokens = []
+    for length in (la, lb):
+        tk, _, _, _, _ = _phrase_inputs(rng, n, length, 3, [0], vocab=4)
+        tokens.append(tk)
+    code = SPAN_PROGRAMS[name]
+    prog = spans.SpanProgram(code=code, fields=("a", "b"), n_terms=3,
+                             n_sets=1, depth=spans.program_depth(code))
+    tids = rng.integers(-1, 4, size=(b, 3)).astype(np.int32)
+    sets = _set_tids(rng, b, set_t, 4)
+    doc_len = (tokens[0] >= 0).sum(axis=1).astype(np.int32)
+    sum_idf = rng.uniform(0.5, 8.0, size=b).astype(np.float32)
+    avgdl = rng.uniform(1.0, 30.0, size=b).astype(np.float32)
+    tk = [torch.from_numpy(t).to(cuda) for t in tokens]
+    ext = [phrase.token_extent(t) for t in tk]
+    dl, qt, st, idf, av = (torch.from_numpy(a).to(cuda) for a in (
+        doc_len, tids, sets, sum_idf, avgdl))
+    return (prog, tk, ext, dl, qt, [st], idf, 1.2, 0.75, av)
+
+
+@pytest.mark.parametrize("name", list(SPAN_PROGRAMS))
+@pytest.mark.parametrize("n,la,lb,b,set_t", [
+    (4099, 24, 40, 64, 4), (333, 20, 7, 70, 1), (1001, 224, 224, 9, 16),
+    (640, 300, 33, 9, 2)])
+def test_span_program_bit_identical_to_plain(cuda, name, n, la, lb, b,
+                                             set_t):
+    rng = np.random.default_rng(n + b)
+    args = _span_program_case(cuda, rng, name, n, la, lb, b, set_t)
+    before = spans.SPAN_PROGRAM.launches
+    got_s, got_m = spans.span_program_score_batch(*args)
+    torch.cuda.synchronize()
+    assert spans.SPAN_PROGRAM.launches == before + 1
+    prog, tk, _ext, dl, qt, st, idf, k1, b_, av = args
+    want_s, want_m = spans.span_program_score_batch_plain(
+        prog, tk, dl, qt, st, idf, k1, b_, av)
+    assert torch.equal(got_m, want_m)
+    assert bool(want_m.any())
+    assert torch.equal(got_s.view(torch.int32), want_s.view(torch.int32))
+
+
+def test_leaf_kernels_refuse_what_they_do_not_take(cuda):
+    rng = np.random.default_rng(3)
+    ut, utf, dl, qt, frac, qw, mu, idf = _sim_inputs(rng, cuda, 100, 8, 2, 2)
+    with pytest.raises(TypeError):
+        lexical.sim_match_batch(lexical.SIM_CLASSIC, ut, utf, dl, qt,
+                                idf.double(), qw)
+    with pytest.raises(ValueError):
+        lexical.sim_match_batch(lexical.SIM_LM_DIRICHLET, ut, utf, dl, qt,
+                                frac, qw, None)
+    with pytest.raises(ValueError):
+        lexical.term_set_scan(ut, qt[0])
+    args = list(_span_program_case(cuda, rng, "containing", 100, 8, 8, 2, 2))
+    args[4] = args[4][:, :2]                      # a term slot missing
+    with pytest.raises(ValueError):
+        spans.span_program_score_batch(*args)
+
+
+def _new_kernel_cases(cuda, kernel, rng):
+    """(cases, run, plain) of K13-K16 for the many-threads test: shapes
+    that take different shared memory and grids."""
+    if kernel == "sim_scan":
+        cases = []
+        for b, t, sim in ((1, 4, 1), (64, 4, 2), (9, 11, 1)):
+            ut, utf, dl, qt, frac, qw, mu, idf = _sim_inputs(
+                rng, cuda, 20000, 24, b, t)
+            cases.append(((sim, ut, utf, dl, qt,
+                           idf if sim == 1 else frac, qw, mu), {}))
+
+        def plain(sim, ut, utf, dl, qt, qa, qw, mu):
+            if sim == lexical.SIM_CLASSIC:
+                return lexical.classic_match_batch_plain(ut, utf, dl, qt, qa,
+                                                         qw)
+            return lexical.lm_dirichlet_match_batch_plain(ut, utf, dl, qt,
+                                                          qa, qw, mu)
+        return cases, lexical.sim_match_batch, plain
+    if kernel == "term_set_scan":
+        uterms, _, _ = _segment(rng, 20000, 24, 3000)
+        ut = torch.from_numpy(uterms).to(cuda)
+        cases = [((ut, torch.from_numpy(_set_tids(rng, b, t, 3000)).to(
+            cuda)), {}) for b, t in ((1, 8), (64, 1024), (70, 16))]
+        return cases, lexical.term_set_scan, lexical.term_set_scan_plain
+    if kernel == "span_near_scan":
+        cases = []
+        for n_q, t, slop, in_order, length in ((3, 2, 1, True, 24),
+                                               (64, 3, 3, False, 224),
+                                               (70, 2, 2, True, 40)):
+            tokens, dl, qt, idf, av = _phrase_inputs(
+                rng, 3000, length, n_q, list(range(t)), vocab=5)
+            tk, dl, qt, idf, av = (torch.from_numpy(a).to(cuda) for a in (
+                tokens, dl, qt, idf, av))
+            cases.append(((tk, dl, qt, slop, in_order, idf, 1.2, 0.75, av),
+                          {"extent": phrase.token_extent(tk)}))
+
+        def plain(*a, extent):
+            return phrase.span_near_score_batch_plain(*a)
+        return cases, phrase.span_near_score_batch, plain
+    cases = [(_span_program_case(cuda, rng, name, 2000, la, lb, b, 4), {})
+             for name, la, lb, b in (("containing", 24, 40, 1),
+                                     ("near_or_not_first", 224, 224, 64),
+                                     ("three_way", 300, 20, 70))]
+
+    def plain(prog, tk, ext, dl, qt, st, idf, k1, b, av):
+        return spans.span_program_score_batch_plain(prog, tk, dl, qt, st,
+                                                    idf, k1, b, av)
+    return cases, spans.span_program_score_batch, plain

@@ -296,15 +296,17 @@ def test_declines_are_served_by_the_exact_arm(engines, case):
 
 def test_classic_similarity_declines_and_the_exact_arm_refuses(engines):
     """A classic-similarity field is not the lane's: both packages decline
-    it; the port's exact arm does not score classic yet and refuses."""
+    it, and the port's exact arm then scores it (K15's plain version here)
+    as the JAX package's does."""
     js, ps = _searchers(engines, "imp8")
     body = {"query": {"match": {"old": "w1 w2"}}, "size": 8}
     before = _reasons()
-    js.query_phase(jax_parse_search_request(body))
-    with pytest.raises(NotPortedError):
-        ps.query_phase(parse_search_request(body))
+    want = js.query_phase(jax_parse_search_request(body))
+    got = ps.query_phase(parse_search_request(body))
     d_jax, d_port = (_delta(a, b) for a, b in zip(_reasons(), before))
     assert d_port == d_jax == {"ineligible-query": 1}
+    assert want.total > 0
+    _assert_close(got, want)
 
 
 def _rescore_body(q, rq, window, mode, qw=1.0, rw=1.5, size=10, boost=1.0):

@@ -34,13 +34,14 @@ from elasticsearch_tpu_torch.search.segment_exec import (
 ms = MapperService()
 ms.merge("_doc", {"properties": {
     "body": {"type": "text"}, "rank": {"type": "double"},
+    "cls": {"type": "text", "similarity": "classic"},
     "vec": {"type": "dense_vector", "dims": 3},
     "tok": {"type": "rank_vectors", "dims": 2}}})
 eng = Engine(Path(tempfile.mkdtemp()), ms)
 vecs = [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.6, 0.8, 0.0]]
 toks = [[[1.0, 0.0]], [[0.0, 1.0], [0.1, 0.9]], [[0.7, 0.7]]]
 for i, text in enumerate(["quick brown fox", "lazy dog", "quick dog"]):
-    eng.index(str(i), {"body": text, "rank": 10.0 * (3 - i),
+    eng.index(str(i), {"body": text, "cls": text, "rank": 10.0 * (3 - i),
                        "vec": vecs[i], "tok": toks[i]})
 eng.refresh()
 reader = device_reader_for(eng, device="cpu")
@@ -84,6 +85,15 @@ fs_ids = ids_of({"query": {"function_score": {
     "functions": [{"field_value_factor": {"field": "rank",
                                           "modifier": "log1p"}}],
     "boost_mode": "multiply"}}})
+leaf_ids = [
+    ids_of({"query": {"span_near": {"clauses": [
+        {"span_term": {"body": "quick"}}, {"span_term": {"body": "dog"}}],
+        "slop": 1, "in_order": True}}}),
+    ids_of({"query": {"span_not": {
+        "include": {"span_term": {"body": "quick"}},
+        "exclude": {"span_term": {"body": "fox"}}, "post": 2}}}),
+    ids_of({"query": {"fuzzy": {"body": {"value": "dug", "fuzziness": 1}}}}),
+    ids_of({"query": {"match": {"cls": "quick dog"}}})]
 agg_req = parse_search_request({
     "query": {"match": {"body": "quick dog"}}, "size": 2,
     "aggs": {"r": {"stats": {"field": "rank"}},
@@ -161,6 +171,7 @@ except RuntimeError:
     pass
 print(json.dumps({
     "ids": [match_ids, phrase_ids, fs_ids],
+    "leaf_ids": leaf_ids,
     "knn_ids": knn_ids,
     "impact_ids": impact_ids, "impact_admissions": impact_admissions,
     "agg_out": agg_out, "perc_out": perc_out,
@@ -183,6 +194,8 @@ def test_port_serves_without_jax_or_the_jax_package(tmp_path):
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got["ids"] == [["2", "1", "0"], ["2", "1"], ["0", "1", "2"]]
+    # a span_near, a span tree, a fuzzy term and a classic match
+    assert got["leaf_ids"] == [["2"], ["2"], ["1", "2"], ["2", "1", "0"]]
     assert got["knn_ids"] == [["1", "2", "0"], ["1", "2", "0"],
                               ["0", "1", "2"], ["1", "2", "0"]]
     assert got["impact_ids"] == [["2", "1", "0"], ["2", "1", "0"],
@@ -232,7 +245,11 @@ def test_cuda_sources_have_a_plain_c_interface():
     assert {p.name for p in sources} >= {"impact_scan.cu",
                                          "blockmax_sweep.cu",
                                          "agg_counts.cu", "agg_stats.cu",
-                                         "script_eval.cu"}
+                                         "script_eval.cu",
+                                         "span_program.cu", "span_near.cu",
+                                         "term_set_scan.cu"}
+    sources += sorted((REPO / "elasticsearch_tpu_torch" / "csrc").glob(
+        "*.cuh"))
     bad = []
     for path in sources:
         text = path.read_text()
@@ -240,6 +257,6 @@ def test_cuda_sources_have_a_plain_c_interface():
             if inc.split("/")[0] in ("torch", "ATen", "c10", "pybind11") or \
                     "elasticsearch_tpu" in inc or "jax" in inc:
                 bad.append(f"{path.name}: {inc}")
-        if not re.search(r'extern "C"', text):
+        if path.suffix == ".cu" and not re.search(r'extern "C"', text):
             bad.append(f"{path.name}: no extern \"C\" entry point")
     assert bad == []

@@ -77,12 +77,12 @@ def _docs(n=8, seed=78):
              "rank": float(rng.integers(0, 100))} for _ in range(n)]
 
 
-def _metas(percs, name="perc", uuid="u1", version=1):
+def _metas(percs, name="perc", uuid="u1", version=1, mappings=MAPPINGS):
     jmeta = IndexMetadata(name=name, number_of_shards=1,
-                          number_of_replicas=0, mappings=MAPPINGS,
+                          number_of_replicas=0, mappings=mappings,
                           percolators=percs, uuid=uuid, version=version)
     pmeta = types.SimpleNamespace(name=name, uuid=uuid, settings={},
-                                  mappings=MAPPINGS, percolators=percs,
+                                  mappings=mappings, percolators=percs,
                                   version=version)
     return jmeta, pmeta
 
@@ -265,7 +265,8 @@ def test_register_unregister_touches_exactly_one_bucket(setup):
     {"bool": {"must": [{"match": {"body": "pw001"}}],
               "should": [{"has_child": {"type": "c",
                                         "query": {"match_all": {}}}}]}},
-    {"bool": {"should": [{"prefix": {"body": "pw"}}]}},
+    {"bool": {"should": [{"geo_distance": {"distance": "10km",
+                                            "body": "40,-70"}}]}},
 ])
 def test_unported_registrations_raise(query):
     percs = {"ok": {"query": {"match": {"body": "pw001"}}},
@@ -353,6 +354,69 @@ def test_script_score_registrations_match_jax():
         assert any(m["_id"] in ("s2", "s3", "s5") for d in docs
                    for m in percolator.percolate(pmeta, d, device="cpu")
                    ["matches"])
+    finally:
+        jax_perc.clear_registries()
+        percolator.clear_registries()
+
+
+def _leaf_registrations(n=30, seed=81):
+    """The query leaves as registrations: flat and composite span queries,
+    prefix / wildcard / fuzzy, and matches on a classic-similarity field."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i in range(n):
+        w, w2 = (VOCAB[int(j)] for j in rng.integers(0, len(VOCAB), 2))
+        kind = i % 6
+        if kind == 0:
+            qq = {"span_near": {"clauses": [{"span_term": {"body": w}},
+                                            {"span_term": {"body": w2}}],
+                                "slop": 3, "in_order": False}}
+        elif kind == 1:
+            qq = {"span_not": {
+                "include": {"span_or": {"clauses": [
+                    {"span_term": {"body": w}},
+                    {"span_multi": {"match": {"prefix": {
+                        "body": {"value": w2[:4]}}}}}]}},
+                "exclude": {"span_term": {"body": w2}}}}
+        elif kind == 2:
+            qq = {"bool": {"must": [{"match": {"body": w}}],
+                           "filter": [{"prefix": {"body": w2[:4]}}]}}
+        elif kind == 3:
+            qq = {"wildcard": {"body": w[:3] + "?" + w[4:]}}
+        elif kind == 4:
+            qq = {"fuzzy": {"body": {"value": w, "fuzziness": 1}}}
+        else:
+            qq = {"match": {"old": f"{w} {w2}"}}
+        out[f"l{i}"] = {"query": qq}
+    return out
+
+
+def test_leaf_registrations_match_jax():
+    """Span, multi-term and classic-similarity registrations through the
+    port's percolate and percolate_many against the JAX package's."""
+    jax_perc.clear_registries()
+    percolator.clear_registries()
+    mappings = {"_doc": {"properties": dict(
+        MAPPINGS["_doc"]["properties"],
+        old={"type": "text", "analyzer": "whitespace",
+             "similarity": "classic"})}}
+    try:
+        jmeta, pmeta = _metas(_leaf_registrations(), name="perc_leaves",
+                              mappings=mappings)
+        docs = [dict(d, old=d["body"]) for d in _docs(seed=82)]
+        matched = set()
+        for d in docs[:4]:
+            got = percolator.percolate(pmeta, d, score=True, device="cpu")
+            _assert_same(got, jax_perc.percolate(jmeta, d, score=True))
+            matched |= {m["_id"] for m in got["matches"]}
+        items = [{"doc": d, "score": True, "sort": True} for d in docs]
+        for got, want in zip(
+                percolator.percolate_many(pmeta, items, device="cpu"),
+                jax_perc.percolate_many(jmeta, items)):
+            _assert_same(got, want)
+            matched |= {m["_id"] for m in got["matches"]}
+        # every kind of registration matched some probe
+        assert {int(q[1:]) % 6 for q in matched} == set(range(6))
     finally:
         jax_perc.clear_registries()
         percolator.clear_registries()

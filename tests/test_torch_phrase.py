@@ -131,4 +131,14 @@ def test_over_cap_and_sloppy_phrases_are_refused():
             torch.ones(qtids.shape), 1.2, 0.75, torch.ones(1),
             extent=phrase.token_extent(_t(tokens)))
     with pytest.raises(NotPortedError):
-        phrase.span_near_freq_unordered()
+        phrase.span_near_score_batch(
+            _t(tokens), _t(doc_len), _t(qtids), 1, False, torch.ones(1),
+            1.2, 0.75, torch.ones(1), extent=phrase.token_extent(_t(tokens)))
+    # unordered span_near is served: its count equals the JAX body's
+    tokens, _ = _tokens(np.random.default_rng(3), n=40)
+    for qt in ([1, 2], [3, 0, 4], [2, 2], [5, -1]):
+        want = jax_phrase.span_near_freq_unordered(
+            jnp.asarray(tokens), [jnp.int32(t) for t in qt], 1)
+        got = phrase.span_near_freq_unordered(
+            _t(tokens), torch.tensor(qt, dtype=torch.int32), 1)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

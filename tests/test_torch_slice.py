@@ -186,8 +186,10 @@ def test_carried_segment_scores_like_jax(tmp_path):
 
 
 @pytest.mark.parametrize("body,error", [
-    ({"query": {"prefix": {"tag": "t"}}}, QueryParsingError),
-    ({"query": {"wildcard": {"tag": "t*"}}}, QueryParsingError),
+    ({"query": {"nested": {"path": "items", "query": {"match_all": {}}}}},
+     QueryParsingError),
+    ({"query": {"geo_distance": {"distance": "10km", "tag": "40,-70"}}},
+     QueryParsingError),
     ({"query": {"match_all": {}}, "aggs": {"a": {"geohash_grid": {
         "field": "tag"}}}}, NotPortedError),
     ({"query": {"match_all": {}}, "sort": [{"tag": "asc"}]}, NotPortedError),
