@@ -182,8 +182,8 @@ no result line:
             span_term in a span_near with slop 8, span_first (end 10) over
             a span_or (K13, K2). Phases 40-42 re-count the first request's
             hits on the host's token rows.
-43. multi-term filters — bool with config 1's match and a prefix (10, 100
-            and 1,000 terms), a wildcard (1,000 terms) or a fuzzy term
+43. multi-term filters — bool with config 1's match and a prefix (100
+            terms), a wildcard (1,000 terms) or a fuzzy term
             (K16, K1, K2), each request with its own pattern (a plan
             signature holds one set size, so one batch a size; a fuzzy
             batch holds FUZZY_BATCH requests), the expanded sets counted
@@ -199,7 +199,41 @@ no result line:
             exact, the hits' scores bit for bit) and a float64 recompute
             from the host's rows (scores within 1e-5, tie-tolerant recall
             1.0).
-46. profile — one batch of the span tree under torch.profiler.
+46. profile — one batch of the span tree under torch.profiler (one recorded
+            run: phase 41 ran the batch).
+47. geo kernels — config 1's segments get a geo_point column ``location``
+            (OpenStreetMap-shaped: 1,000 Zipf-weighted centres, most over
+            Europe and North America, a tenth uniform; the Rally geopoint
+            track cut from 60.8M points to the reader's 2,097,152) and a
+            geo_shape column ``area`` (a few hundred OSM-shaped templates
+            made by the port's parse_shape_rings, translated to each row's
+            point; every row padded to the widest, V = 32); K17 in every mode
+            and K18 in every relation against their plain versions bit for
+            bit at the geo paths' shapes on segment 0 and at odd shapes,
+            timed beside the plain versions and the bounds.
+48. geo paths — batches of 64 with config 1's match in a bool's must and
+            a geo leaf in its filter, each centre moved by up to 1°:
+            geo_polygon, geo_bounding_box (and across the dateline),
+            geo_distance, geo_distance_range, geohash_cell with neighbours,
+            exists, a gauss decay under function_score, and geo_shape in
+            each relation against an envelope, a circle and a polygon with a
+            hole (one batch each); the first and the last
+            request of each batch held against the plain versions on the
+            card's tensors (totals exact, scores bit for bit) and a float64
+            recompute from the f32 coordinates the card holds (filtered sets
+            equal outside the libms' band, scores within 1e-5, tie-tolerant
+            recall 1.0); K17 or K18, K1 and K2 must have launched (exists
+            reads the column's exists mask: K1 and K2).
+49. geo aggs — one request inside 400 km with geohash_grid (and a
+            geo_centroid sub), geo_distance rings and geo_bounds, through
+            query_phase and merge_responses, against numpy; the host
+            collectors timed apart.
+50. geo percolate — 1,000 registrations (geo_distance, geo_bounding_box,
+            geo_shape on the eager lane), a percolate per probe and one
+            percolate_many of 12 probes, against a float64 recompute and
+            percolate_serial.
+51. profile — one geo_distance and one geo_shape batch under
+            torch.profiler.
 
 The last lines are one JSON object of per-kernel numbers, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -262,6 +296,10 @@ K13_REPLACES = "elasticsearch_tpu/ops/spans.py:32"
 K14_REPLACES = "elasticsearch_tpu/ops/phrase.py:130"
 K15_REPLACES = "elasticsearch_tpu/ops/lexical.py:58"
 K16_REPLACES = "elasticsearch_tpu/search/execute.py:820"
+K17_SOURCE = "elasticsearch_tpu_torch/csrc/geo_points.cu"
+K18_SOURCE = "elasticsearch_tpu_torch/csrc/geo_shape.cu"
+K17_REPLACES = "elasticsearch_tpu/ops/filters.py:79"
+K18_REPLACES = "elasticsearch_tpu/ops/geoshape.py:117"
 # the query leaves: batches of each span and similarity path; a fuzzy
 # batch's size (each value costs a Levenshtein pass over the 500,000-term
 # dictionary of each segment on the host)
@@ -560,7 +598,8 @@ def phase_build():
                                           K7_SOURCE, K8_SOURCE, K9_SOURCE,
                                           K10_SOURCE, K11_SOURCE, K12_SOURCE,
                                           K13_SOURCE, K14_SOURCE,
-                                          K16_SOURCE)]
+                                          K16_SOURCE, K17_SOURCE,
+                                          K18_SOURCE)]
     t0 = time.perf_counter()
     built = cuda_build.build_libraries(sources)
     BUILD_LOGS.update({src: info["log"] for src, info in built.items()})
@@ -607,7 +646,10 @@ def phase_build():
         "a term mask per position and an f32 per (query, row); sim_scan "
         "bm25_scan's layout (LM Dirichlet a second word per (query, term)); "
         "term_set_scan the batch's sorted union of set terms when it holds "
-        "40,960 ids or fewer, else none")
+        "40,960 ids or fewer, else none; geo_points a query group's "
+        "parameters and rings, up to 48 KiB (a longer ring is read from "
+        "global memory); geo_shape the query's ring structure and a query "
+        "group's coordinates, up to 48 KiB (likewise)")
 
 
 def phrase_pairs(rng, tokens, lens, n):
@@ -727,7 +769,8 @@ def reader_bytes(reader) -> str:
     """The reader's device bytes, split into the text and live columns
     (what config 1 reads), the rank column, the position matrices, the
     vector columns' exists masks and token counts, the vector matrices
-    (f32 and int8), and the impact lane's columns and block tables."""
+    (f32 and int8), the impact lane's columns and block tables, and the
+    geo columns."""
     total = reader.device_bytes()
     rank = sum(nbytes(c.hi) + nbytes(c.lo) + nbytes(c.exists)
                for s in reader.segments for c in s.numeric.values())
@@ -743,11 +786,16 @@ def reader_bytes(reader) -> str:
     impacts = sum(nbytes(t) for s in reader.segments
                   for c in s.impacts.values()
                   for t in (c.qimp, c.block_max) if t is not None)
+    geo = sum(nbytes(t) for s in reader.segments
+              for c in list(s.geo.values()) + list(s.shape.values())
+              for t in vars(c).values()
+              if t is not None and hasattr(t, "element_size"))
     return (f"reader device bytes {total} (text and live columns "
-            f"{total - rank - tokens - masks - f32 - int8 - impacts}, rank "
-            f"column {rank}, position matrices {tokens}, vector exists/lens "
-            f"{masks}, vector matrices f32 {f32}, int8 {int8}, impact "
-            f"columns and block tables {impacts})")
+            f"{total - rank - tokens - masks - f32 - int8 - impacts - geo}, "
+            f"rank column {rank}, position matrices {tokens}, vector "
+            f"exists/lens {masks}, vector matrices f32 {f32}, int8 {int8}, "
+            f"impact columns and block tables {impacts}, geo_point and "
+            f"geo_shape columns {geo})")
 
 
 def smi_sample() -> str:
@@ -966,8 +1014,8 @@ def path_kernels():
     """The launch counter of every hand kernel, by its name in the kernels
     line (K5's f32 and int8 instantiations have one each)."""
     from elasticsearch_tpu_torch.ops import (
-        aggs_ops, blockmax, lexical, maxsim, percolate, phrase, script_ops,
-        spans, topk, vector)
+        aggs_ops, blockmax, filters, geoshape, lexical, maxsim, percolate,
+        phrase, script_ops, spans, topk, vector)
     return {"bm25_scan": lexical.BM25_SCAN, "stable_topk": topk.TOPK,
             "phrase_scan": phrase.PHRASE_SCAN,
             "sloppy_phrase_scan": phrase.SLOPPY_PHRASE_SCAN,
@@ -982,7 +1030,9 @@ def path_kernels():
             "span_program": spans.SPAN_PROGRAM,
             "span_near_scan": phrase.SPAN_NEAR_SCAN,
             "sim_scan": lexical.SIM_SCAN,
-            "term_set_scan": lexical.TERM_SET_SCAN}
+            "term_set_scan": lexical.TERM_SET_SCAN,
+            "geo_point_filter": filters.GEO_POINT_FILTER,
+            "shape_relation": geoshape.SHAPE_RELATION}
 
 
 def drive(torch, searcher, batches):
@@ -1316,11 +1366,12 @@ def phase_config3(torch, args, data, name, smi_line) -> dict:
 
 
 def phase_profile(torch, args, data, label, bodies, searcher=None,
-                  plan=None) -> dict:
+                  plan=None, warmup=True) -> dict:
     """One batch under torch.profiler (after an unrecorded warm-up run of
-    it): device time by kernel, the busy share of the batch, and the host
-    planning of the batch alone (a pure knn request plans no query; the
-    impact lane's planning is ``plan``, called with the batch)."""
+    it, unless ``warmup`` is False: a batch an earlier phase ran): device
+    time by kernel, the busy share of the batch, and the host planning of
+    the batch alone (a pure knn request plans no query; the impact lane's
+    planning is ``plan``, called with the batch)."""
     from elasticsearch_tpu_torch.search import query_dsl, segment_exec
     searcher = searcher or data["searcher"]
     reader = searcher.reader
@@ -1342,30 +1393,36 @@ def phase_profile(torch, args, data, label, bodies, searcher=None,
     return profile_batch(torch, label, lambda: check(
         searcher.query_phase_batch(batch) is not None,
         f"query_phase_batch declined the profiled {label} batch"),
-        plan_ms, GC.take(), len(batch))
+        plan_ms, GC.take(), len(batch), warmup=warmup)
 
 
 def profile_batch(torch, label, run, plan_ms, plan_gc, size,
-                  extra=None) -> dict:
+                  extra=None, warmup=True) -> dict:
     """``run`` (one batch of ``size`` requests) twice under torch.profiler,
-    the first unrecorded: device time by kernel, the busy share of the
-    batch; ``extra()`` adds to the line."""
+    the first unrecorded (once, recorded, without ``warmup``): device time
+    by kernel, the busy share of the batch; ``extra()`` adds to the
+    line."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     # the batch twice: a warm-up step the profiler does not record (its own
-    # start-up cost lands there), then the recorded step
+    # start-up cost lands there), then the recorded step; without warmup
+    # the one run is recorded whole
     recorded = []
+    stepped = {"schedule": torch.profiler.schedule(wait=0, warmup=1,
+                                                   active=1),
+               "on_trace_ready": lambda p: recorded.append(
+                   p.key_averages())} if warmup else {}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=torch.profiler.schedule(wait=0, warmup=1,
-                                                  active=1),
-                 on_trace_ready=lambda p: recorded.append(
-                     p.key_averages())) as prof:
-        for _ in range(2):
+                 **stepped) as prof:
+        for _ in range(2 if warmup else 1):
             t0 = time.perf_counter()
             run()
             wall_ms = (time.perf_counter() - t0) * 1e3
             batch_gc = GC.take()
-            prof.step()
+            if warmup:
+                prof.step()
+    if not warmup:
+        recorded.append(prof.key_averages())
     check(len(recorded) == 1, f"the profiler recorded {len(recorded)} "
           f"steps of the {label} batch, not 1")
     rows = []
@@ -1406,6 +1463,8 @@ def profile_batch(torch, label, run, plan_ms, plan_gc, size,
                  "K14": ("span_near_kernel",),
                  "K15": ("bm25_scan_kernel<1>", "bm25_scan_kernel<2>"),
                  "K16": ("term_set_scan_kernel",),
+                 "K17": ("geo_points_kernel",),
+                 "K18": ("geo_shape_kernel",),
                  "cuBLAS": ("gemm", "xmma", "cutlass")}
     parts = {}
     for kname, keys in by_kernel.items():
@@ -3349,9 +3408,10 @@ def phase_deep_page(torch, args, data, c5) -> dict:
 
 
 def phase_c5_profile(torch, data, c5, label, batch) -> dict:
-    """One config-5 batch under torch.profiler (after an unrecorded warm-up
-    run of it): device time by kernel, busy share, the host planning of the
-    batch on every shard alone and the coordinator's host merge."""
+    """One config-5 batch under torch.profiler (one recorded run: the
+    config 5 phases ran the batch): device time by kernel, busy share, the
+    host planning of the batch on every shard alone and the coordinator's
+    host merge."""
     from elasticsearch_tpu_torch.search import segment_exec
     flags = {"min_score": False, "search_after": False}
     GC.take()
@@ -3364,7 +3424,8 @@ def phase_c5_profile(torch, data, c5, label, batch) -> dict:
     merges = []
     return profile_batch(torch, label, lambda: merges.append(
         c5_batch(c5, batch)[1]), plan_ms, GC.take(), len(batch),
-        extra=lambda: f"; coordinator host merge {merges[-1]:.3f} ms")
+        extra=lambda: f"; coordinator host merge {merges[-1]:.3f} ms",
+        warmup=False)
 
 
 # --------------------------------------------------------------------------
@@ -4133,9 +4194,9 @@ def phase_k7_large(torch, args, data, name, smi_line) -> dict:
 
 def phase_percolate_profile(torch, data, stats_p) -> dict:
     """One percolate_many of the 12 probes against the 10,000 bench
-    registrations under torch.profiler: card time against the host's
-    resolve and render, which phase 27's call of the same items measured
-    (``stats_p``)."""
+    registrations under torch.profiler (one recorded run: phase 27 made
+    the same call): card time against the host's resolve and render,
+    which phase 27's call of the same items measured (``stats_p``)."""
     from elasticsearch_tpu_torch.search import percolator
     dev = data["reader"].device
     pdocs, regs_by_n = perc_bench_registry()
@@ -4151,7 +4212,7 @@ def phase_percolate_profile(torch, data, stats_p) -> dict:
         extra=lambda: f"; phase 27's call: host resolve and render "
         f"{rec['resolve_ms']:.3f} ms, the lanes on the host clock "
         f"{rec['lanes_ms']:.3f} ms ({rec['lanes']} lanes, {rec['rows']} "
-        f"query rows)")
+        f"query rows)", warmup=False)
 
 
 # --------------------------------------------------------------------------
@@ -4975,7 +5036,7 @@ def wildcard_ids(name, names):
 
 def phase_multi_term_paths(torch, args, data, f64, name, smi_line) -> dict:
     """Phase 43: bool with config 1's match as must and, as filter, a
-    prefix (10, 100 and 1,000 terms), a wildcard (1,000 terms) or a fuzzy
+    prefix (100 terms), a wildcard (1,000 terms) or a fuzzy
     term (fuzziness 1) (K16, K1, K2), each request with its own pattern
     drawn from its first sampled term, one batch each (FUZZY_BATCH
     requests for fuzzy), against float64 BM25 over the must and the
@@ -4986,12 +5047,8 @@ def phase_multi_term_paths(torch, args, data, f64, name, smi_line) -> dict:
     w = len(names[0])
     out = {}
     for label, make, ids_of, n in (
-            ("prefix10", lambda s: {"prefix": {"body": s[:w - 1]}},
-             lambda s: prefix_ids(s[:w - 1], vocab), args.batch),
             ("prefix100", lambda s: {"prefix": {"body": s[:w - 2]}},
              lambda s: prefix_ids(s[:w - 2], vocab), args.batch),
-            ("prefix1000", lambda s: {"prefix": {"body": s[:w - 3]}},
-             lambda s: prefix_ids(s[:w - 3], vocab), args.batch),
             ("wildcard", lambda s: {"wildcard": {"body": f"{s[:3]}?{s[4]}*"}},
              lambda s: wildcard_ids(s, names), args.batch),
             ("fuzzy", lambda s: {"fuzzy": {"body": {"value": s,
@@ -5504,6 +5561,1187 @@ def phase_leaf_kernels(torch, args, data) -> list[dict]:
     return kernels
 
 
+# --------------------------------------------------------------------------
+# the geo slice (phases 47-51)
+# --------------------------------------------------------------------------
+
+#: the geo requests' centre, and the Rally geopoint track's polygon (lon, lat)
+GEO_ORIGIN = (55.0, 7.0)
+GEO_RING = [(-0.1, 49.0), (5.0, 48.0), (15.0, 49.0), (14.0, 60.0),
+            (-0.1, 61.0), (-10.0, 50.0)]
+#: the geo_shape requests' shapes around GEO_ORIGIN: a 5-vertex envelope, a
+#: 33-vertex circle and a polygon with a hole
+GEO_QUERY_SHAPES = {
+    "envelope": {"type": "envelope", "coordinates": [[6.4, 55.5],
+                                                     [7.6, 54.5]]},
+    "circle": {"type": "circle", "coordinates": [7.0, 55.0],
+               "radius": "60km"},
+    "hole": {"type": "polygon", "coordinates": [
+        [[5.8, 54.2], [8.3, 54.1], [8.1, 55.9], [6.0, 55.8], [5.8, 54.2]],
+        [[6.7, 54.8], [7.3, 54.8], [7.3, 55.2], [6.7, 55.2], [6.7, 54.8]]]},
+}
+GEO_RELATIONS = ("intersects", "disjoint", "within", "contains")
+#: the geo percolate registry and its probes
+GEO_REGS = 1000
+GEO_PROBES = 12
+#: the distance band of the float64 checks (the libms' last bits) and the
+#: margin band of the ray casts and orientations (deg²)
+GEO_DIST_BAND = 3e-5
+GEO_SHAPE_BAND = 1e-9
+GEO_MAX_EXCUSED = 1e-3
+
+
+def geo_points(seed, n):
+    """OpenStreetMap-shaped points (the Rally geopoint track's 60.8M OSM
+    nodes, cut to the smoke's reader): 1,000 centres of Zipf-weighted sizes
+    (s = 1.1), most over Europe and North America, each a Gaussian of
+    0.5-3°, plus a tenth area-uniform over the globe; one doc in 20 has no
+    point. The heaviest centres sit near GEO_ORIGIN, where the requests
+    look. → (lat, lon float64, exists)."""
+    rng = np.random.default_rng([seed, 47])
+    k = 1000
+    region = rng.choice(3, k, p=[0.5, 0.35, 0.15])
+    c_lat = np.where(region == 0, rng.uniform(36, 70, k),
+                     np.where(region == 1, rng.uniform(25, 60, k),
+                              np.degrees(np.arcsin(rng.uniform(-0.9, 0.9,
+                                                               k)))))
+    c_lon = np.where(region == 0, rng.uniform(-10, 40, k),
+                     np.where(region == 1, rng.uniform(-125, -65, k),
+                              rng.uniform(-180, 180, k)))
+    c_lat[:3] = [GEO_ORIGIN[0], 52.5, 40.7]
+    c_lon[:3] = [GEO_ORIGIN[1], 13.4, -74.0]
+    w = 1.0 / np.arange(1, k + 1) ** 1.1
+    which = rng.choice(k, n, p=w / w.sum())
+    spread = rng.uniform(0.5, 3.0, k)[which]
+    lat = c_lat[which] + rng.standard_normal(n) * spread
+    lon = c_lon[which] + rng.standard_normal(n) * spread / np.maximum(
+        np.cos(np.radians(c_lat[which])), 0.2)
+    uni = rng.random(n) < 0.1
+    lat[uni] = np.degrees(np.arcsin(rng.uniform(-1, 1, int(uni.sum()))))
+    lon[uni] = rng.uniform(-180, 180, int(uni.sum()))
+    lat = np.clip(lat, -89.9, 89.9)
+    lon = (lon + 180.0) % 360.0 - 180.0
+    return lat, lon, rng.random(n) > 0.05
+
+
+def geo_templates(seed):
+    """A few hundred shapes around (0, 0), shaped like the Rally geoshape
+    track's OSM ways and polygons, as the port's parse_shape_rings lays them
+    out: closed 4-12-gons (a tenth with a hole), open linestrings of 2-8
+    points, a few points and multipolygons, a few large polygons (admin
+    areas, 2-4° across) and one 32-point way, the widest. → (lats, lons
+    [T, V] f32, rid [T, V] i32, area [T, V] bool, nv [T] i32, kind [T]),
+    V = 32."""
+    from elasticsearch_tpu_torch.utils.geoshape import parse_shape_rings
+    rng = np.random.default_rng([seed, 48])
+
+    def ring(m, r):
+        a = np.sort(rng.uniform(0, 2 * np.pi, m))
+        rr = r * rng.uniform(0.6, 1.0, m)
+        return [[float(x * np.cos(t)), float(x * np.sin(t))]
+                for t, x in zip(a, rr)]
+
+    shapes, kinds = [], []
+    for i in range(320):
+        u = rng.random()
+        r = float(rng.uniform(0.002, 0.05))
+        if u < 0.55:
+            outer = ring(int(rng.integers(4, 13)), r)
+            rings = [outer + [outer[0]]]
+            if rng.random() < 0.1:
+                hole = [[x * 0.3, y * 0.3] for x, y in
+                        ring(int(rng.integers(4, 13)), r)]
+                rings.append(hole + [hole[0]])
+            shapes.append({"type": "polygon", "coordinates": rings})
+            kinds.append("polygon")
+        elif u < 0.88:
+            pts = np.cumsum(rng.normal(0, r, (int(rng.integers(2, 9)), 2)),
+                            axis=0)
+            shapes.append({"type": "linestring",
+                           "coordinates": pts.tolist()})
+            kinds.append("linestring")
+        elif u < 0.94:
+            shapes.append({"type": "point", "coordinates": [0.0, 0.0]})
+            kinds.append("point")
+        elif u < 0.98:
+            a, b = ring(int(rng.integers(4, 8)), r), \
+                ring(int(rng.integers(4, 8)), r)
+            b = [[x + 3 * r, y] for x, y in b]
+            shapes.append({"type": "multipolygon",
+                           "coordinates": [[a + [a[0]]], [b + [b[0]]]]})
+            kinds.append("multipolygon")
+        else:
+            outer = ring(int(rng.integers(8, 13)),
+                         float(rng.uniform(1.0, 2.0)))
+            shapes.append({"type": "polygon",
+                           "coordinates": [outer + [outer[0]]]})
+            kinds.append("admin")
+    # one long way of 32 points: the widest row, which every row is padded to
+    pts = np.cumsum(rng.normal(0, 0.01, (32, 2)), axis=0)
+    shapes.append({"type": "linestring", "coordinates": pts.tolist()})
+    kinds.append("long way")
+    v = 32
+    t = len(shapes)
+    lats = np.zeros((t, v), np.float32)
+    lons = np.zeros((t, v), np.float32)
+    rid = np.full((t, v), -1, np.int32)
+    area = np.zeros((t, v), bool)
+    nv = np.zeros(t, np.int32)
+    for i, s in enumerate(shapes):
+        rl, ro, rr, ra = parse_shape_rings(s)
+        check(len(rl) <= v, f"template {i} has {len(rl)} vertices")
+        lats[i, :len(rl)], lons[i, :len(ro)] = rl, ro
+        rid[i, :len(rr)], area[i, :len(ra)] = rr, ra
+        nv[i] = len(rl) - 1
+    return lats, lons, rid, area, nv, np.asarray(kinds)
+
+
+def geo_shape_rows(seed, lat, lon, templates):
+    """Each row a template translated to the row's point (shapes cluster
+    as the points do); one row in 20 has no shape. → (lats, lons [N, 32]
+    f32, rid [N, 32] i32, area [N, 32] bool, nv [N] i32, exists [N] bool):
+    the ring layout of the mapper, padded to the widest template."""
+    rng = np.random.default_rng([seed, 49])
+    n = len(lat)
+    t_lats, t_lons, t_rid, t_area, t_nv, kinds = templates
+    p = np.where(kinds == "admin", 0.05, 1.0)
+    p = np.where(kinds == "long way", 0.2, p)
+    tid = rng.choice(len(t_nv), n, p=p / p.sum())
+    exists = rng.random(n) > 0.05
+    rid = np.where(exists[:, None], t_rid[tid], -1).astype(np.int32)
+    valid = rid >= 0
+    lats = np.where(valid, t_lats[tid] + lat[:, None].astype(np.float32),
+                    0.0).astype(np.float32)
+    lons = np.where(valid, t_lons[tid] + lon[:, None].astype(np.float32),
+                    0.0).astype(np.float32)
+    area = t_area[tid] & valid
+    nv = np.where(exists, t_nv[tid], 0).astype(np.int32)
+    return lats, lons, rid, area, nv, exists
+
+
+def phase_geo_setup(torch, args, data) -> dict:
+    """Phase 47's set-up: a geo_point column ``location`` and a geo_shape
+    column ``area`` on config 1's segments, built vectorised from the seed,
+    put in the host segments and uploaded (the reader's lazy geo upload,
+    timed as set-up)."""
+    from elasticsearch_tpu_torch.index.device_reader import (
+        DeviceGeoField, DeviceShapeField)
+    from elasticsearch_tpu_torch.index.segment import (
+        GeoFieldColumn, ShapeFieldColumn)
+    t0 = time.perf_counter()
+    lat, lon, exists = geo_points(args.seed, args.docs)
+    templates = geo_templates(args.seed)
+    s_lats, s_lons, s_rid, s_area, s_nv, s_ex = geo_shape_rows(
+        args.seed, lat, lon, templates)
+    build_s = time.perf_counter() - t0
+    reader = data["reader"]
+    data["mapper"].merge("_doc", {"properties": {
+        "location": {"type": "geo_point"}, "area": {"type": "geo_shape"}}})
+    t0 = time.perf_counter()
+    for dseg in reader.segments:
+        seg = dseg.seg
+        lo = int(seg.ids[0])
+        nr = seg.num_docs
+        npad = seg.padded_docs
+
+        def pad(a, fill=0):
+            out = np.full((npad,) + a.shape[1:], fill, a.dtype)
+            out[:nr] = a[lo:lo + nr]
+            return out
+        gcol = GeoFieldColumn(lat=pad(lat), lon=pad(lon),
+                              exists=pad(exists, False))
+        scol = ShapeFieldColumn(lats=pad(s_lats), lons=pad(s_lons),
+                                nv=pad(s_nv), exists=pad(s_ex, False),
+                                rid=pad(s_rid, -1), area=pad(s_area, False))
+        seg.geo_fields["location"] = gcol
+        seg.shape_fields["area"] = scol
+        dseg.geo["location"] = DeviceGeoField(column=gcol)
+        dseg.shape["area"] = DeviceShapeField(column=scol)
+        reader.fetch_geo(dseg, "location")
+        reader.fetch_shape(dseg, "area")
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    shape_mb = sum(nbytes(t) for s in reader.segments
+                   for t in (s.shape["area"].lats, s.shape["area"].lons,
+                             s.shape["area"].rid, s.shape["area"].area,
+                             s.shape["area"].nv,
+                             s.shape["area"].exists)) / 2**20
+    used = (s_rid >= 0).sum(axis=1)
+    kinds = templates[5]
+    by_kind = ", ".join(f"{k} {int((kinds == k).sum())}"
+                        for k in np.unique(kinds))
+    log(f"geo set-up: {args.docs} points (1,000 Zipf centres, a tenth "
+        f"uniform; {int(exists.sum())} with a value) and shapes from "
+        f"{len(kinds)} templates ({by_kind}); "
+        f"vertices a shape mean {used[s_ex].mean():.2f}, max {used.max()} "
+        f"of the V = {s_lats.shape[1]} slots every row is padded to; built "
+        f"on the host in {build_s:.1f} s, uploaded in {up_s:.1f} s; the "
+        f"shape column {shape_mb:.1f} MiB on the card "
+        f"({shape_mb / len(reader.segments):.1f} MiB a segment; "
+        f"{100 * used.sum() / s_rid.size:.1f}% of its vertex slots hold a "
+        f"vertex); {reader_bytes(reader)}")
+    # the host's float64 view of what the card holds (the f32 coordinates)
+    lat32, lon32 = lat.astype(np.float32), lon.astype(np.float32)
+    valid = s_rid >= 0
+    f64_lats = s_lats.astype(np.float64)
+    f64_lons = s_lons.astype(np.float64)
+    bbox = (np.where(valid, f64_lats, np.inf).min(axis=1),
+            np.where(valid, f64_lats, -np.inf).max(axis=1),
+            np.where(valid, f64_lons, np.inf).min(axis=1),
+            np.where(valid, f64_lons, -np.inf).max(axis=1))
+    return {"lat": lat, "lon": lon, "exists": exists,
+            "lat32": lat32.astype(np.float64),
+            "lon32": lon32.astype(np.float64),
+            "shape": (s_lats, s_lons, s_rid, s_area, s_nv, s_ex),
+            "bbox": bbox}
+
+
+def geo_offsets(args, n, salt):
+    """Each request's seeded offset of its centre, up to 1° a coordinate."""
+    return np.random.default_rng([args.seed, 50, salt]).uniform(-1, 1, (n, 2))
+
+
+def geo_move(shape, dlat, dlon):
+    def move(c):
+        if isinstance(c[0], (int, float)):
+            return [c[0] + dlon, c[1] + dlat]
+        return [move(x) for x in c]
+    return {**shape, "coordinates": move(shape["coordinates"])}
+
+
+def geo_leaf(kind, dlat, dlon):
+    """A geo request's leaf, its centre moved by (dlat, dlon)."""
+    la, lo = GEO_ORIGIN[0] + dlat, GEO_ORIGIN[1] + dlon
+    if kind == "polygon":
+        return {"geo_polygon": {"location": {"points": [
+            {"lat": y + dlat, "lon": x + dlon} for x, y in GEO_RING]}}}
+    if kind == "bbox":
+        return {"geo_bounding_box": {"location": {
+            "top_left": {"lat": 61.0 + dlat, "lon": -0.1 + dlon},
+            "bottom_right": {"lat": 48.0 + dlat, "lon": 15.0 + dlon}}}}
+    if kind == "dateline":
+        return {"geo_bounding_box": {"location": {
+            "top_left": {"lat": 20.0 + dlat, "lon": 170.0 + dlon},
+            "bottom_right": {"lat": -20.0 + dlat, "lon": -170.0 + dlon}}}}
+    if kind == "distance":
+        return {"geo_distance": {"distance": "200km",
+                                 "location": {"lat": la, "lon": lo}}}
+    if kind == "distance_range":
+        return {"geo_distance_range": {"from": "200km", "to": "400km",
+                                       "location": {"lat": la, "lon": lo}}}
+    if kind == "geohash":
+        return {"geohash_cell": {"location": {"lat": la, "lon": lo},
+                                 "precision": 5, "neighbors": True}}
+    if kind == "exists":
+        return {"exists": {"field": "location"}}
+    rel, qname = kind.split("/")
+    return {"geo_shape": {"area": {
+        "shape": geo_move(GEO_QUERY_SHAPES[qname], dlat, dlon),
+        "relation": rel}}}
+
+
+GEO_POINT_PATHS = ("polygon", "bbox", "dateline", "distance",
+                   "distance_range", "geohash", "exists", "decay")
+GEO_SHAPE_PATHS = tuple(f"{r}/{q}" for r in GEO_RELATIONS
+                        for q in GEO_QUERY_SHAPES)
+
+
+def geo_bodies(args, data, kind, n, salt=0):
+    """n requests of a geo path: config 1's 4-term match in a bool's must
+    and the geo leaf in its filter, or (decay) the match under a
+    function_score with a gauss decay on ``location``."""
+    off = geo_offsets(args, n, salt)
+    out = []
+    for i in range(n):
+        text = data["texts"][i % len(data["texts"])]
+        dlat, dlon = off[i]
+        if kind == "decay":
+            q = {"function_score": {
+                "query": {"match": {"body": text}},
+                "functions": [{"gauss": {"location": {
+                    "origin": {"lat": GEO_ORIGIN[0] + dlat,
+                               "lon": GEO_ORIGIN[1] + dlon},
+                    "scale": "100km", "offset": "10km", "decay": 0.5}}}],
+                "boost_mode": "multiply"}}
+        else:
+            q = {"bool": {"must": [{"match": {"body": text}}],
+                          "filter": [geo_leaf(kind, dlat, dlon)]}}
+        out.append({"query": q, "size": args.k})
+    return out
+
+
+def haversine64(lat, lon, qlat, qlon):
+    """float64 meters (the reference's formula)."""
+    r = 6371008.8
+    p1, p2 = np.radians(lat), np.radians(qlat)
+    a = np.sin(np.radians(lat - qlat) / 2) ** 2 + np.cos(p1) * np.cos(p2) \
+        * np.sin(np.radians(lon - qlon) / 2) ** 2
+    return 2 * r * np.arcsin(np.sqrt(a))
+
+
+def ray64(py, px, yi, xi, yj, xj):
+    """(flips, margin deg²) of the even-odd step of the points against one
+    edge in float64."""
+    den = yj - yi
+    crosses = (yi > py) != (yj > py)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        xc = (xj - xi) * (py - yi) / np.where(den == 0, 1e-30, den) + xi
+        margin = np.where(crosses, np.abs(px - xc) * np.abs(den), np.inf)
+    return crosses & (px < xc), margin
+
+
+def to_f32(v) -> float:
+    """``v`` rounded to float32, as a plan's constant carries it."""
+    return float(np.float32(v))
+
+
+def geo_point_mask64(geo, kind, dlat, dlon):
+    """float64 recompute of a geo_point leaf from the f32 coordinates the
+    card holds and the f32 constants the plan carries. → (mask, band)."""
+    from elasticsearch_tpu_torch.utils.geohash import (
+        geohash_decode_bbox, geohash_encode, geohash_neighbors)
+    lat, lon, ex = geo["lat32"], geo["lon32"], geo["exists"]
+    band = np.zeros(len(lat), bool)
+    la, lo = GEO_ORIGIN[0] + dlat, GEO_ORIGIN[1] + dlon
+
+    def boxes_mask(boxes):
+        m = np.zeros(len(lat), bool)
+        for top, left, bottom, right in boxes:
+            top, left, bottom, right = (to_f32(v) for v in (top, left, bottom,
+                                                         right))
+            in_lon = ((lon >= left) & (lon <= right)) if left <= right \
+                else ((lon >= left) | (lon <= right))
+            m |= (lat <= top) & (lat >= bottom) & in_lon
+        return m
+    if kind == "exists":
+        return ex.copy(), band
+    if kind in ("bbox", "dateline"):
+        spec = geo_leaf(kind, dlat, dlon)["geo_bounding_box"]["location"]
+        tl, br = spec["top_left"], spec["bottom_right"]
+        return ex & boxes_mask([(tl["lat"], tl["lon"], br["lat"],
+                                 br["lon"])]), band
+    if kind == "geohash":
+        gh = geohash_encode(la, lo, 5)
+        cells = [gh] + geohash_neighbors(gh)
+        return ex & boxes_mask([(hi, lo_, lo2, hi_) for lo2, hi, lo_, hi_ in
+                                (geohash_decode_bbox(c) for c in cells)]), \
+            band
+    if kind == "polygon":
+        ring = [(to_f32(y + dlat), to_f32(x + dlon)) for x, y in GEO_RING]
+        ring.append(ring[0])
+        par = np.zeros(len(lat), bool)
+        margin = np.full(len(lat), np.inf)
+        for (yi, xi), (yj, xj) in zip(ring[:-1], ring[1:]):
+            flip, mg = ray64(lat, lon, yi, xi, yj, xj)
+            par ^= flip
+            margin = np.minimum(margin, mg)
+        return ex & par, margin < GEO_SHAPE_BAND
+    d = haversine64(lat, lon, to_f32(la), to_f32(lo))
+    if kind == "distance":
+        r = to_f32(200e3)
+        return ex & (d <= r), np.abs(d - r) < GEO_DIST_BAND * r
+    lo_b, hi_b = to_f32(200e3), to_f32(400e3)
+    return ex & (d >= lo_b) & (d <= hi_b), \
+        (np.abs(d - lo_b) < GEO_DIST_BAND * lo_b) | \
+        (np.abs(d - hi_b) < GEO_DIST_BAND * hi_b)
+
+
+def decay_factor64(geo, dlat, dlon, scale=100e3, offset=10e3, decay=0.5):
+    """float64 gauss factor of every doc (1 where there is no point)."""
+    d = haversine64(geo["lat32"], geo["lon32"], to_f32(GEO_ORIGIN[0] + dlat),
+                    to_f32(GEO_ORIGIN[1] + dlon))
+    dist = np.maximum(d - offset, 0.0)
+    sigma2 = -scale * scale / (2.0 * np.log(decay))
+    return np.where(geo["exists"], np.exp(-dist * dist / (2.0 * sigma2)),
+                    1.0)
+
+
+def shape_relation64(geo, rows, qshape, relation):
+    """float64 recompute of a geo_shape relation over ``rows`` (indices
+    into the corpus) from the f32 rings the card holds, the doc edges and
+    vertices flattened. → (mask over rows, min margin deg² of each row)."""
+    from elasticsearch_tpu_torch.utils.geoshape import parse_shape_rings
+    s_lats, s_lons, s_rid, s_area, s_nv, s_ex = geo["shape"]
+    ql, qo, qr, qa = parse_shape_rings(qshape)
+    ql = np.asarray(ql, np.float32).astype(np.float64)
+    qo = np.asarray(qo, np.float32).astype(np.float64)
+    r = len(rows)
+    lat = s_lats[rows].astype(np.float64)
+    lon = s_lons[rows].astype(np.float64)
+    rid, area, nv = s_rid[rows], s_area[rows], s_nv[rows]
+    v = lat.shape[1]
+    e_ok = (np.arange(v - 1)[None, :] < nv[:, None]) & \
+        (rid[:, :-1] == rid[:, 1:]) & (rid[:, :-1] >= 0)
+    er, ev = np.nonzero(e_ok)
+    a_lat, a_lon = lat[er, ev], lon[er, ev]
+    b_lat, b_lon = lat[er, ev + 1], lon[er, ev + 1]
+    e_area = area[er, ev]
+    vr, vv = np.nonzero(rid >= 0)
+    p_lat, p_lon = lat[vr, vv], lon[vr, vv]
+    rstart = (vv == 0) | (rid[vr, np.maximum(vv - 1, 0)] != rid[vr, vv])
+    margin = np.full(r, np.inf)
+
+    def orient(ax, ay, bx, by, cx, cy):
+        return (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+    cross = np.zeros(r, bool)
+    vpar = np.zeros(len(vr), bool)
+    for i in range(len(ql) - 1):
+        if qr[i] != qr[i + 1]:
+            continue
+        c_lat, c_lon, d_lat, d_lon = ql[i], qo[i], ql[i + 1], qo[i + 1]
+        o = [orient(a_lon, a_lat, b_lon, b_lat, c_lon, c_lat),
+             orient(a_lon, a_lat, b_lon, b_lat, d_lon, d_lat),
+             orient(c_lon, c_lat, d_lon, d_lat, a_lon, a_lat),
+             orient(c_lon, c_lat, d_lon, d_lat, b_lon, b_lat)]
+        hit = (o[0] * o[1] <= 0) & (o[2] * o[3] <= 0)
+        col = (o[0] == 0) & (o[1] == 0) & (o[2] == 0) & (o[3] == 0)
+        bb = (np.minimum(a_lat, b_lat) <= max(c_lat, d_lat)) & \
+            (np.maximum(a_lat, b_lat) >= min(c_lat, d_lat)) & \
+            (np.minimum(a_lon, b_lon) <= max(c_lon, d_lon)) & \
+            (np.maximum(a_lon, b_lon) >= min(c_lon, d_lon))
+        hit &= np.where(col, bb, True)
+        cross[er[hit]] = True
+        m = np.minimum.reduce([np.abs(x) for x in o])
+        np.minimum.at(margin, er, m)
+        if qa[i]:
+            flip, mg = ray64(p_lat, p_lon, c_lat, c_lon, d_lat, d_lon)
+            vpar ^= flip
+            np.minimum.at(margin, vr, mg)
+
+    def q_in_doc(py, px):
+        flip, mg = ray64(py, px, a_lat, a_lon, b_lat, b_lon)
+        flip &= e_area
+        np.minimum.at(margin, er[e_area], mg[e_area])
+        return np.bincount(er[flip], minlength=r) % 2 == 1
+    ex = s_ex[rows]
+    if relation in ("intersects", "disjoint"):
+        inter = cross | (np.bincount(vr[vpar & rstart], minlength=r) > 0)
+        starts = [i for i in range(len(qr)) if i == 0 or qr[i] != qr[i - 1]]
+        for s in starts:
+            inter |= q_in_doc(ql[s], qo[s])
+        out = inter if relation == "intersects" else ~inter
+    elif relation == "within":
+        all_in = np.bincount(vr[~vpar], minlength=r) == 0
+        out = all_in & ~cross
+    else:
+        all_in = np.ones(r, bool)
+        for i in range(len(ql) - 1):
+            all_in &= q_in_doc(ql[i], qo[i])
+        out = all_in & ~cross
+    return ex & out, margin
+
+
+def shape_mask64(geo, qshape, relation):
+    """The relation over the whole corpus: rows whose bounding box misses
+    the query's can neither meet nor hold it (intersects, within, contains
+    False; disjoint True), so only the rest are recomputed. → (mask,
+    band)."""
+    from elasticsearch_tpu_torch.utils.geoshape import parse_shape_rings
+    ql, qo, _, _ = parse_shape_rings(qshape)
+    ql = np.asarray(ql, np.float32).astype(np.float64)
+    qo = np.asarray(qo, np.float32).astype(np.float64)
+    lat_lo, lat_hi, lon_lo, lon_hi = geo["bbox"]
+    ex = geo["shape"][5]
+    cand = np.nonzero(ex & (lat_lo <= ql.max()) & (lat_hi >= ql.min()) &
+                      (lon_lo <= qo.max()) & (lon_hi >= qo.min()))[0]
+    mask = ex.copy() if relation == "disjoint" else np.zeros(len(ex), bool)
+    band = np.zeros(len(ex), bool)
+    m, margin = shape_relation64(geo, cand, qshape, relation)
+    mask[cand] = m
+    band[cand] = margin < GEO_SHAPE_BAND
+    return mask, band
+
+
+def plain_geo_kernels():
+    """A context in which the wrappers of K1, K17 and K18 run their plain
+    versions also on CUDA tensors. Launches made there count nowhere."""
+    import contextlib
+    from elasticsearch_tpu_torch.ops import filters, geoshape, lexical
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (lexical.bm25_match_batch, filters.geo_point_filter,
+                 geoshape.shape_relation)
+        lexical.bm25_match_batch = (
+            lambda *a, trailing_pad=False, want_nmatch=True:
+            lexical.bm25_match_batch_plain(*a, want_nmatch=want_nmatch))
+
+        def point_plain(lat, lon, exists, mode, params, rl=None, ro=None):
+            import torch
+            return filters.geo_point_filter_plain(
+                lat, lon, exists, mode, torch.as_tensor(
+                    params, dtype=torch.float32, device=lat.device), rl, ro)
+
+        def shape_plain(*a):
+            if a[6].dim() == 1:
+                return geoshape.shape_relation_plain(
+                    *a[:6], a[6][None], a[7][None], *a[8:])[0]
+            return geoshape.shape_relation_plain(*a)
+        filters.geo_point_filter = point_plain
+        geoshape.shape_relation = shape_plain
+        try:
+            yield
+        finally:
+            (lexical.bm25_match_batch, filters.geo_point_filter,
+             geoshape.shape_relation) = saved
+    return ctx()
+
+
+def check_geo_batch(label, args, searcher, reqs, res_b, geo_mask64,
+                    score64):
+    """The first and the last request of a geo batch: against the plain
+    versions on the card's tensors (total exact, the hits' scores bit for
+    bit), then against the float64 recompute: ``geo_mask64(j)`` → (the geo
+    leaf's mask, its band), ``score64(j)`` → (score of every doc, the match
+    mask): the filtered set equal outside the band (at most 0.1% of rows
+    excused), scores within 1e-5, tie-tolerant recall@k 1.0. → rows
+    excused."""
+    from elasticsearch_tpu_torch.search import segment_exec
+    orig_of = gid_to_orig(searcher.reader)
+    excused = 0
+    for j in checked_requests(len(reqs)):
+        req, res = reqs[j], res_b[j]
+        scores, masks = [], []
+        with plain_geo_kernels():
+            for seg in searcher.reader.segments:
+                s, m = segment_exec.execute(seg, searcher.ctx, req.query)
+                nr = seg.seg.num_docs
+                scores.append(s[:nr].cpu().numpy())
+                masks.append(m[:nr].cpu().numpy())
+        p_s, p_m = np.concatenate(scores), np.concatenate(masks)
+        orig = orig_of[np.asarray(res.doc_ids, np.int64)]
+        check(res.total == int(p_m.sum()),
+              f"{label} request {j}: total {res.total} != the plain "
+              f"versions' {int(p_m.sum())}")
+        check(np.array_equal(np.asarray(res.scores, np.float32), p_s[orig]),
+              f"{label} request {j}: the hits' scores differ from the plain "
+              f"versions'")
+        s64, matched = score64(j)
+        g64, band = geo_mask64(j)
+        m64 = matched & g64
+        diff = m64 != p_m
+        check(not (diff & ~band).any(),
+              f"{label} request {j}: {int((diff & ~band).sum())} docs "
+              f"filtered otherwise than the float64 recompute, outside the "
+              f"band")
+        check(diff.sum() <= GEO_MAX_EXCUSED * len(diff),
+              f"{label} request {j}: {int(diff.sum())} rows excused")
+        excused += int(diff.sum())
+        check_vs_cpu(label, args, [res], [s64], [p_m], orig_of, k=req.size)
+    return excused
+
+
+def k17_params(torch, kind, off, dev):
+    """K17's mode and [B, P] parameters (rings) for a geo_point path's
+    requests, as the resolvers build them."""
+    from elasticsearch_tpu_torch.ops import filters
+    from elasticsearch_tpu_torch.utils.geohash import (
+        geohash_decode_bbox, geohash_encode, geohash_neighbors)
+    la = GEO_ORIGIN[0] + off[:, 0]
+    lo = GEO_ORIGIN[1] + off[:, 1]
+    rl = ro = None
+    if kind == "distance":
+        mode, p = filters.GEO_DISTANCE, np.stack(
+            [la, lo, np.full(len(la), 200e3)], 1)
+    elif kind == "distance_range":
+        mode, p = filters.GEO_DISTANCE_RANGE, np.stack(
+            [la, lo, np.full(len(la), 200e3), np.full(len(la), -1.0),
+             np.full(len(la), 400e3), np.full(len(la), -1.0)], 1)
+    elif kind == "decay":
+        mode, p = filters.GEO_DISTANCE_OUT, np.stack([la, lo], 1)
+    elif kind in ("bbox", "dateline"):
+        top, left, bottom, right = (61.0, -0.1, 48.0, 15.0) \
+            if kind == "bbox" else (20.0, 170.0, -20.0, -170.0)
+        mode, p = filters.GEO_BOXES, np.stack(
+            [top + off[:, 0], left + off[:, 1], bottom + off[:, 0],
+             right + off[:, 1]], 1)
+    elif kind == "geohash":
+        rows = []
+        for a, b in zip(la, lo):
+            gh = geohash_encode(a, b, 5)
+            cells = [gh] + geohash_neighbors(gh)
+            rows.append([v for lo2, hi, lo_, hi_ in
+                         (geohash_decode_bbox(c) for c in cells)
+                         for v in (hi, lo_, lo2, hi_)])
+        mode, p = filters.GEO_BOXES, np.asarray(rows)
+    else:                                       # polygon
+        ring = np.asarray(GEO_RING + GEO_RING[:1])
+        mode, p = filters.GEO_POLYGON, np.zeros((len(la), 0))
+        rl = torch.from_numpy((ring[None, :, 1] + off[:, :1]).astype(
+            np.float32)).to(dev)
+        ro = torch.from_numpy((ring[None, :, 0] + off[:, 1:]).astype(
+            np.float32)).to(dev)
+    return mode, torch.from_numpy(p.astype(np.float32)).to(dev), rl, ro
+
+
+def k18_query(torch, qname, off, dev):
+    """K18's query arrays for a geo_shape path's requests."""
+    from elasticsearch_tpu_torch.utils.geoshape import parse_shape_rings
+    rows = [parse_shape_rings(geo_move(GEO_QUERY_SHAPES[qname], a, b))
+            for a, b in off]
+    ql = torch.tensor(np.asarray([r[0] for r in rows], np.float32),
+                      device=dev)
+    qo = torch.tensor(np.asarray([r[1] for r in rows], np.float32),
+                      device=dev)
+    return ql, qo, np.asarray(rows[0][2], np.int32), \
+        np.asarray(rows[0][3], bool)
+
+
+def k18_ops(col_rows, qr, qa, relation, b):
+    """The reference's operations for a K18 batch over these rows
+    (``col_rows``: rid, nv, exists on the host): 24 an orientation test of
+    a valid doc edge against a valid query edge, 9 a ray step of a doc
+    vertex through an area edge (intersects, disjoint, within) or of a
+    query vertex through a doc area edge (contains, and intersects'
+    query-ring starts)."""
+    rid, area, nv, ex = col_rows
+    v = rid.shape[1]
+    edges = ((np.arange(v - 1)[None, :] < nv[:, None]) &
+             (rid[:, :-1] == rid[:, 1:]) & (rid[:, :-1] >= 0) &
+             ex[:, None])
+    n_edges = int(edges.sum())
+    n_area_edges = int((edges & area[:, :-1]).sum())
+    n_vert = int(((rid >= 0) & ex[:, None]).sum())
+    q_edges = sum(1 for i in range(len(qr) - 1) if qr[i] == qr[i + 1])
+    q_area = sum(1 for i in range(len(qr) - 1)
+                 if qr[i] == qr[i + 1] and qa[i])
+    starts = sum(1 for i in range(len(qr)) if i == 0 or qr[i] != qr[i - 1])
+    per = 24 * n_edges * q_edges
+    if relation != "contains":
+        per += 9 * n_vert * q_area
+    if relation in ("intersects", "disjoint"):
+        per += 9 * n_area_edges * starts
+    if relation == "contains":
+        per += 9 * n_area_edges * (len(qr) - 1)
+    return float(per) * b
+
+
+def phase_geo_kernels(torch, args, data, geo) -> list[dict]:
+    """Phase 47: K17 in every mode and K18 in every relation against their
+    plain versions, bit for bit, at the geo paths' shapes on segment 0 (B =
+    64, N = 2^20) and at odd shapes (N = 100,003, an empty batch, points on
+    a box edge and a polygon vertex, a zero-length doc edge, a collinear
+    touch, horizontal query edges), timed beside the plain versions (K18's
+    on queries 0, 31, 32 and 63) and the bounds."""
+    from elasticsearch_tpu_torch.ops import filters, geoshape
+    seg = data["reader"].segments[0]
+    g, s = seg.geo["location"], seg.shape["area"]
+    dev = g.lat.device
+    n = g.lat.shape[0]
+    b = args.batch
+    qi = torch.tensor(plain_queries(b), device=dev)
+    pq = len(qi)
+    kernels = []
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        if got.dtype == torch.float32:
+            ok = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        else:
+            ok = torch.equal(got, want)
+        check(ok and got.shape == want.shape,
+              f"{what} is not bit-identical to its plain version")
+
+    # ---- K17 at the paths' shapes ------------------------------------------
+    k17 = {}
+    for kind in ("distance", "distance_range", "bbox", "dateline",
+                 "geohash", "polygon", "decay"):
+        off = geo_offsets(args, b, 0)
+        mode, params, rl, ro = k17_params(torch, kind, off, dev)
+        got = filters.geo_point_filter(g.lat, g.lon, g.exists, mode, params,
+                                       rl, ro)
+        want = filters.geo_point_filter_plain(g.lat, g.lon, g.exists, mode,
+                                              params, rl, ro)
+        same(got, want, f"K17 {kind} (B={b}, N={n})")
+        if kind != "decay":
+            check(bool(got.any()), f"K17 {kind}: nothing matched")
+        ms = timed(torch, f"K17 {kind}", lambda: filters.geo_point_filter(
+            g.lat, g.lon, g.exists, mode, params, rl, ro), reps=10)
+        plain = timed(torch, f"K17 {kind} plain", lambda:
+                      filters.geo_point_filter_plain(
+                          g.lat, g.lon, g.exists, mode, params, rl, ro),
+                      reps=2)
+        out_b = 4 if kind == "decay" else 1
+        byts = 9 * n + nbytes(params) + out_b * b * n + \
+            (0 if rl is None else nbytes(rl) + nbytes(ro))
+        if kind in ("distance", "distance_range", "decay"):
+            ops = 18 * b * n          # the haversine: 15 + 3 libm calls
+        elif kind == "polygon":
+            ops = 9 * b * n * (rl.shape[1] - 1)
+        else:
+            ops = 6 * b * n * (params.shape[1] // 4)
+        bnd, by = bound(byts, ops)
+        k17[kind] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                     "bound_by": by}
+        log(f"K17 geo_point_filter {kind} [B={b}, N={n}]: bit-identical to "
+            f"plain; kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+            f"bound_ms={bnd:.4f} ({by}: {byts} B, {ops} ops)")
+    # odd shapes: N = 100,003, points on a box edge and a polygon vertex, an
+    # empty batch, 9 boxes across the dateline, a horizontal ring edge
+    n_odd = min(n, 100_003)
+    lat = g.lat[:n_odd].clone()
+    lon = g.lon[:n_odd].clone()
+    ex = g.exists[:n_odd]
+    lat[:4] = torch.tensor([61.0, 48.0, 49.0, 60.0], device=dev)
+    lon[:4] = torch.tensor([-0.1, 15.0, -0.1, 14.0], device=dev)
+    ring = torch.tensor([[49.0, 48.0, 48.0, 60.0, 61.0, 50.0, 49.0]],
+                        device=dev)
+    ring_o = torch.tensor([[-0.1, 5.0, 15.0, 14.0, -0.1, -10.0, -0.1]],
+                          device=dev)
+    boxes = torch.tensor([[61.0, -0.1, 48.0, 15.0] + [5.0, 170.0, -5.0,
+                                                      -170.0] * 8,
+                          [60.0, 14.0, 49.0, -0.1] * 9], device=dev)
+    odd = [(filters.GEO_DISTANCE, torch.tensor(
+        [[55.0, 7.0, 200e3], [61.0, -0.1, 0.0], [0.0, 0.0, 2e7]],
+        device=dev), None, None),
+        (filters.GEO_DISTANCE_RANGE, torch.tensor(
+            [[55.0, 7.0, -1.0, 1e5, -1.0, 3e5]], device=dev), None, None),
+        (filters.GEO_BOXES, boxes, None, None),
+        (filters.GEO_POLYGON, torch.zeros((1, 0), device=dev), ring,
+         ring_o),
+        (filters.GEO_DISTANCE_OUT, torch.tensor([[55.0, 7.0], [-89.0, 180.0]],
+                                                device=dev), None, None)]
+    for mode, params, rl, ro in odd:
+        same(filters.geo_point_filter(lat, lon, ex, mode, params, rl, ro),
+             filters.geo_point_filter_plain(lat, lon, ex, mode, params, rl,
+                                            ro),
+             f"K17 mode {mode} at the odd shape N={n_odd}")
+        e = filters.geo_point_filter(lat, lon, ex, mode, params[:0],
+                                     None if rl is None else rl[:0],
+                                     None if ro is None else ro[:0])
+        check(e.shape == (0, n_odd), f"K17 mode {mode}: an empty batch")
+    log(f"K17 geo_point_filter: bit-identical to plain at the odd shapes "
+        f"(N={n_odd}; points on box edges and ring vertices, 9 boxes across "
+        f"the dateline, a horizontal ring edge, empty batches)")
+    main = k17["distance"]
+    kernels.append({
+        "name": "geo_point_filter", "route": "cuda", "source": K17_SOURCE,
+        "replaces": K17_REPLACES, "launches": 0, "max_abs_err": 0.0,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library_null": "no single torch call computes a haversine, a box "
+                        "test or a ray cast over a column",
+        "modes": k17, "shape": {"B": b, "N": n}})
+
+    # ---- K18 at the paths' shapes ----------------------------------------
+    host_rows = (s.rid.cpu().numpy(), s.area.cpu().numpy(),
+                 s.nv.cpu().numpy(), s.exists.cpu().numpy())
+    col = (s.lats, s.lons, s.nv, s.exists, s.rid, s.area)
+    k18 = {}
+    for qname in GEO_QUERY_SHAPES:
+        off = geo_offsets(args, b, 0)
+        ql, qo, qr, qa = k18_query(torch, qname, off, dev)
+        for rel in GEO_RELATIONS:
+            got = geoshape.shape_relation(*col, ql, qo, qr, qa, rel)
+            want = geoshape.shape_relation_plain(*col, ql[qi], qo[qi], qr,
+                                                 qa, rel)
+            same(got[qi], want, f"K18 {rel} {qname} (B={b}, N={n})")
+            ms = timed(torch, f"K18 {rel} {qname}", lambda:
+                       geoshape.shape_relation(*col, ql, qo, qr, qa, rel),
+                       reps=3)
+            ops = k18_ops(host_rows, qr, qa, rel, b)
+            byts = sum(nbytes(t) for t in col) + b * n + nbytes(ql) * 2
+            bnd, by = bound(byts, ops)
+            rec = {"ms": ms, "bound_ms": bnd, "bound_by": by,
+                   "matches": int(got.sum()), "E": int(ql.shape[1] - 1)}
+            if qname == "circle" and rel == "intersects":
+                rec["plain_ms"] = timed(
+                    torch, f"K18 plain ({pq} queries)", lambda:
+                    geoshape.shape_relation_plain(*col, ql[qi], qo[qi], qr,
+                                                  qa, rel), reps=1, warmup=0)
+            k18[f"{rel}/{qname}"] = rec
+            log(f"K18 shape_relation {rel} {qname} [B={b}, N={n}, V="
+                f"{s.lats.shape[1]}, E={ql.shape[1] - 1}]: bit-identical to "
+                f"plain on queries {plain_queries(b)}; kernel_ms={ms:.4f} "
+                f"bound_ms={bnd:.4f} ({by}: {byts} B, {ops:.4g} ops)"
+                + (f" plain_ms={rec['plain_ms']:.4f} ({pq} queries)"
+                   if "plain_ms" in rec else ""))
+    # odd shapes: N = 100,003; a point on the line of the envelope's top
+    # edge far away (collinear, disjoint), one on that edge (a touch), the
+    # points' zero-length edges; every query edge of the envelope is
+    # horizontal or vertical; an empty batch
+    odd_col = [t[:n_odd].clone() for t in col]
+    for r, (la_, lo_) in enumerate(((55.5, 100.0), (55.5, 7.0))):
+        odd_col[5][r] = False
+        odd_col[0][r, :2] = la_
+        odd_col[1][r, :2] = lo_
+        odd_col[2][r] = 1
+        odd_col[3][r] = True
+        odd_col[4][r] = torch.tensor([0, 0] + [-1] * (col[4].shape[1] - 2),
+                                     dtype=torch.int32, device=dev)
+        odd_col[5][r, :2] = True
+    ql, qo, qr, qa = k18_query(torch, "envelope", np.zeros((3, 2)), dev)
+    ql[1:] += 0.25
+    for rel in GEO_RELATIONS:
+        got = geoshape.shape_relation(*odd_col, ql, qo, qr, qa, rel)
+        same(got, geoshape.shape_relation_plain(*odd_col, ql, qo, qr, qa,
+                                                rel),
+             f"K18 {rel} at the odd shape N={n_odd}")
+        if rel == "intersects":
+            check(not bool(got[0, 0]) and bool(got[0, 1]),
+                  "K18: the collinear point must stay disjoint and the "
+                  "point on the edge intersect")
+        e = geoshape.shape_relation(*odd_col, ql[:0], qo[:0], qr, qa, rel)
+        check(e.shape == (0, n_odd), "K18: an empty batch")
+    log(f"K18 shape_relation: bit-identical to plain at the odd shape "
+        f"N={n_odd} (a collinear far point disjoint, a point on an edge "
+        f"intersecting, zero-length point edges, axis-parallel query edges, "
+        f"empty batches), every relation")
+    main = k18["intersects/circle"]
+    kernels.append({
+        "name": "shape_relation", "route": "cuda", "source": K18_SOURCE,
+        "replaces": K18_REPLACES, "launches": 0, "max_abs_err": 0.0,
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "plain_queries": pq, "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
+        "library_null": "no single torch call tests edges or ray-casts "
+                        "vertex rings",
+        "relations": k18, "shape": {"B": b, "N": n,
+                                    "V": int(s.lats.shape[1])}})
+    return kernels
+
+
+def phase_geo_paths(torch, args, data, geo, f64, name, smi_line) -> dict:
+    """Phase 48: the geo batches through query_phase_batch — geo_polygon,
+    geo_bounding_box (and across the dateline), geo_distance,
+    geo_distance_range, geohash_cell with neighbours, exists, the gauss
+    decay, geo_shape in each relation against each query shape (one batch
+    each) — the first and the last request of each batch
+    against the plain versions on the card's tensors and a float64
+    recompute (check_geo_batch)."""
+    out = {}
+    excused = {}
+    for kind in GEO_POINT_PATHS + GEO_SHAPE_PATHS:
+        point = kind in GEO_POINT_PATHS
+        bodies = geo_bodies(args, data, kind, args.batch)
+        batches = batches_of(args, bodies)
+        results, per_batch, wall, launches, peak = drive(
+            torch, data["searcher"], batches)
+        needed = ("bm25_scan", "stable_topk",
+                  "geo_point_filter" if point else "shape_relation")
+        if kind == "exists":
+            needed = needed[:2]
+        out[kind] = report(f"geo {kind}", args, data, batches, per_batch,
+                           wall, launches, peak, name, smi_line, needed)
+        off = geo_offsets(args, args.batch, 0)
+        n_exc = 0
+        for bi, (reqs, res_b) in enumerate(zip(batches, results)):
+            def score64(j, bi=bi):
+                i = bi * args.batch + j
+                s, cnt = f64.bm25(data["qtids"][i])
+                if kind == "decay":
+                    return s * decay_factor64(geo, *off[i]), cnt > 0
+                return s, cnt > 0
+
+            def mask64(j, bi=bi):
+                i = bi * args.batch + j
+                if kind == "decay":
+                    return np.ones(len(geo["exists"]), bool), \
+                        np.zeros(len(geo["exists"]), bool)
+                if point:
+                    return geo_point_mask64(geo, kind, *off[i])
+                rel, qname = kind.split("/")
+                return shape_mask64(geo, geo_move(GEO_QUERY_SHAPES[qname],
+                                                  *off[i]), rel)
+            n_exc += check_geo_batch(f"geo {kind}", args, data["searcher"],
+                                     reqs, res_b, mask64, score64)
+        excused[kind] = n_exc
+    log(f"geo paths: every checked request equal to the plain versions on "
+        f"the card (totals, scores bit for bit) and to the float64 "
+        f"recompute outside the band (rows excused by path: {excused}; "
+        f"scores within 1e-5, tie-tolerant recall 1.0)")
+    return out
+
+
+def geohash64(lat, lon, length):
+    """Vectorised geohash_encode (the same float64 bisection) → [N] str."""
+    from elasticsearch_tpu_torch.utils.geohash import _BASE32
+    lat_lo = np.full(len(lat), -90.0)
+    lat_hi = np.full(len(lat), 90.0)
+    lon_lo = np.full(len(lat), -180.0)
+    lon_hi = np.full(len(lat), 180.0)
+    chars = []
+    even = True
+    code = np.zeros(len(lat), np.int64)
+    for bit in range(5 * length):
+        if even:
+            mid = (lon_lo + lon_hi) / 2
+            up = lon >= mid
+            lon_lo = np.where(up, mid, lon_lo)
+            lon_hi = np.where(up, lon_hi, mid)
+        else:
+            mid = (lat_lo + lat_hi) / 2
+            up = lat >= mid
+            lat_lo = np.where(up, mid, lat_lo)
+            lat_hi = np.where(up, lat_hi, mid)
+        code = (code << 1) | up
+        even = not even
+        if bit % 5 == 4:
+            chars.append(np.asarray(list(_BASE32))[code])
+            code[:] = 0
+    return np.asarray(["".join(c) for c in zip(*chars)]) if chars else \
+        np.zeros(0, str)
+
+
+def phase_geo_aggs(torch, args, data, geo, f64, name, smi_line) -> dict:
+    """Phase 49: one request with the geo_distance 400 km filter and the
+    geo aggregations — geohash_grid at precision 4 with a geo_centroid sub,
+    geo_distance ranges 0-100 / 100-200 / 200-400 km, geo_bounds — through
+    query_phase and controller.merge_responses, against numpy over the
+    card's match mask; the host collectors timed apart."""
+    from elasticsearch_tpu_torch.search import (aggregations, controller,
+                                                segment_exec)
+    from elasticsearch_tpu_torch.search.phase import parse_search_request
+    searcher = data["searcher"]
+    aggs = {
+        "grid": {"geohash_grid": {"field": "location", "precision": 4},
+                 "aggs": {"c": {"geo_centroid": {"field": "location"}}}},
+        "rings": {"geo_distance": {"field": "location", "origin": "55,7",
+                                   "unit": "km", "ranges": [
+                                       {"from": 0, "to": 100},
+                                       {"from": 100, "to": 200},
+                                       {"from": 200, "to": 400}]}},
+        "bounds": {"geo_bounds": {"field": "location"}}}
+    body = {"query": {"bool": {
+        "must": [{"match": {"body": data["texts"][0]}}],
+        "filter": [{"geo_distance": {"distance": "400km",
+                                     "location": "55,7"}}]}},
+        "size": 10, "aggs": aggs}
+    req = parse_search_request(body)
+    coll_ms = {}
+    saved = dict(aggregations._COLLECTORS)
+
+    def timed_collector(kind):
+        def run(node, mask, ctx):
+            t0 = time.perf_counter()
+            try:
+                return saved[kind](node, mask, ctx)
+            finally:
+                coll_ms[kind] = coll_ms.get(kind, 0.0) + \
+                    (time.perf_counter() - t0) * 1e3
+        return run
+    for kind in ("geohash_grid", "geo_distance", "geo_bounds",
+                 "geo_centroid"):
+        aggregations._COLLECTORS[kind] = timed_collector(kind)
+    counters = reset_launches()
+    try:
+        t0 = time.perf_counter()
+        res = searcher.query_phase(req)
+        qp_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        merged = controller.merge_responses("geo", req, [res], [searcher],
+                                            0.0, req.aggs)
+        merge_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        aggregations._COLLECTORS.update(saved)
+    launches = read_launches(counters)
+    check(launches["geo_point_filter"] > 0 and launches["bm25_scan"] > 0,
+          f"geo aggs: launches {launches}")
+    # numpy over the card's own match mask and the host's float64 columns
+    mask = np.concatenate([
+        segment_exec.match_mask(s, searcher.ctx, req.query).cpu().numpy()[
+            :s.seg.num_docs] for s in searcher.reader.segments])
+    check(int(mask.sum()) == res.total, "geo aggs: the match mask's count")
+    _, cnt = f64.bm25(data["qtids"][0])
+    d400 = haversine64(geo["lat32"], geo["lon32"], 55.0, 7.0)
+    band = np.abs(d400 - to_f32(400e3)) < GEO_DIST_BAND * to_f32(400e3)
+    m64 = (cnt > 0) & geo["exists"] & (d400 <= to_f32(400e3))
+    check(not ((m64 != mask) & ~band).any(),
+          "geo aggs: the card's mask differs from the float64 recompute "
+          "outside the band")
+    lat, lon = geo["lat"][mask], geo["lon"][mask]
+    got = merged["aggregations"]
+    cells = geohash64(lat, lon, 4)
+    keys, counts = np.unique(cells, return_counts=True)
+    want_grid = {k: int(c) for k, c in zip(keys, counts)}
+    got_grid = {b["key"]: b for b in got["grid"]["buckets"]}
+    check({k: b["doc_count"] for k, b in got_grid.items()} == want_grid,
+          "geo aggs: geohash_grid buckets differ from numpy")
+    for k, b in list(got_grid.items())[:50]:
+        sel = cells == k
+        c = b["c"]
+        check(c["count"] == int(sel.sum()) and np.isclose(
+            c["location"]["lat"], lat[sel].mean(), rtol=1e-12) and
+            np.isclose(c["location"]["lon"], lon[sel].mean(), rtol=1e-12),
+            f"geo aggs: the centroid of cell {k}")
+    # the aggregation's km haversine (r = 6371.0087714 km) from the origin
+    p1, p2 = np.radians(55.0), np.radians(lat)
+    a = np.sin(np.radians(lat - 55.0) / 2) ** 2 + np.cos(p1) * np.cos(p2) \
+        * np.sin(np.radians(lon - 7.0) / 2) ** 2
+    dist_km = 2 * 6371.0087714 * np.arcsin(np.sqrt(a))
+    for b, (lo_, hi_) in zip(got["rings"]["buckets"],
+                             ((0, 100), (100, 200), (200, 400))):
+        want = int(((dist_km >= lo_) & (dist_km < hi_)).sum())
+        check(b["doc_count"] == want, f"geo aggs: geo_distance bucket "
+              f"{lo_}-{hi_}: {b['doc_count']} != numpy {want}")
+    bb = got["bounds"]["bounds"]
+    check(bb["top_left"]["lat"] == lat.max() and
+          bb["bottom_right"]["lat"] == lat.min() and
+          bb["top_left"]["lon"] == lon.min() and
+          bb["bottom_right"]["lon"] == lon.max(),
+          "geo aggs: geo_bounds differs from numpy")
+    log(f"geo aggs: {res.total} matches (a 4-term match inside 400 km of "
+        f"(55, 7)), {len(want_grid)} geohash cells at precision 4 with their "
+        f"centroids, 3 distance rings "
+        f"{[b['doc_count'] for b in got['rings']['buckets']]}, "
+        f"bounds; equal to numpy over the card's mask (itself equal to the "
+        f"float64 recompute outside the band); query_phase {qp_ms:.1f} ms "
+        f"of which the host collectors "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in coll_ms.items())
+        + f" (geohash_grid encodes each matching point in a Python loop, "
+        f"{1e3 * coll_ms.get('geohash_grid', 0) / max(res.total, 1):.2f} "
+        f"µs a point with its sub-aggregation); merge {merge_ms:.1f} ms; "
+        f"launches {dict((k, v) for k, v in launches.items() if v)} — on "
+        f"{name} ({smi_line})")
+    return {"launches": launches, "query_ms": qp_ms, "merge_ms": merge_ms,
+            "collector_ms": coll_ms}
+
+
+def geo_perc_registry(seed):
+    """GEO_REGS registrations: a third geo_distance, a third
+    geo_bounding_box over the registration's own box, a third geo_shape
+    (intersects) of a small polygon or envelope, around GEO_ORIGIN; and
+    GEO_PROBES probe docs, each a location and an area."""
+    rng = np.random.default_rng([seed, 51])
+    regs = {}
+    for i in range(GEO_REGS):
+        la = GEO_ORIGIN[0] + rng.uniform(-2, 2)
+        lo = GEO_ORIGIN[1] + rng.uniform(-2, 2)
+        if i % 3 == 0:
+            km = int(rng.integers(20, 300))
+            q = {"geo_distance": {"distance": f"{km}km",
+                                  "location": {"lat": la, "lon": lo}}}
+        elif i % 3 == 1:
+            h, w = rng.uniform(0.2, 2.0, 2)
+            q = {"geo_bounding_box": {"location": {
+                "top_left": {"lat": la + h, "lon": lo - w},
+                "bottom_right": {"lat": la - h, "lon": lo + w}}}}
+        else:
+            r = rng.uniform(0.05, 0.6)
+            if i % 2:
+                shape = {"type": "envelope", "coordinates": [
+                    [lo - r, la + r], [lo + r, la - r]]}
+            else:
+                shape = {"type": "polygon", "coordinates": [[
+                    [lo - r, la - r], [lo + r, la - r], [lo, la + r],
+                    [lo - r, la - r]]]}
+            q = {"geo_shape": {"area": {"shape": shape}}}
+        regs[f"g{i}"] = {"query": q}
+    probes = []
+    for i in range(GEO_PROBES):
+        la = GEO_ORIGIN[0] + rng.uniform(-1, 1)
+        lo = GEO_ORIGIN[1] + rng.uniform(-1, 1)
+        r = rng.uniform(0.01, 0.2)
+        probes.append({"location": {"lat": la, "lon": lo},
+                       "area": {"type": "polygon", "coordinates": [[
+                           [lo - r, la], [lo, la - r], [lo + r, la],
+                           [lo, la + r], [lo - r, la]]]}})
+    return regs, probes
+
+
+def geo_perc_oracle(regs, doc):
+    """float64 recompute of every registration against one probe: its
+    point and rings as the one-doc segment holds them (f32), the
+    registrations' constants as their plans carry them (f32). → ({qid}
+    matched, {qid} in the band)."""
+    from elasticsearch_tpu_torch.search.query_dsl import parse_query
+    from elasticsearch_tpu_torch.utils.geoshape import parse_shape_rings
+    lat = np.float64(np.float32(doc["location"]["lat"]))
+    lon = np.float64(np.float32(doc["location"]["lon"]))
+    rl, ro, rr, ra = parse_shape_rings(doc["area"])
+    v = len(rl)
+    one = {"exists": np.ones(1, bool), "shape": (
+        np.asarray([rl], np.float32), np.asarray([ro], np.float32),
+        np.asarray([rr], np.int32), np.asarray([ra], bool),
+        np.asarray([v - 1], np.int32), np.ones(1, bool))}
+    matched, band = set(), set()
+    for qid, reg in regs.items():
+        q = parse_query(reg["query"])
+        kind = type(q).__name__
+        if kind == "GeoDistanceQuery":
+            d = haversine64(lat, lon, to_f32(q.lat), to_f32(q.lon))
+            r = to_f32(q.distance_m)
+            hit, near = d <= r, abs(d - r) < GEO_DIST_BAND * r
+        elif kind == "GeoBoundingBoxQuery":
+            hit = to_f32(q.bottom) <= lat <= to_f32(q.top) and \
+                to_f32(q.left) <= lon <= to_f32(q.right)
+            near = False
+        else:
+            m, margin = shape_relation64(one, np.zeros(1, np.int64),
+                                         q.shape, q.relation)
+            hit, near = bool(m[0]), bool(margin[0] < GEO_SHAPE_BAND)
+        if hit:
+            matched.add(qid)
+        if near:
+            band.add(qid)
+    return matched, band
+
+
+def phase_geo_percolate(torch, args, data, name, smi_line) -> dict:
+    """Phase 50: GEO_REGS geo registrations (geo_distance and
+    geo_bounding_box on the fused lanes, geo_shape on the eager lane), a
+    percolate per probe and one percolate_many of the GEO_PROBES probes;
+    every registration's flag against the float64 recompute, probe 0
+    against percolate_serial, every item of percolate_many equal to its own
+    percolate call."""
+    from elasticsearch_tpu_torch.search import percolator
+    dev = data["reader"].device
+    regs, probes = geo_perc_registry(args.seed)
+    meta = perc_meta("smoke_geo_perc", {"_doc": {"properties": {
+        "location": {"type": "geo_point"},
+        "area": {"type": "geo_shape"}}}}, regs)
+    t0 = time.perf_counter()
+    reg = percolator.registry_for(meta, dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: 0 for k in path_kernels()}
+    recs, outs = [], []
+    excused = 0
+    for pi, d in enumerate(probes):
+        out, rec = perc_call(torch, lambda d=d: percolator.percolate(
+            meta, d, score=True, device=dev))
+        for k_, v in rec["launches"].items():
+            launches[k_] += v
+        recs.append(rec)
+        outs.append(out)
+        want, band = geo_perc_oracle(regs, d)
+        got = {m["_id"] for m in out["matches"]}
+        diff = got ^ want
+        check(not (diff - band), f"geo percolate probe {pi}: "
+              f"{len(diff - band)} registrations differ from the float64 "
+              f"recompute outside the band")
+        excused += len(diff)
+        check(all(m["_score"] == 1.0 for m in out["matches"]),
+              f"geo percolate probe {pi}: a filter scored other than 1.0")
+    t0 = time.perf_counter()
+    ser = percolator.percolate_serial(meta, probes[0], score=True,
+                                      device=dev)
+    serial_ms = (time.perf_counter() - t0) * 1e3
+    check([m["_id"] for m in ser["matches"]] ==
+          [m["_id"] for m in outs[0]["matches"]],
+          "geo percolate: probe 0 differs from percolate_serial")
+    many, mrec = perc_call(torch, lambda: percolator.percolate_many(
+        meta, [{"doc": d, "score": True} for d in probes], device=dev))
+    for k_, v in mrec["launches"].items():
+        launches[k_] += v
+    check(many == outs, "geo percolate_many: an item differs from its own "
+          "percolate call")
+    for k_ in ("geo_point_filter", "shape_relation", "percolate_reduce"):
+        check(launches[k_] > 0, f"geo percolate: {k_} was not launched")
+    walls = [r["wall_ms"] for r in recs]
+    p50 = statistics.median(walls)
+    log(f"geo percolate: {GEO_REGS} registrations (registry built in "
+        f"{build_ms:.1f} ms, {reg.stats_dict()['shape_buckets']} shape "
+        f"buckets), {len(probes)} probes: p50 {p50:.3f} ms a call; matches a "
+        f"probe {[o['total'] for o in outs]}, every registration's flag "
+        f"equal to the float64 recompute ({excused} in the band); probe 0 "
+        f"equal to percolate_serial ({serial_ms:.1f} ms); percolate_many "
+        f"{perc_line(mrec)}, each item equal to its percolate call — on "
+        f"{name} ({smi_line})")
+    return {"launches": launches, "p50_ms": p50, "many_ms": mrec["wall_ms"],
+            "serial_ms": serial_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1 << 21,
@@ -5555,7 +6793,8 @@ def main(argv=None) -> int:
         mdata = phase_maxsim_data(args)
         k5s = phase_maxsim_kernel(torch, args, mdata)
         kernels.extend(k5s)
-        stats_m, stats_mi = phase_maxsim(torch, args, mdata, name, smi_line)
+        stats_m, stats_mi = phase_maxsim(torch, args, mdata, name,
+                                         smi_line)
         k5s[0]["launches"] = stats_m["launches"]["maxsim"]
         k5s[1]["launches"] = stats_mi["launches"]["maxsim_int8"]
         # the impact lane
@@ -5567,7 +6806,8 @@ def main(argv=None) -> int:
         stats_ir = phase_impact_rescore(torch, args, data, name, smi_line)
         k67[0]["launches"] = stats_ie["launches"]["impact_scan"]
         k67[1]["launches"] = stats_ip["launches"]["blockmax_sweep"]
-        by_config = {"2": stats2, "3": stats3, "4": stats4, "4-int8": stats4i,
+        by_config = {"2": stats2, "3": stats3, "4": stats4,
+                     "4-int8": stats4i,
                      "hybrid": stats_h, "maxsim": stats_m,
                      "maxsim-int8": stats_mi, "impact-eager": stats_ie,
                      "impact-pruned": stats_ip, "impact-rescore": stats_ir}
@@ -5592,7 +6832,8 @@ def main(argv=None) -> int:
             data, data["q_pruned"][:PRUNED_BATCH], PRUNED_K,
             track_total_hits=False), searcher=data["impact_searcher"],
             plan=impact_plan(torch, data, pruned=True))
-        k67[1]["large_k"] = phase_k7_large(torch, args, data, name, smi_line)
+        k67[1]["large_k"] = phase_k7_large(torch, args, data, name,
+                                           smi_line)
         # config 5 and aggregations
         release_lane_state(torch, data, mdata)
         kernels[1]["large_k"] = phase_topk_large(torch, args, data)
@@ -5601,7 +6842,8 @@ def main(argv=None) -> int:
         kernels.extend(k89)
         stats5 = phase_config5(torch, args, data, c5, name, smi_line)
         stats5a = phase_config5_aggs(torch, args, data, c5, name, smi_line)
-        kernels[1]["large_k"].update(phase_deep_page(torch, args, data, c5))
+        kernels[1]["large_k"].update(phase_deep_page(torch, args, data,
+                                                     c5))
         by_config.update({"5": stats5, "5-aggs": stats5a})
         for kern in kernels:
             kern["launches_by_config"] = {
@@ -5611,11 +6853,13 @@ def main(argv=None) -> int:
             kern["launches"] = stats5a["launches"][kern["name"]]
         phase_c5_profile(torch, data, c5, "config 5", c5_reqs(
             data, args.batch, **{"from": C5_FROM, "size": C5_SIZE}))
-        prof = phase_c5_profile(torch, data, c5, "config 5 + aggs", c5_reqs(
-            data, args.batch, size=10, aggs=C5_AGGS))
+        prof = phase_c5_profile(
+            torch, data, c5, "config 5 + aggs",
+            c5_reqs(data, args.batch, size=10, aggs=C5_AGGS))
         # the device time of one launch on the path, beside the wrapper's
         # event-timed call (K9 is two kernels a launch)
-        for kern, key, per_launch in ((k89[0], "K8", 1), (k89[1], "K9", 2)):
+        for kern, key, per_launch in ((k89[0], "K8", 1),
+                                      (k89[1], "K9", 2)):
             dev_ms, kernels_run = prof.get("parts", {}).get(key, (0.0, 0))
             kern["device_ms"] = dev_ms * per_launch / kernels_run \
                 if kernels_run else None
@@ -5644,7 +6888,8 @@ def main(argv=None) -> int:
         stats4s = phase_config4s(torch, args, data, name, smi_line)
         stats_sf = phase_script_fields(torch, args, data, stats3s)
         stats_sa = phase_script_aggs(torch, args, data, c5)
-        stats_ps = phase_percolate_scripts(torch, args, data, name, smi_line)
+        stats_ps = phase_percolate_scripts(torch, args, data, name,
+                                           smi_line)
         script_paths = {"3s": stats3s, "4s": stats4s,
                         "script-fields": stats_sf, "script-aggs": stats_sa,
                         "percolate-scripts": stats_ps}
@@ -5664,7 +6909,8 @@ def main(argv=None) -> int:
                       config4s_bodies(data["qv4"][:args.batch]))
         # the query leaves
         t_leaves = time.perf_counter()
-        data["span_terms"] = span_terms(args, data, LEAF_BATCHES * args.batch)
+        data["span_terms"] = span_terms(args, data,
+                                        LEAF_BATCHES * args.batch)
         k13, k14, k15, k16 = phase_leaf_kernels(torch, args, data)
         kernels.extend((k13, k14, k15, k16))
         f64 = Float64(data, LEAF_BATCHES * args.batch)
@@ -5689,10 +6935,39 @@ def main(argv=None) -> int:
         for kern in (k13, k14, k15, k16):
             kern["launches"] = sum(st["launches"][kern["name"]]
                                    for st in leaf_paths.values())
+        # phase 41 ran this batch: the profile records one run
         phase_profile(torch, args, data, "span tree",
-                      span_bodies(data, "not_tree", args.batch))
+                      span_bodies(data, "not_tree", args.batch),
+                      warmup=False)
         log(f"query leaves: phases 39-46 in "
             f"{time.perf_counter() - t_leaves:.1f} s")
+        # geo
+        t_geo = time.perf_counter()
+        geo = phase_geo_setup(torch, args, data)
+        k17, k18 = phase_geo_kernels(torch, args, data, geo)
+        kernels.extend((k17, k18))
+        geo_paths = {f"geo-{kind.replace('/', '-')}": st
+                     for kind, st in phase_geo_paths(
+                         torch, args, data, geo, f64, name,
+                         smi_line).items()}
+        geo_paths["geo-aggs"] = phase_geo_aggs(torch, args, data, geo, f64,
+                                               name, smi_line)
+        geo_paths["geo-percolate"] = phase_geo_percolate(torch, args, data,
+                                                         name, smi_line)
+        by_config.update(geo_paths)
+        for kern in kernels:
+            kern["launches_by_config"] = {
+                cfg: st["launches"][kern["name"]]
+                for cfg, st in by_config.items()}
+        for kern in (k17, k18):
+            kern["launches"] = sum(st["launches"][kern["name"]]
+                                   for st in geo_paths.values())
+        phase_profile(torch, args, data, "geo_distance",
+                      geo_bodies(args, data, "distance", args.batch))
+        phase_profile(torch, args, data, "geo_shape intersects",
+                      geo_bodies(args, data, "intersects/circle",
+                                 args.batch))
+        log(f"geo: phases 47-51 in {time.perf_counter() - t_geo:.1f} s")
     except Exception as e:                  # noqa: BLE001 — report, then fail
         traceback.print_exc()
         print(f"[chip_smoke] FAILED: {type(e).__name__}: {e}",

@@ -3,10 +3,11 @@
 A segment of either package is plain host data: sorted term dictionary,
 forward impact columns, position matrix, doc-frequency table, keyword
 ordinals with their sorted vocabulary, numeric doc values, dense and
-multi-vector (rank_vectors) columns, ids, sources, and the reader's live
-mask beside it. :func:`segment_from_arrays` rebuilds
-the port's :class:`Segment` from those arrays — numpy and lists only, nothing of the
-JAX package — so both packages can score the very same index.
+multi-vector (rank_vectors) columns, geo_point and geo_shape columns, ids,
+sources, and the reader's live mask beside it. :func:`segment_from_arrays`
+rebuilds the port's :class:`Segment` from those arrays — numpy and lists
+only, nothing of the JAX package — so both packages can score the very same
+index.
 :func:`impact_column_from_arrays` does the same for an impact column (the
 impact lane's quantized impacts and block maxima), and
 :func:`install_impact_column` puts one in a port segment's impact cache, so
@@ -18,8 +19,8 @@ from __future__ import annotations
 import numpy as np
 
 from elasticsearch_tpu_torch.index.segment import (
-    ImpactColumn, KeywordFieldColumn, MultiVectorFieldColumn,
-    NumericFieldColumn, Segment, VectorFieldColumn)
+    GeoFieldColumn, ImpactColumn, KeywordFieldColumn, MultiVectorFieldColumn,
+    NumericFieldColumn, Segment, ShapeFieldColumn, VectorFieldColumn)
 
 
 def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
@@ -32,6 +33,8 @@ def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
                         numeric: dict | None = None,
                         vectors: dict | None = None,
                         mvectors: dict | None = None,
+                        geo: dict | None = None,
+                        shape: dict | None = None,
                         seg_id: int = 0) -> tuple[Segment, np.ndarray]:
     """→ (single-text-field Segment, its [padded] bool live mask).
 
@@ -44,7 +47,11 @@ def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
     [padded] bool exists)``, ``vectors`` a dense_vector field to ``([padded,
     D] float32 vectors, [padded] bool exists)`` and ``mvectors`` a
     rank_vectors field to ``([padded, T, D] float32 token matrices, [padded]
-    int32 token counts, [padded] bool exists)``."""
+    int32 token counts, [padded] bool exists)``, ``geo`` a geo_point field
+    to ``([padded] float64 lat, [padded] float64 lon, [padded] bool
+    exists)`` and ``shape`` a geo_shape field to ``([padded, V] float32
+    lats, [padded, V] float32 lons, [padded, V] int32 ring ids, [padded, V]
+    bool area flags, [padded] int32 edge slots, [padded] bool exists)``."""
     padded = int(uterms.shape[0])
     live = np.asarray(live, dtype=bool)
     if live.shape != (padded,) or not \
@@ -77,6 +84,19 @@ def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
         seg.mvector_fields[name] = MultiVectorFieldColumn(
             vecs=vecs, lens=_rows(lens, np.int32, padded, name),
             exists=exists, dims=int(vecs.shape[2]) if exists.any() else 0)
+    for name, (lat, lon, exists) in (geo or {}).items():
+        seg.geo_fields[name] = GeoFieldColumn(
+            lat=_rows(lat, np.float64, padded, name),
+            lon=_rows(lon, np.float64, padded, name),
+            exists=_rows(exists, bool, padded, name))
+    for name, (lats, lons, rid, area, nv, exists) in (shape or {}).items():
+        seg.shape_fields[name] = ShapeFieldColumn(
+            lats=_rows(lats, np.float32, padded, name),
+            lons=_rows(lons, np.float32, padded, name),
+            nv=_rows(nv, np.int32, padded, name),
+            exists=_rows(exists, bool, padded, name),
+            rid=_rows(rid, np.int32, padded, name),
+            area=_rows(area, bool, padded, name))
     return seg, live.copy()
 
 

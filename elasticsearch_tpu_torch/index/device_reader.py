@@ -23,9 +23,14 @@ rank_vectors field's token counts) go with the reader, as in the JAX
 package. An impact-lane index's quantized columns (``ImpactColumn``: the
 impacts and the block maxima) go to the device the same way, at the lane's
 first request, one copy per (segment, field, bits, block rows, quantization
-generation) (:meth:`DeviceReader.fetch_impacts`). Geo, shape and nested
-columns stay host-side on the segment (``DeviceSegment.seg``): no query this
-port serves reads them yet.
+generation) (:meth:`DeviceReader.fetch_impacts`). A geo_point column (lat and
+lon cast to f32, as the JAX package casts them, and exists) and a geo_shape
+column (the vertex rings ``lats`` / ``lons`` [N, V] f32, ``rid`` [N, V] i32,
+``area`` [N, V] bool, ``nv`` [N] i32 and exists) go to the device the same
+way, at the first plan that reads the field (:meth:`DeviceReader.fetch_geo`,
+:meth:`DeviceReader.fetch_shape`, called by the geo resolvers), one copy per
+(segment, field). Nested columns stay host-side on the segment
+(``DeviceSegment.seg``): no query this port serves reads them yet.
 
 Also aggregates per-field corpus statistics across segments host-side
 (doc counts, Σ field length, per-term df on demand) — what Lucene exposes as
@@ -124,6 +129,29 @@ class DeviceMultiVectorField(DeviceVectorField):
 
 
 @dataclass
+class DeviceGeoField:
+    """A geo_point column, put on the device at first use
+    (:meth:`DeviceReader.fetch_geo`); the host column keeps float64."""
+    column: Any                            # host GeoFieldColumn
+    lat: torch.Tensor | None = None        # [Np] f32
+    lon: torch.Tensor | None = None        # [Np] f32
+    exists: torch.Tensor | None = None     # [Np] bool
+
+
+@dataclass
+class DeviceShapeField:
+    """A geo_shape column of vertex rings (utils/geoshape), put on the
+    device at first use (:meth:`DeviceReader.fetch_shape`)."""
+    column: Any                            # host ShapeFieldColumn
+    lats: torch.Tensor | None = None       # [Np, V] f32 concatenated rings
+    lons: torch.Tensor | None = None       # [Np, V] f32
+    rid: torch.Tensor | None = None        # [Np, V] i32 ring id (-1 pad)
+    area: torch.Tensor | None = None       # [Np, V] bool ring encloses area
+    nv: torch.Tensor | None = None         # [Np] i32 edge slots
+    exists: torch.Tensor | None = None     # [Np] bool
+
+
+@dataclass
 class DeviceImpacts:
     """One segment's impact column on the device: the quantized impacts
     ``qimp`` [Np, U] (uint8 / uint16, the layout of ``uterms``) and the block
@@ -148,6 +176,10 @@ class DeviceSegment:
     # (DeviceReader.fetch_impacts): (field, bits, block_rows, k1, b) →
     # DeviceImpacts
     impacts: dict = field(default_factory=dict)
+    # geo_point and geo_shape columns, their tensors put on the device at
+    # first use (DeviceReader.fetch_geo / fetch_shape)
+    geo: dict[str, DeviceGeoField] = field(default_factory=dict)
+    shape: dict[str, DeviceShapeField] = field(default_factory=dict)
 
     @property
     def padded_docs(self) -> int:
@@ -216,9 +248,13 @@ class DeviceReader:
         mvector = {name: DeviceMultiVectorField(
             lens=put(c.lens), exists=put(c.exists), column=c)
             for name, c in seg.mvector_fields.items()}
-        return DeviceSegment(seg=seg, live=put(live), doc_base=doc_base,
-                             text=text, keyword=keyword, numeric=numeric,
-                             vector=vector, mvector=mvector)
+        return DeviceSegment(
+            seg=seg, live=put(live), doc_base=doc_base, text=text,
+            keyword=keyword, numeric=numeric, vector=vector, mvector=mvector,
+            geo={name: DeviceGeoField(column=c)
+                 for name, c in seg.geo_fields.items()},
+            shape={name: DeviceShapeField(column=c)
+                   for name, c in seg.shape_fields.items()})
 
     def fetch_tokens(self, seg: DeviceSegment, field: str) -> None:
         """Put ``field``'s position matrix of ``seg`` (and each row's
@@ -276,6 +312,39 @@ class DeviceReader:
                 seg.impacts[key] = cur
         return cur
 
+    def fetch_geo(self, seg: DeviceSegment,
+                  field: str) -> DeviceGeoField | None:
+        """Put ``field``'s geo_point column of ``seg`` on the device once
+        per reader, lat and lon cast to f32. → the column, or None when the
+        segment lacks the field."""
+        col = seg.geo.get(field)
+        if col is None:
+            return None
+        with self._lazy_lock:
+            if col.lat is None:
+                c = col.column
+                col.lon = self._put(c.lon.astype(np.float32))
+                col.exists = self._put(c.exists)
+                col.lat = self._put(c.lat.astype(np.float32))
+        return col
+
+    def fetch_shape(self, seg: DeviceSegment,
+                    field: str) -> DeviceShapeField | None:
+        """Put ``field``'s geo_shape rings of ``seg`` on the device once
+        per reader. → the column, or None when the segment lacks the
+        field."""
+        col = seg.shape.get(field)
+        if col is None:
+            return None
+        with self._lazy_lock:
+            if col.lats is None:
+                c = col.column
+                col.lons, col.rid, col.area, col.nv, col.exists = (
+                    self._put(a) for a in (c.lons, c.rid, c.area, c.nv,
+                                           c.exists))
+                col.lats = self._put(c.lats)
+        return col
+
     def device_bytes(self) -> int:
         """Bytes of the tensors this reader placed on its device."""
         total = 0
@@ -296,6 +365,12 @@ class DeviceReader:
                             if t is not None]
             for c in s.impacts.values():
                 tensors += [t for t in (c.qimp, c.block_max) if t is not None]
+            for c in s.geo.values():
+                tensors += [t for t in (c.lat, c.lon, c.exists)
+                            if t is not None]
+            for c in s.shape.values():
+                tensors += [t for t in (c.lats, c.lons, c.rid, c.area, c.nv,
+                                        c.exists) if t is not None]
             total += sum(t.numel() * t.element_size() for t in tensors)
         return total
 

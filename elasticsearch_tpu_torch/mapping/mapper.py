@@ -415,8 +415,18 @@ class FieldMapper:
             # overflow truncates (index-time), never errors
             pf.mvector = arr[:self.max_tokens]
         elif self.kind == KIND_SHAPE:
-            raise NotPortedError(
-                f"geo_shape field [{self.name}] is not ported yet")
+            from elasticsearch_tpu_torch.utils.geoshape import (
+                parse_shape_rings)
+            v = value if isinstance(value, dict) else values[0]
+            if not isinstance(v, dict):
+                raise MapperParsingError(
+                    f"cannot parse geo_shape [{value!r}]")
+            try:
+                pf.shape = parse_shape_rings(v)
+            except Exception as e:
+                raise MapperParsingError(
+                    f"failed to parse geo_shape [{self.name}]: {e}") \
+                    from None
         elif self.kind == KIND_GEO:
             v = values[0]
             if isinstance(v, dict):

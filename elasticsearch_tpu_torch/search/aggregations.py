@@ -22,9 +22,10 @@ reduce tree the coordinator applies across shards.
 
 Served: terms, significant_terms, histogram, date_histogram (fixed and
 calendar intervals), range, date_range, filter, filters, global, missing,
-sampler (bucket); min / max / sum / avg / stats / extended_stats /
-value_count / cardinality / percentiles / percentile_ranks / top_hits /
-scripted_metric (metrics); avg_bucket / max_bucket / min_bucket /
+sampler, geohash_grid, geo_distance (bucket); min / max / sum / avg / stats
+/ extended_stats / value_count / cardinality / percentiles /
+percentile_ranks / top_hits / scripted_metric / geo_bounds / geo_centroid
+(metrics); avg_bucket / max_bucket / min_bucket /
 sum_bucket / cumulative_sum / derivative / moving_avg / serial_diff /
 bucket_script / bucket_selector (pipeline). A scripted_metric whose map
 script is an expression runs it through kernel K12 over each segment's
@@ -35,9 +36,11 @@ expression over every bucket of the pipeline in one K12 launch on the
 request's device (``reduce_aggs(..., device=)``), the Python arithmetic of
 each bucket's values on the host first. A top_hits takes ``highlight`` and
 ``script_fields`` and renders neither, as the JAX package's collector does.
-Refused at parse time with :class:`NotPortedError` until the module each
-needs is ported: the geo aggregations (geo columns); nested,
-reverse_nested and children (the nested and join queries).
+The geo aggregations are numpy collectors over the host's float64 geo
+columns, as in the JAX package (geohash_grid encodes each matching point's
+cell in a Python loop). Refused at parse time with :class:`NotPortedError`
+until the module each needs is ported: nested, reverse_nested and children
+(the nested and join queries).
 """
 
 from __future__ import annotations
@@ -56,6 +59,8 @@ from elasticsearch_tpu_torch.common.settings import parse_time_value
 from elasticsearch_tpu_torch.index.device_reader import dd_split
 from elasticsearch_tpu_torch.mapping.mapper import parse_date
 from elasticsearch_tpu_torch.ops import aggs_ops
+from elasticsearch_tpu_torch.utils.geohash import (
+    geohash_encode, precision_to_length)
 
 PIPELINE_AGGS = {"avg_bucket", "max_bucket", "min_bucket", "sum_bucket",
                  "cumulative_sum", "derivative", "moving_avg",
@@ -114,8 +119,6 @@ def parse_aggs(body: dict | None) -> list[AggNode]:
 
 #: aggregation type → the module it waits for
 _NOT_PORTED = {
-    "geohash_grid": "geo columns", "geo_distance": "geo columns",
-    "geo_bounds": "geo columns", "geo_centroid": "geo columns",
     "nested": "the nested queries", "reverse_nested": "the nested queries",
     "children": "the join queries"}
 
@@ -448,6 +451,23 @@ class ShardAggContext:
                  for c in cols])
         return self._union_ords([None] * len(segs))
 
+    def geo_values(self, fname: str):
+        """→ (lat f64, lon f64, exists) concatenated over segments, from
+        the host columns."""
+        lats, lons, exists = [], [], []
+        for s in self.reader.segments:
+            col = s.seg.geo_fields.get(fname)
+            if col is None:
+                lats.append(np.zeros(s.padded_docs))
+                lons.append(np.zeros(s.padded_docs))
+                exists.append(np.zeros(s.padded_docs, bool))
+            else:
+                lats.append(np.asarray(col.lat, np.float64))
+                lons.append(np.asarray(col.lon, np.float64))
+                exists.append(np.asarray(col.exists, bool))
+        return (np.concatenate(lats), np.concatenate(lons),
+                np.concatenate(exists))
+
     def _union_ords(self, per_seg):
         """[(vocab, ords[Np,K]) | None per segment] → shard-union view."""
         union: dict[str, int] = {}
@@ -774,6 +794,94 @@ def _c_sampler(node, mask, ctx):
 
 
 
+def _c_geohash_grid(node, mask, ctx):
+    """geohash_grid (ref: bucket/geogrid/): one bucket a cell of the
+    matching points, the key encoded a row at a time on the host."""
+    fname = node.params.get("field")
+    length = precision_to_length(node.params.get("precision", 5))
+    lat, lon, exists = ctx.geo_values(fname)
+    m = mask & exists
+    buckets: dict = {}
+    for i in np.nonzero(m)[0]:
+        key = geohash_encode(float(lat[i]), float(lon[i]), length)
+        b = buckets.setdefault(key, {"doc_count": 0, "_rows": []})
+        b["doc_count"] += 1
+        b["_rows"].append(int(i))
+    out_buckets = {}
+    for key, b in buckets.items():
+        entry = {"doc_count": b["doc_count"]}
+        if node.subs:
+            bmask = np.zeros_like(mask)
+            bmask[b["_rows"]] = True
+            entry["subs"] = _collect_subs(node, bmask, ctx)
+        out_buckets[key] = entry
+    return {"buckets": _as_pairs(out_buckets)}
+
+
+def _haversine_km(lat1, lon1, lat2, lon2):
+    r = 6371.0087714
+    p1, p2 = np.radians(lat1), np.radians(lat2)
+    dphi = np.radians(lat2 - lat1)
+    dl = np.radians(lon2 - lon1)
+    a = np.sin(dphi / 2) ** 2 + np.cos(p1) * np.cos(p2) * np.sin(dl / 2) ** 2
+    return 2 * r * np.arcsin(np.sqrt(a))
+
+
+def _c_geo_distance(node, mask, ctx):
+    """geo_distance ranges from an origin (ref: bucket/range/geodistance/)."""
+    fname = node.params.get("field")
+    origin = node.params.get("origin")
+    if isinstance(origin, str):
+        olat, olon = (float(x) for x in origin.split(","))
+    elif isinstance(origin, (list, tuple)):
+        olon, olat = float(origin[0]), float(origin[1])
+    else:
+        olat, olon = float(origin["lat"]), float(origin["lon"])
+    unit = str(node.params.get("unit", "m"))
+    per_km = {"m": 1000.0, "km": 1.0, "mi": 0.621371, "yd": 1093.61}.get(
+        unit, 1000.0)
+    lat, lon, exists = ctx.geo_values(fname)
+    dist = _haversine_km(olat, olon, lat, lon) * per_km
+    m = mask & exists
+    buckets = {}
+    order = []
+    for r in node.params.get("ranges", []):
+        frm = float(r["from"]) if r.get("from") is not None else -np.inf
+        to = float(r["to"]) if r.get("to") is not None else np.inf
+        key = r.get("key") or (
+            f"{'*' if frm == -np.inf else r.get('from')}-"
+            f"{'*' if to == np.inf else r.get('to')}")
+        bmask = m & (dist >= frm) & (dist < to)
+        b = {"doc_count": int(bmask.sum()),
+             "from": None if frm == -np.inf else frm,
+             "to": None if to == np.inf else to}
+        if node.subs:
+            b["subs"] = _collect_subs(node, bmask, ctx)
+        buckets[key] = b
+        order.append(key)
+    return {"buckets": _as_pairs(buckets), "keyed_order": order}
+
+
+def _c_geo_bounds(node, mask, ctx):
+    lat, lon, exists = ctx.geo_values(node.params.get("field"))
+    m = mask & exists
+    if not m.any():
+        return {"count": 0}
+    return {"count": int(m.sum()),
+            "top": float(lat[m].max()), "bottom": float(lat[m].min()),
+            "left": float(lon[m].min()), "right": float(lon[m].max())}
+
+
+def _c_geo_centroid(node, mask, ctx):
+    lat, lon, exists = ctx.geo_values(node.params.get("field"))
+    m = mask & exists
+    n = int(m.sum())
+    if not n:
+        return {"count": 0, "lat_sum": 0.0, "lon_sum": 0.0}
+    return {"count": n, "lat_sum": float(lat[m].sum()),
+            "lon_sum": float(lon[m].sum())}
+
+
 def _c_percentile_ranks(node, mask, ctx):
     vals, exists = _field_numeric(node, ctx)
     m = mask & exists
@@ -965,6 +1073,8 @@ _COLLECTORS = {
     "filter": _c_filter, "filters": _c_filters,
     "global": _c_global, "missing": _c_missing,
     "significant_terms": _c_significant_terms,
+    "geohash_grid": _c_geohash_grid, "geo_distance": _c_geo_distance,
+    "geo_bounds": _c_geo_bounds, "geo_centroid": _c_geo_centroid,
 }
 
 # ---------------------------------------------------------------------------
@@ -1323,6 +1433,38 @@ def _reduce_node(node: AggNode, parts: list[dict], device=None) -> dict:
             if sub_parts:
                 out.update(reduce_aggs(node.subs, sub_parts, device))
         return out
+    if t in ("geohash_grid", "geo_distance"):
+        merged = _merge_buckets(node, parts, device)
+        if t == "geo_distance":
+            order = parts[0].get("keyed_order", list(merged)) \
+                if parts else []
+            buckets = [{"key": k, **_final_bucket(merged[k])}
+                       for k in order if k in merged]
+        else:
+            size = int(node.params.get("size", 10000) or 0) or len(merged)
+            items = sorted(merged.items(),
+                           key=lambda kv: (-kv[1]["doc_count"], kv[0]))
+            buckets = [{"key": k, **_final_bucket(b)}
+                       for k, b in items[:size]]
+        _render_pipeline(node, buckets, device)
+        return {"buckets": buckets}
+    if t == "geo_bounds":
+        alive = [p for p in parts if p.get("count")]
+        if not alive:
+            return {"bounds": None}
+        return {"bounds": {
+            "top_left": {"lat": max(p["top"] for p in alive),
+                         "lon": min(p["left"] for p in alive)},
+            "bottom_right": {"lat": min(p["bottom"] for p in alive),
+                             "lon": max(p["right"] for p in alive)}}}
+    if t == "geo_centroid":
+        n = sum(p.get("count", 0) for p in parts)
+        if not n:
+            return {"count": 0}
+        return {"count": n,
+                "location": {
+                    "lat": sum(p.get("lat_sum", 0.0) for p in parts) / n,
+                    "lon": sum(p.get("lon_sum", 0.0) for p in parts) / n}}
     if t == "percentile_ranks":
         allv = np.concatenate([np.asarray(p["values"], np.float64)
                                for p in parts]) if parts else \

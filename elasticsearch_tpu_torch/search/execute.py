@@ -28,15 +28,18 @@ span_near_score_batch``; every other span tree lowered to a postfix program
 for kernel K13, ``ops/spans.span_program_score_batch``), ``indices``,
 ``more_like_this``, the ``knn`` leaf (cosine over a dense_vector field, the
 alias of the top-level ``knn`` section that ``segment_exec``'s knn lane
-serves) and ``function_score`` with weight, random_score,
-field_value_factor, numeric/date decay and script_score functions, and the
-``script_score`` query (the script lowered by ``search/scripts.py`` and run
-by kernel K12, ``ops/script_ops.script_eval``; ``cosineSimilarity`` /
-``dotProduct`` one ``torch.matmul`` a segment). Every other query type
-(nested, parent/child, geo) is refused with ``QueryParsingError("no
-executor for query type [...]")``, as the reference refuses an unknown type,
-and a feature of a served type that is not ported yet (geo decay) raises
-``NotPortedError`` — never a fallback.
+serves), the geo_point queries ``geo_distance``, ``geo_bounding_box``,
+``geo_distance_range``, ``geo_polygon`` and ``geohash_cell`` (kernel K17,
+``ops/filters.geo_point_filter``), ``geo_shape`` (kernel K18, ``ops/
+geoshape.shape_relation``), ``exists`` on a geo_point field, and
+``function_score`` with weight, random_score, field_value_factor,
+numeric/date/geo decay (the geo distance from K17) and script_score
+functions, and the ``script_score`` query (the script lowered by
+``search/scripts.py`` and run by kernel K12, ``ops/script_ops.script_eval``;
+``cosineSimilarity`` / ``dotProduct`` one ``torch.matmul`` a segment). Every
+other query type (nested, parent/child) is refused with
+``QueryParsingError("no executor for query type [...]")``, as the reference
+refuses an unknown type — never a fallback.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from elasticsearch_tpu_torch.mapping.mapper import (
 from elasticsearch_tpu_torch.ops import boolean as bool_ops
 from elasticsearch_tpu_torch.ops import filters as filter_ops
 from elasticsearch_tpu_torch.ops import functionscore as fs_ops
+from elasticsearch_tpu_torch.ops import geoshape as shape_ops
 from elasticsearch_tpu_torch.ops import lexical
 from elasticsearch_tpu_torch.ops import phrase as phrase_ops
 from elasticsearch_tpu_torch.ops import script_ops
@@ -67,6 +71,9 @@ from elasticsearch_tpu_torch.ops import vector as vector_ops
 from elasticsearch_tpu_torch.ops.similarity import BM25Params, idf as bm25_idf
 from elasticsearch_tpu_torch.search import query_dsl as q
 from elasticsearch_tpu_torch.search.scripts import compile_script, slot_columns
+from elasticsearch_tpu_torch.utils.geohash import (
+    geohash_decode_bbox, geohash_neighbors)
+from elasticsearch_tpu_torch.utils.geoshape import parse_shape_rings
 
 
 class ConstTable:
@@ -814,9 +821,6 @@ class SegmentResolver:
 
     def _res_ExistsQuery(self, query: q.ExistsQuery) -> Emit:
         f = query.field
-        if f in self.seg.seg.geo_fields:
-            raise NotPortedError(
-                f"[exists] on the geo field [{f}] is not ported yet")
         r_boost = self.c(query.boost, np.float32)
         if f in self.seg.numeric:
             self.sig("exists", "num", f)
@@ -834,6 +838,10 @@ class SegmentResolver:
             self.sig("exists", "vec", f)   # reads only the [N] exists mask
             mask_emit = lambda em: filter_ops.field_exists(  # noqa: E731
                 em.seg.vector[f].exists)
+        elif self._geo_column(f) is not None:
+            self.sig("exists", "geo", f)
+            mask_emit = lambda em: filter_ops.field_exists(  # noqa: E731
+                em.seg.geo[f].exists)
         else:
             self.sig("exists", "none", f)
             mask_emit = _no_docs
@@ -937,6 +945,114 @@ class SegmentResolver:
                     * col.exists.to(torch.float32)[None, :],
                     col.exists.expand(em.batch, em.n))
         return emit
+
+    # ------------------------------------------------------------------ geo
+
+    def _geo_column(self, field: str):
+        """The segment's geo_point column of ``field``, put on the device
+        by the first plan that reads it; None when the segment has none."""
+        return self.ctx.reader.fetch_geo(self.seg, field)
+
+    def _res_GeoDistanceQuery(self, query: q.GeoDistanceQuery) -> Emit:
+        field = query.field
+        if self._geo_column(field) is None:
+            return self._zeros()
+        r_lat = self.c(query.lat, np.float32)
+        r_lon = self.c(query.lon, np.float32)
+        r_dist = self.c(query.distance_m, np.float32)
+        return self._constant_mask_emit(
+            lambda em: filter_ops.geo_distance(
+                *_geo_cols(em, field), em.get(r_lat), em.get(r_lon),
+                em.get(r_dist)),
+            query.boost)
+
+    def _res_GeoBoundingBoxQuery(self, query: q.GeoBoundingBoxQuery) -> Emit:
+        field = query.field
+        if self._geo_column(field) is None:
+            return self._zeros()
+        r_top = self.c(query.top, np.float32)
+        r_left = self.c(query.left, np.float32)
+        r_bottom = self.c(query.bottom, np.float32)
+        r_right = self.c(query.right, np.float32)
+        return self._constant_mask_emit(
+            lambda em: filter_ops.geo_bounding_box(
+                *_geo_cols(em, field), em.get(r_top), em.get(r_left),
+                em.get(r_bottom), em.get(r_right)),
+            query.boost)
+
+    def _res_GeoPolygonQuery(self, query: q.GeoPolygonQuery) -> Emit:
+        field = query.field
+        if self._geo_column(field) is None:
+            return self._zeros()
+        self.sig("geo-poly", len(query.lats))
+        r_lats = self.c(np.asarray(query.lats, np.float32), np.float32)
+        r_lons = self.c(np.asarray(query.lons, np.float32), np.float32)
+        return self._constant_mask_emit(
+            lambda em: filter_ops.geo_polygon(
+                *_geo_cols(em, field), em.get(r_lats), em.get(r_lons)),
+            query.boost)
+
+    def _res_GeoDistanceRangeQuery(self,
+                                   query: q.GeoDistanceRangeQuery) -> Emit:
+        field = query.field
+        if self._geo_column(field) is None:
+            return self._zeros()
+        # None bounds encode as -1 (the op treats negatives as unbounded)
+        enc = [(-1.0 if v is None else float(v))
+               for v in (query.gte_m, query.gt_m, query.lte_m, query.lt_m)]
+        refs = [self.c(v, np.float32) for v in enc]
+        r_lat = self.c(query.lat, np.float32)
+        r_lon = self.c(query.lon, np.float32)
+        return self._constant_mask_emit(
+            lambda em: filter_ops.geo_distance_range(
+                *_geo_cols(em, field), em.get(r_lat), em.get(r_lon),
+                *(em.get(r) for r in refs)),
+            query.boost)
+
+    def _res_GeohashCellQuery(self, query: q.GeohashCellQuery) -> Emit:
+        """The cell, and with ``neighbors`` its up to 8 neighbours: an OR of
+        their boxes, one K17 launch."""
+        field = query.field
+        if self._geo_column(field) is None:
+            return self._zeros()
+        cells = [query.geohash]
+        if query.neighbors:
+            cells += geohash_neighbors(query.geohash)
+        self.sig("geohash-cell", len(cells))
+        boxes = []
+        for gh in cells:
+            lat_lo, lat_hi, lon_lo, lon_hi = geohash_decode_bbox(gh)
+            boxes.append((lat_hi, lon_lo, lat_lo, lon_hi))
+        r_boxes = self.c(np.asarray(boxes, np.float32), np.float32)
+        return self._constant_mask_emit(
+            lambda em: filter_ops.geo_boxes(*_geo_cols(em, field),
+                                            em.get(r_boxes)),
+            query.boost)
+
+    def _res_GeoShapeQuery(self, query: q.GeoShapeQuery) -> Emit:
+        field = query.field
+        if self.ctx.reader.fetch_shape(self.seg, field) is None:
+            return self._zeros()
+        qlats, qlons, qrid, qarea = parse_shape_rings(query.shape)
+        relation = query.relation
+        if relation not in shape_ops.RELATIONS:
+            raise QueryParsingError(
+                f"unknown geo_shape relation [{relation}]")
+        # the ring structure is part of the plan (its signature); only the
+        # vertex coordinates ride the batch's constant table
+        qrid_np = np.asarray(qrid, np.int32)
+        qarea_np = np.asarray(qarea, bool)
+        self.sig("geo-shape", relation, len(qlats),
+                 tuple(qrid), tuple(qarea))
+        r_lats = self.c(np.asarray(qlats, np.float32), np.float32)
+        r_lons = self.c(np.asarray(qlons, np.float32), np.float32)
+
+        def mask_emit(em):
+            c = em.seg.shape[field]
+            return shape_ops.shape_relation(
+                c.lats, c.lons, c.nv, c.exists, c.rid, c.area,
+                em.get(r_lats), em.get(r_lons), qrid_np, qarea_np, relation)
+        return self._constant_mask_emit(mask_emit, query.boost)
 
     # ------------------------------------------------------------- compound
 
@@ -1169,9 +1285,31 @@ class SegmentResolver:
         kind = fn.kind
         origin = spec.get("origin")
         fm = self.ctx.mapper_service.field_mapper(fname)
-        if fname in self.seg.seg.geo_fields:
-            raise NotPortedError(f"[{kind}] decay on the geo field "
-                                 f"[{fname}] is not ported yet")
+        if self._geo_column(fname) is not None:
+            self.sig("decay-geo", fname, kind)
+            # geo decay: the distance to the origin in meters (K17's
+            # distance mode), decayed from 0
+            if isinstance(origin, dict):
+                olat, olon = float(origin["lat"]), float(origin["lon"])
+            else:
+                olat, olon = (float(x) for x in str(origin).split(","))
+            r_olat = self.c(olat, np.float32)
+            r_olon = self.c(olon, np.float32)
+            r_scale = self.c(q.parse_distance(spec["scale"]), np.float32)
+            r_offset = self.c(q.parse_distance(spec.get("offset", 0)),
+                              np.float32)
+            r_decay = self.c(float(spec.get("decay", 0.5)), np.float32)
+            r_zero = self.c(0.0, np.float32)
+
+            def geo_factor_emit(em, s):
+                col = em.seg.geo[fname]
+                dist = filter_ops.geo_distance_m(col.lat, col.lon,
+                                                 col.exists, em.get(r_olat),
+                                                 em.get(r_olon))
+                return fs_ops.decay(dist, col.exists, em.get(r_zero),
+                                    em.get(r_scale), em.get(r_offset),
+                                    em.get(r_decay), kind)
+            return geo_factor_emit
         ncol = self.seg.numeric.get(fname)
         if ncol is None:
             self.sig("decay-missing", fname)
@@ -1640,6 +1778,12 @@ class SegmentResolver:
             picked = query.no_match_query or q.MatchAllQuery()
         self.sig("indices", name in query.indices if name else True)
         return self.resolve(picked)
+
+
+def _geo_cols(em: EmitCtx, field: str) -> tuple:
+    """(lat, lon, exists) of the segment's geo_point column ``field``."""
+    g = em.seg.geo[field]
+    return g.lat, g.lon, g.exists
 
 
 def _no_docs(em) -> torch.Tensor:

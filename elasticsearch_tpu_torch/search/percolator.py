@@ -22,18 +22,20 @@ percolation runs against a scratch one-doc segment on the card.
   ``percolate_many`` — is reduced to per-query (matched, score) pairs by one
   launch of kernel K10 and comes back in one device→host copy
   (``segment_exec.run_percolate_lanes``).
-* **The shape-fallback lane** — a registration with a ``script_score``
-  query, or a ``script_score`` or ``random_score`` function, runs per query
-  through the eager executor on the card (``_eager_match``; a script is
-  one K12 launch), as in the JAX package. This routes shapes by type; it
-  is not a fallback from a device error, which propagates.
+* **The shape-fallback lane** — a registration with a ``script_score`` or
+  ``geo_shape`` query, or a ``script_score`` or ``random_score`` function,
+  runs per query through the eager executor on the card (``_eager_match``;
+  a script is one K12 launch, a geo_shape one K18 launch), as in the JAX
+  package. Registrations with geo_point leaves ride the fused lanes: the
+  probe's one-doc segment carries its geo column (K17). This routes shapes
+  by type; it is not a fallback from a device error, which propagates.
 
 A registration the port cannot serve (a query type with no executor yet —
-``has_child``, ``has_parent``, ``geo_shape`` and the other leaves still to
-port — or an unported feature) raises from ``sync`` with ``NotPortedError``,
-as the reference's registration raises on a parse error; it is never
-dropped. Not ported: the plane breaker and the device-error rescue of the
-fused lane, and the latency histograms.
+``has_child``, ``has_parent``, ``nested`` — or an unported feature) raises
+from ``sync`` with ``NotPortedError``, as the reference's registration
+raises on a parse error; it is never dropped. Not ported: the plane
+breaker and the device-error rescue of the fused lane, and the latency
+histograms.
 
 Responses carry per-match scores, size + sort-by-score, highlight via the
 standard highlighters on the probe doc, and aggregations over registration
@@ -76,11 +78,12 @@ from elasticsearch_tpu_torch.search.query_dsl import parse_query
 # eligibility: which shapes ride the fused lanes
 # ---------------------------------------------------------------------------
 
-#: node types and functions that run per query on the eager lane. The JAX
-#: package also sends the has_child, has_parent and geo_shape queries
-#: there; the port has no executor for them yet, so a registration holding
-#: one is refused.
-_FALLBACK_NODES = (q.ScriptScoreQuery,)
+#: node types and functions that run per query on the eager lane: scripts,
+#: and geo_shape (its ring structure splits registrations into many plan
+#: signatures), as in the JAX package. The JAX package also sends the
+#: has_child and has_parent queries there; the port has no executor for
+#: them yet, so a registration holding one is refused.
+_FALLBACK_NODES = (q.ScriptScoreQuery, q.GeoShapeQuery)
 _FALLBACK_FUNCTIONS = ("script_score", "random_score")
 
 

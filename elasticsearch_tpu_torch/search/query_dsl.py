@@ -27,7 +27,7 @@ from dataclasses import dataclass
 from dataclasses import field as dc_field
 from typing import Any
 
-from elasticsearch_tpu_torch.common.errors import NotPortedError, QueryParsingError
+from elasticsearch_tpu_torch.common.errors import QueryParsingError
 
 
 @dataclass
@@ -1087,7 +1087,32 @@ def parse_query(body: dict | None) -> Query:  # noqa: C901 — one arm per query
             lte_m=None if hi is None else parse_distance(hi),
             lt_m=None if hi_x is None else parse_distance(hi_x))
     if qtype in ("geohash_cell", "geohash_filter"):
-        raise NotPortedError(f"the [{qtype}] query is not ported yet")
+        from elasticsearch_tpu_torch.utils.geohash import (
+            geohash_encode, precision_to_length)
+        cell_items = [(k, v) for k, v in qbody.items()
+                      if k not in ("precision", "neighbors", "boost")
+                      and not k.startswith("_")]
+        if not cell_items:
+            raise QueryParsingError(
+                "[geohash_cell] requires a geo_point field")
+        fname, spec = cell_items[0]
+        length = precision_to_length(qbody["precision"]) \
+            if "precision" in qbody else 12
+        if isinstance(spec, dict) and "geohash" in spec:
+            gh = str(spec["geohash"])[:length]
+        elif isinstance(spec, dict) and "lat" in spec and "lon" in spec:
+            gh = geohash_encode(float(spec["lat"]), float(spec["lon"]),
+                                length)
+        elif isinstance(spec, (list, tuple)):       # GeoJSON [lon, lat]
+            gh = geohash_encode(float(spec[1]), float(spec[0]), length)
+        elif isinstance(spec, dict):
+            raise QueryParsingError(
+                f"[geohash_cell] cannot parse point [{spec!r}]")
+        else:
+            gh = str(spec)[:length]
+        return GeohashCellQuery(field=fname, geohash=gh,
+                                neighbors=bool(qbody.get("neighbors",
+                                                         False)))
     if qtype == "geo_shape":
         fname, spec = _field_body(qbody, "geo_shape")
         shape = spec.get("shape")

@@ -484,24 +484,38 @@ def test_filter_mask_matches_jax(shard, spec):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("spec", [
-    {"geohash_grid": {"field": "loc", "precision": 3}, "aggs": {
-        "c": {"geo_centroid": {"field": "loc"}}}},
-    {"geohash_grid": {"field": "loc"}},
-    {"geo_distance": {"field": "loc", "origin": "0,0", "ranges": []}},
-    {"geo_bounds": {"field": "loc"}},
-    {"geo_centroid": {"field": "loc"}},
     {"nested": {"path": "n"}},
     {"reverse_nested": {}},
     {"children": {"type": "c"}},
     {"global": {}, "aggs": {"r": {"reverse_nested": {}}}},
-    {"terms": {"field": "tag"}, "aggs": {"g": {"geo_bounds": {
-        "field": "loc"}}}},
     {"filter": {"match_all": {}}, "aggs": {"c": {"children": {
         "type": "c"}}}},
 ])
 def test_refused_aggregation_is_not_ported(spec):
     with pytest.raises(NotPortedError):
         parse_search_request({"query": {"match_all": {}}, "aggs": {"a": spec}})
+
+
+@pytest.mark.parametrize("spec", [
+    {"geohash_grid": {"field": "loc", "precision": 3}, "aggs": {
+        "c": {"geo_centroid": {"field": "loc"}}}},
+    {"geohash_grid": {"field": "loc"}},
+    {"geo_distance": {"field": "loc", "origin": "0,0", "ranges": []}},
+    {"geo_bounds": {"field": "loc"}},
+    {"geo_centroid": {"field": "loc"}},
+    {"terms": {"field": "tag"}, "aggs": {"g": {"geo_bounds": {
+        "field": "loc"}}}},
+], ids=["grid_centroid", "grid", "distance", "bounds", "centroid",
+        "terms_bounds"])
+def test_geo_aggregation_partials_match_jax(shard, spec):
+    """The geo aggregations (formerly refused here) on a shard without a
+    geo column: the same empty partials as the JAX package's (the geo
+    slice's own tests, over points, are test_torch_geo_queries.py)."""
+    js, ps = shard
+    body = {"query": {"match_all": {}}, "aggs": {"a": spec}}
+    want = js.query_phase(jax_parse_search_request(body)).agg_partials
+    got = ps.query_phase(parse_search_request(body)).agg_partials
+    assert_same(got, want)
 
 
 def test_suggest_stays_refused():

@@ -17,7 +17,6 @@ from elasticsearch_tpu.ops import filters as jax_filters
 from elasticsearch_tpu.ops import lexical as jax_lexical
 from elasticsearch_tpu.index.device_reader import dd_split as jax_dd_split
 from elasticsearch_tpu.search.execute import _resolve_msm as jax_resolve_msm
-from elasticsearch_tpu_torch.common.errors import NotPortedError
 from elasticsearch_tpu_torch.index.device_reader import dd_split
 from elasticsearch_tpu_torch.ops import boolean, filters, lexical
 from elasticsearch_tpu_torch.search.execute import _resolve_msm
@@ -162,9 +161,3 @@ def test_text_exists_and_term_filter_match_jax():
         filters.text_field_exists(_t(doc_len)).numpy(),
         np.asarray(jax_filters.text_field_exists(jnp.asarray(doc_len))))
 
-
-def test_geo_filters_are_refused():
-    for fn in (filters.geo_distance, filters.geo_bounding_box,
-               filters.geo_distance_range, filters.geo_polygon):
-        with pytest.raises(NotPortedError):
-            fn()

@@ -17,6 +17,9 @@ bit-identical to their plain versions (NaN as NaN), and so must K13 (span
 programs), K14 (flat span_near, in order and unordered) and K15 (the
 classic and LM-Dirichlet instantiations of K1's scan, K1's own BM25 results
 unchanged beside them); K16 (term-set membership) must give equal masks.
+K17 (the geo_point filters, every mode, and the decay's distances) and K18
+(geo_shape relations, each relation) must equal their plain versions bit
+for bit.
 These tests need
 an NVIDIA GPU and nvcc (the kernels have no CPU mode) and skip elsewhere.
 On a machine with a card, run them without the JAX test bootstrap:
@@ -1761,3 +1764,220 @@ def _new_kernel_cases(cuda, kernel, rng):
         return spans.span_program_score_batch_plain(prog, tk, dl, qt, st,
                                                     idf, k1, b, av)
     return cases, spans.span_program_score_batch, plain
+
+
+# ---------------------------------------------------------------------------
+# K17 geo_point_filter and K18 shape_relation
+# ---------------------------------------------------------------------------
+
+def _geo_points(rng, n, cuda):
+    """Points clustered around (55, 7) and on the dateline, a tenth without
+    a value; a few exactly on the test boxes' edges and rings' vertices."""
+    lat = np.where(rng.random(n) < 0.8, 55.0, 0.0) + rng.normal(0, 2, n)
+    lon = np.where(lat > 30, 7.0, 179.5) + rng.normal(0, 2, n)
+    lon = (lon + 180.0) % 360.0 - 180.0
+    lat[:6] = [61.0, 48.0, 55.0, 49.0, 60.0, 55.0]
+    lon[:6] = [-0.1, 15.0, 15.0, -0.1, 14.0, 7.0]
+    ex = rng.random(n) > 0.1
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in (
+        lat.astype(np.float32), lon.astype(np.float32), ex))
+
+
+def _geo_same(got, want, what):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype, what
+    if got.dtype == torch.float32:
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            what
+    else:
+        assert torch.equal(got, want), what
+
+
+def _ring(rng, b, e, center=(55.0, 7.0), radius=4.0):
+    """[b, e + 1] closed star-shaped rings (lats, lons), the first with a
+    horizontal edge."""
+    ang = np.sort(rng.uniform(0, 2 * np.pi, (b, e)), axis=1)
+    r = rng.uniform(0.3, 1.0, (b, e)) * radius
+    lats = center[0] + r * np.sin(ang)
+    lons = center[1] + r * np.cos(ang)
+    lats[0, 1] = lats[0, 0]
+    lats = np.concatenate([lats, lats[:, :1]], axis=1)
+    lons = np.concatenate([lons, lons[:, :1]], axis=1)
+    return lats.astype(np.float32), lons.astype(np.float32)
+
+
+@pytest.mark.parametrize("mode,b,extra", [
+    ("distance", 3, None), ("distance", 70, None),
+    ("distance_range", 5, None), ("boxes", 4, 1), ("boxes", 70, 9),
+    ("polygon", 3, 6), ("polygon", 13, 1000), ("polygon", 2, 7000),
+    ("distance_out", 65, None)])
+def test_geo_point_filter_bit_identical_to_plain(cuda, mode, b, extra):
+    from elasticsearch_tpu_torch.ops import filters
+    rng = np.random.default_rng(b)
+    n = 100_003
+    lat, lon, ex = _geo_points(rng, n, cuda)
+    code = {"distance": filters.GEO_DISTANCE,
+            "distance_range": filters.GEO_DISTANCE_RANGE,
+            "boxes": filters.GEO_BOXES, "polygon": filters.GEO_POLYGON,
+            "distance_out": filters.GEO_DISTANCE_OUT}[mode]
+    q = np.stack([55.0 + rng.uniform(-1, 1, b), 7.0 + rng.uniform(-1, 1, b)],
+                 axis=1)
+    rl = ro = None
+    if mode == "distance":
+        params = np.concatenate([q, rng.uniform(1e3, 5e5, (b, 1))], axis=1)
+    elif mode == "distance_range":
+        bounds = rng.uniform(5e4, 4e5, (b, 4))
+        bounds[rng.random((b, 4)) < 0.4] = -1.0
+        params = np.concatenate([q, bounds], axis=1)
+    elif mode == "boxes":
+        boxes = np.stack([q[:, None, 0] + rng.uniform(0, 3, (b, extra)),
+                          q[:, None, 1] - rng.uniform(0, 4, (b, extra)),
+                          q[:, None, 0] - rng.uniform(0, 3, (b, extra)),
+                          q[:, None, 1] + rng.uniform(0, 4, (b, extra))],
+                         axis=2)
+        boxes[0, 0] = [61.0, -0.1, 48.0, 15.0]          # points on edges
+        boxes[-1, -1] = [3.0, 170.0, -3.0, -170.0]      # the dateline
+        params = boxes.reshape(b, -1)
+    elif mode == "polygon":
+        rl, ro = (torch.from_numpy(a).to(cuda) for a in _ring(rng, b, extra))
+        params = np.zeros((b, 0))
+    else:
+        params = q
+    params = torch.from_numpy(params.astype(np.float32)).to(cuda)
+    got = filters.geo_point_filter(lat, lon, ex, code, params, rl, ro)
+    want = filters.geo_point_filter_plain(lat, lon, ex, code, params, rl, ro)
+    _geo_same(got, want, f"K17 {mode} B={b}")
+    if mode != "distance_out":
+        assert bool(got.any())
+    # an empty batch
+    empty = filters.geo_point_filter(lat, lon, ex, code, params[:0],
+                                     None if rl is None else rl[:0],
+                                     None if ro is None else ro[:0])
+    assert empty.shape == (0, n)
+
+
+def _shape_rows(rng, n, cuda, wide=False):
+    """Doc shape rows of every type, translated around (55, 7); a point
+    on an envelope's edge line far away (a collinear case), a zero-length
+    edge, and with ``wide`` a 40-vertex ring (two passes of a warp)."""
+    from elasticsearch_tpu_torch.utils.geoshape import parse_shape_rings
+    templates = [
+        {"type": "polygon", "coordinates": [[[-0.5, -0.4], [0.6, -0.5],
+                                             [0.7, 0.3], [-0.6, 0.4],
+                                             [-0.5, -0.4]]]},
+        {"type": "polygon", "coordinates": [
+            [[-1, -1], [1, -1], [1, 1], [-1, 1], [-1, -1]],
+            [[-0.3, -0.3], [0.3, -0.3], [0.3, 0.3], [-0.3, 0.3],
+             [-0.3, -0.3]]]},
+        {"type": "linestring", "coordinates": [[-0.8, 0.1], [0.3, -0.2],
+                                               [0.3, -0.2], [0.9, 0.3]]},
+        {"type": "point", "coordinates": [0.05, -0.05]},
+        {"type": "multipolygon", "coordinates": [
+            [[[-0.9, -0.9], [-0.5, -0.9], [-0.5, -0.5], [-0.9, -0.9]]],
+            [[[0.4, 0.4], [0.9, 0.4], [0.9, 0.9], [0.4, 0.9], [0.4, 0.4]]]]},
+    ]
+    if wide:
+        a = np.linspace(0, 2 * np.pi, 40)
+        templates.append({"type": "linestring", "coordinates": [
+            [float(np.cos(t)), float(np.sin(t)) * 0.7] for t in a]})
+    rows = []
+    for i in range(n):
+        if i % 10 == 9:
+            rows.append(None)
+            continue
+        t = templates[i % len(templates)]
+        dlat, dlon = 55.0 + rng.normal(0, 2), 7.0 + rng.normal(0, 2)
+
+        def move(c):
+            if isinstance(c[0], (int, float)):
+                return [c[0] + dlon, c[1] + dlat]
+            return [move(x) for x in c]
+        rows.append(parse_shape_rings({**t, "coordinates":
+                                       move(t["coordinates"])}))
+    rows[0] = parse_shape_rings({"type": "point",
+                                 "coordinates": [100.0, 56.0]})
+    v = max(len(r[0]) for r in rows if r is not None)
+    lats = np.zeros((n, v), np.float32)
+    lons = np.zeros((n, v), np.float32)
+    rid = np.full((n, v), -1, np.int32)
+    area = np.zeros((n, v), bool)
+    nv = np.zeros(n, np.int32)
+    ex = np.zeros(n, bool)
+    for i, r in enumerate(rows):
+        if r is None:
+            continue
+        lats[i, :len(r[0])], lons[i, :len(r[1])] = r[0], r[1]
+        rid[i, :len(r[2])], area[i, :len(r[3])] = r[2], r[3]
+        nv[i], ex[i] = len(r[0]) - 1, True
+    return tuple(torch.from_numpy(a).to(cuda)
+                 for a in (lats, lons, nv, ex, rid, area))
+
+
+def _query_shape(kind, rng, b, cuda):
+    from elasticsearch_tpu_torch.utils.geoshape import parse_shape_rings
+    if kind == "envelope":       # its top edge on the line of row 0's point
+        shape = {"type": "envelope", "coordinates": [[6.0, 56.0],
+                                                     [8.5, 54.2]]}
+    elif kind == "circle":
+        shape = {"type": "circle", "coordinates": [7.2, 55.1],
+                 "radius": "90km"}
+    elif kind == "hole":
+        shape = {"type": "polygon", "coordinates": [
+            [[5.5, 53.8], [9.0, 53.8], [8.6, 56.5], [5.8, 56.2],
+             [5.5, 53.8]],
+            [[6.8, 54.8], [7.6, 54.8], [7.6, 55.4], [6.8, 55.4],
+             [6.8, 54.8]]]}
+    else:                        # a 3,100-vertex ring: read from global
+        a = np.linspace(0, 2 * np.pi, 3100)
+        shape = {"type": "polygon", "coordinates": [[
+            [7.0 + 2 * float(np.cos(t)), 55.0 + float(np.sin(t))]
+            for t in a]]}
+    ql, qo, qr, qa = parse_shape_rings(shape)
+    off = rng.uniform(-1, 1, (b, 2))
+    off[0] = 0.0
+    lats = np.asarray(ql)[None, :] + off[:, :1]
+    lons = np.asarray(qo)[None, :] + off[:, 1:]
+    return (torch.from_numpy(lats.astype(np.float32)).to(cuda),
+            torch.from_numpy(lons.astype(np.float32)).to(cuda),
+            np.asarray(qr, np.int32), np.asarray(qa, bool))
+
+
+@pytest.mark.parametrize("relation", ["intersects", "disjoint", "within",
+                                      "contains"])
+@pytest.mark.parametrize("kind,n,b,wide", [
+    ("envelope", 20_003, 3, False), ("circle", 20_003, 70, True),
+    ("hole", 5_000, 5, True), ("long", 2_000, 2, False)])
+def test_shape_relation_bit_identical_to_plain(cuda, relation, kind, n, b,
+                                               wide):
+    from elasticsearch_tpu_torch.ops import geoshape
+    rng = np.random.default_rng(n + b)
+    doc = _shape_rows(rng, n, cuda, wide)
+    ql, qo, qr, qa = _query_shape(kind, rng, b, cuda)
+    got = geoshape.shape_relation(*doc, ql, qo, qr, qa, relation)
+    want = geoshape.shape_relation_plain(*doc, ql, qo, qr, qa, relation)
+    _geo_same(got, want, f"K18 {relation} {kind} B={b}")
+    if relation in ("intersects", "disjoint"):
+        assert bool(got.any())
+
+
+def test_geo_kernels_refuse_what_they_do_not_take(cuda):
+    from elasticsearch_tpu_torch.ops import filters, geoshape
+    rng = np.random.default_rng(5)
+    lat, lon, ex = _geo_points(rng, 1000, cuda)
+    params = torch.zeros((2, 3), device=cuda)
+    with pytest.raises(TypeError):
+        filters.geo_point_filter(lat.double(), lon, ex, filters.GEO_DISTANCE,
+                                 params)
+    with pytest.raises(ValueError):
+        filters.geo_point_filter(lat, lon, ex, filters.GEO_DISTANCE_RANGE,
+                                 params)
+    with pytest.raises(ValueError):
+        filters.geo_point_filter(lat, lon, ex, filters.GEO_BOXES, params)
+    doc = _shape_rows(rng, 100, cuda)
+    ql, qo, qr, qa = _query_shape("envelope", rng, 2, cuda)
+    with pytest.raises(ValueError):
+        geoshape.shape_relation(*doc, ql, qo, qr[:-1], qa[:-1], "within")
+    with pytest.raises(TypeError):
+        geoshape.shape_relation(*doc, ql.double(), qo, qr, qa, "within")
+    with pytest.raises(ValueError):
+        geoshape.shape_relation(*doc, ql, qo, qr, qa, "touches")

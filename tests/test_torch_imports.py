@@ -2,9 +2,10 @@
 match_phrase, a function_score, on the knn lane a dense knn in f32 and int8,
 a hybrid and a rank_vectors MaxSim, on the impact lane the eager, pruned
 and rescore arms, aggregations reduced by the coordinator's merge, the
-percolator's registry, _mpercolate and serial paths, and scripts: a
+percolator's registry, _mpercolate and serial paths, scripts: a
 script_score query and function, script_fields, the template query, the
-script aggregations and a script_score registration) loads neither JAX nor
+script aggregations and a script_score registration, and geo: a
+geo_distance and a geo_shape query) loads neither JAX nor
 the JAX package, its entry points
 never fall back to the CPU on their own, and its CUDA sources include no
 header of torch or of the JAX package's native code."""
@@ -36,13 +37,21 @@ ms.merge("_doc", {"properties": {
     "body": {"type": "text"}, "rank": {"type": "double"},
     "cls": {"type": "text", "similarity": "classic"},
     "vec": {"type": "dense_vector", "dims": 3},
-    "tok": {"type": "rank_vectors", "dims": 2}}})
+    "tok": {"type": "rank_vectors", "dims": 2},
+    "loc": {"type": "geo_point"}, "shp": {"type": "geo_shape"}}})
 eng = Engine(Path(tempfile.mkdtemp()), ms)
 vecs = [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.6, 0.8, 0.0]]
 toks = [[[1.0, 0.0]], [[0.0, 1.0], [0.1, 0.9]], [[0.7, 0.7]]]
+locs = [{"lat": 55.0, "lon": 7.0}, "55.5,7.5", [-74.0, 40.0]]
+shps = [{"type": "point", "coordinates": [7.0, 55.0]},
+        {"type": "polygon", "coordinates": [[[7.4, 55.4], [7.6, 55.4],
+                                             [7.5, 55.6], [7.4, 55.4]]]},
+        {"type": "linestring", "coordinates": [[-74.0, 40.0],
+                                               [-73.0, 41.0]]}]
 for i, text in enumerate(["quick brown fox", "lazy dog", "quick dog"]):
     eng.index(str(i), {"body": text, "cls": text, "rank": 10.0 * (3 - i),
-                       "vec": vecs[i], "tok": toks[i]})
+                       "vec": vecs[i], "tok": toks[i], "loc": locs[i],
+                       "shp": shps[i]})
 eng.refresh()
 reader = device_reader_for(eng, device="cpu")
 searcher = ShardSearcher(0, reader, ms)
@@ -94,6 +103,11 @@ leaf_ids = [
         "exclude": {"span_term": {"body": "fox"}}, "post": 2}}}),
     ids_of({"query": {"fuzzy": {"body": {"value": "dug", "fuzziness": 1}}}}),
     ids_of({"query": {"match": {"cls": "quick dog"}}})]
+geo_ids = [
+    ids_of({"query": {"geo_distance": {"distance": "100km",
+                                       "loc": {"lat": 55.2, "lon": 7.2}}}}),
+    ids_of({"query": {"geo_shape": {"shp": {"shape": {
+        "type": "envelope", "coordinates": [[6.5, 56.0], [8.0, 54.8]]}}}}})]
 agg_req = parse_search_request({
     "query": {"match": {"body": "quick dog"}}, "size": 2,
     "aggs": {"r": {"stats": {"field": "rank"}},
@@ -171,7 +185,7 @@ except RuntimeError:
     pass
 print(json.dumps({
     "ids": [match_ids, phrase_ids, fs_ids],
-    "leaf_ids": leaf_ids,
+    "leaf_ids": leaf_ids, "geo_ids": geo_ids,
     "knn_ids": knn_ids,
     "impact_ids": impact_ids, "impact_admissions": impact_admissions,
     "agg_out": agg_out, "perc_out": perc_out,
@@ -196,6 +210,8 @@ def test_port_serves_without_jax_or_the_jax_package(tmp_path):
     assert got["ids"] == [["2", "1", "0"], ["2", "1"], ["0", "1", "2"]]
     # a span_near, a span tree, a fuzzy term and a classic match
     assert got["leaf_ids"] == [["2"], ["2"], ["1", "2"], ["2", "1", "0"]]
+    # a geo_distance and a geo_shape
+    assert got["geo_ids"] == [["0", "1"], ["0", "1"]]
     assert got["knn_ids"] == [["1", "2", "0"], ["1", "2", "0"],
                               ["0", "1", "2"], ["1", "2", "0"]]
     assert got["impact_ids"] == [["2", "1", "0"], ["2", "1", "0"],
@@ -247,7 +263,8 @@ def test_cuda_sources_have_a_plain_c_interface():
                                          "agg_counts.cu", "agg_stats.cu",
                                          "script_eval.cu",
                                          "span_program.cu", "span_near.cu",
-                                         "term_set_scan.cu"}
+                                         "term_set_scan.cu", "geo_points.cu",
+                                         "geo_shape.cu"}
     sources += sorted((REPO / "elasticsearch_tpu_torch" / "csrc").glob(
         "*.cuh"))
     bad = []

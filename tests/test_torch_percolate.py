@@ -265,8 +265,8 @@ def test_register_unregister_touches_exactly_one_bucket(setup):
     {"bool": {"must": [{"match": {"body": "pw001"}}],
               "should": [{"has_child": {"type": "c",
                                         "query": {"match_all": {}}}}]}},
-    {"bool": {"should": [{"geo_distance": {"distance": "10km",
-                                            "body": "40,-70"}}]}},
+    {"bool": {"should": [{"nested": {"path": "items",
+                                     "query": {"match_all": {}}}}]}},
 ])
 def test_unported_registrations_raise(query):
     percs = {"ok": {"query": {"match": {"body": "pw001"}}},

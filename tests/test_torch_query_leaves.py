@@ -28,8 +28,7 @@ from elasticsearch_tpu.mapping import MapperService as JaxMapperService
 from elasticsearch_tpu.search.phase import (
     ShardSearcher as JaxShardSearcher,
     parse_search_request as jax_parse_search_request)
-from elasticsearch_tpu_torch.common.errors import (
-    NotPortedError, QueryParsingError)
+from elasticsearch_tpu_torch.common.errors import QueryParsingError
 from elasticsearch_tpu_torch.index.device_reader import device_reader_for
 from elasticsearch_tpu_torch.index.engine import Engine
 from elasticsearch_tpu_torch.mapping import MapperService
@@ -233,15 +232,24 @@ def test_multi_match_highlights_match_jax(searchers):
 @pytest.mark.parametrize("body", [
     {"query": {"nested": {"path": "items", "query": {"match_all": {}}}}},
     {"query": {"has_child": {"type": "c", "query": {"match_all": {}}}}},
-    {"query": {"geo_distance": {"distance": "1km", "rank": "10,10"}}},
 ])
-def test_nested_join_and_geo_stay_refused(searchers, body):
+def test_nested_and_join_stay_refused(searchers, body):
     _, ps = searchers
     with pytest.raises(QueryParsingError):
         ps.query_phase(parse_search_request(body))
 
 
-def test_geohash_cell_parser_stays_refused():
-    with pytest.raises(NotPortedError):
-        parse_search_request({"query": {"geohash_cell": {
-            "pt": {"lat": 1.0, "lon": 2.0}, "precision": 3}}})
+@pytest.mark.parametrize("body", [
+    {"query": {"geo_distance": {"distance": "1km", "rank": "10,10"}}},
+    {"query": {"geohash_cell": {"pt": {"lat": 1.0, "lon": 2.0},
+                                "precision": 3}}},
+], ids=["geo_distance", "geohash_cell"])
+def test_geo_on_a_field_without_points_matches_jax(searchers, body):
+    """A geo query on a field the segments hold no points of matches
+    nothing, in both packages (formerly refused here; the geo slice's own
+    tests are test_torch_geo*.py)."""
+    js, ps = searchers
+    want = js.query_phase(jax_parse_search_request(body))
+    got = ps.query_phase(parse_search_request(body))
+    _assert_same(got, want, RTOL)
+    assert got.total == 0

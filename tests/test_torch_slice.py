@@ -188,10 +188,6 @@ def test_carried_segment_scores_like_jax(tmp_path):
 @pytest.mark.parametrize("body,error", [
     ({"query": {"nested": {"path": "items", "query": {"match_all": {}}}}},
      QueryParsingError),
-    ({"query": {"geo_distance": {"distance": "10km", "tag": "40,-70"}}},
-     QueryParsingError),
-    ({"query": {"match_all": {}}, "aggs": {"a": {"geohash_grid": {
-        "field": "tag"}}}}, NotPortedError),
     ({"query": {"match_all": {}}, "sort": [{"tag": "asc"}]}, NotPortedError),
     ({"query": {"match": {"body": "w01"}}, "terminate_after": 5},
      NotPortedError),
@@ -203,6 +199,24 @@ def test_unported_request_is_refused(tmp_path, body, error):
     ps = ShardSearcher(0, device_reader_for(eng, device="cpu"), ms)
     with pytest.raises(error):
         ps.query_phase(parse_search_request(body))
+
+
+@pytest.mark.parametrize("body", [
+    {"query": {"geo_distance": {"distance": "10km", "tag": "40,-70"}}},
+    {"query": {"match_all": {}}, "aggs": {"a": {"geohash_grid": {
+        "field": "tag"}}}},
+], ids=["geo_distance", "geohash_grid"])
+def test_geo_on_a_keyword_field_matches_jax(tmp_path, body):
+    """A geo query or aggregation on a field with no points: no match and
+    no bucket, in both packages (the geo slice's own tests are
+    test_torch_geo*.py)."""
+    jeng, eng, jms, ms = _engines(tmp_path, _docs(n=20), "index")
+    js = JaxShardSearcher(0, jax_device_reader_for(jeng), jms)
+    ps = ShardSearcher(0, device_reader_for(eng, device="cpu"), ms)
+    want = js.query_phase(jax_parse_search_request(body))
+    got = ps.query_phase(parse_search_request(body))
+    _assert_same(got, want)
+    assert got.agg_partials == want.agg_partials
 
 
 @pytest.mark.parametrize("extra", [
