@@ -175,7 +175,7 @@ no result line:
             31, 32 and 63 where a batch takes seconds), the bounds and
             torch.isin for K16.
 40. span_near — 3 span_terms of the sampled terms, unordered with slop 3
-            and in order with slop 2 (K14, K2), 2 batches each.
+            and in order with slop 2 (K14, K2), LEAF_BATCHES batches each.
 41. span tree — span_not over span_near(span_or, span_multi of a 4-digit
             prefix (100 terms), span_term), pre 1, post 1 (K13, K2).
 42. containing, within, first — span_containing and span_within of a
@@ -185,9 +185,9 @@ no result line:
 43. multi-term filters — bool with config 1's match and a prefix (100
             terms), a wildcard (1,000 terms) or a fuzzy term
             (K16, K1, K2), each request with its own pattern (a plan
-            signature holds one set size, so one batch a size; a fuzzy
-            batch holds FUZZY_BATCH requests), the expanded sets counted
-            with numpy.
+            signature holds one set size, so one batch a size; a prefix
+            and a wildcard batch hold MULTI_TERM_BATCH requests, a fuzzy
+            batch FUZZY_BATCH), the expanded sets counted with numpy.
 44. similarities — config 1's match on the body field mapped classic,
             then LMDirichlet (mu 2000), over the same installed segments
             (K15, K2; K1 must not run).
@@ -234,6 +234,33 @@ no result line:
             percolate_serial.
 51. profile — one geo_distance and one geo_shape batch under
             torch.profiler.
+52. nested kernels — config 1's segments get a nested path ``answers``
+            (Rally's nested track, StackOverflow questions and answers:
+            a negative binomial count a question, mean 1.5, 47% with none,
+            a tail into the dozens; answers.user Zipf 1.1 over 100,000
+            users, answers.date uniform over 2008-2016, answers.body 1-16
+            words from the corpus generator), built by
+            carry.nested_block_from_arrays and packed onto the card; K19 in
+            every score_mode against its plain version bit for bit on the
+            inputs the nested match path gives it (B = 64, N = 2^20, its
+            answers) and at odd shapes (parents without children and one
+            with 1,000, a deleted parent, every child dead, NaN and ±0.0
+            scores, B = 65), timed beside the plain version,
+            scatter_reduce_ and the bound.
+53. nested paths — batches of 64, each request with its own sampled user,
+            date or terms: Rally's randomized nested query (a term and a
+            date range in one answer, score_mode none), a nested match on
+            answers.body in avg and in sum, config 1's match with a nested
+            date-range filter (K19, K2, and K1 where a match runs); the
+            first and the last request of each batch held against the plain
+            versions on the card's tensors and a float64 recompute from the
+            host's rows, each path's p50 and (one batch under
+            torch.profiler) the card's busy share; then nested >
+            date_histogram > reverse_nested > terms and nested >
+            reverse_nested > stats through query_phase and merge_responses
+            against numpy; and 1,000 nested registrations through a
+            percolate per probe and one percolate_many of 12 probes,
+            against a float64 recompute and percolate_serial.
 
 The last lines are one JSON object of per-kernel numbers, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
@@ -260,8 +287,10 @@ import numpy as np
 # the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-# queries of configs 2 and 3 held against the float64 CPU scoring
-CHECK_QUERIES = 8
+# queries of configs 2-4, the hybrid and the sloppy phrase held against the
+# float64 CPU scoring (4 since the nested slice, from 8, so that the whole
+# run stays well under 20 minutes)
+CHECK_QUERIES = 4
 
 K1_SOURCE = "elasticsearch_tpu_torch/csrc/bm25_scan.cu"
 K2_SOURCE = "elasticsearch_tpu_torch/csrc/topk.cu"
@@ -300,10 +329,15 @@ K17_SOURCE = "elasticsearch_tpu_torch/csrc/geo_points.cu"
 K18_SOURCE = "elasticsearch_tpu_torch/csrc/geo_shape.cu"
 K17_REPLACES = "elasticsearch_tpu/ops/filters.py:79"
 K18_REPLACES = "elasticsearch_tpu/ops/geoshape.py:117"
-# the query leaves: batches of each span and similarity path; a fuzzy
-# batch's size (each value costs a Levenshtein pass over the 500,000-term
-# dictionary of each segment on the host)
-LEAF_BATCHES = 2
+K19_SOURCE = "elasticsearch_tpu_torch/csrc/nested_reduce.cu"
+K19_REPLACES = "elasticsearch_tpu/search/execute.py:1040"
+# the query leaves: batches of each span and similarity path (1 since the
+# nested slice, from 2, for the run's margin); the prefix and wildcard
+# batches' size (each pattern costs a scan of the 500,000-term dictionary
+# of each segment on the host; 64 until the nested slice) and a fuzzy
+# batch's (each value a Levenshtein pass over it)
+LEAF_BATCHES = 1
+MULTI_TERM_BATCH = 16
 FUZZY_BATCH = 1
 
 
@@ -326,7 +360,7 @@ KNN_K = 100
 # default max_tokens 32), two 2^17-row segments so the merge runs
 MAXSIM_DIMS = 128
 MAXSIM_TOKENS = 32
-MAXSIM_CHECK_QUERIES = 4
+MAXSIM_CHECK_QUERIES = 2       # 4 until the nested slice
 # config 5 (bench.py:1116-1210, 1286-1291): 8 shards, a page at from 500 of
 # size 500 (every shard's top-1000), 4 batches; with aggs 2 batches of
 # size-10 requests; the requests held against float64; the deep page
@@ -345,8 +379,13 @@ INT8_INDEX = "smoke_knn_int8"
 WEIGHTED_INDEX = "smoke_knn_weighted"
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One line of output, with the seconds since the script started."""
+    print(f"[chip_smoke {time.perf_counter() - T0:7.1f} s] {msg}",
+          flush=True)
 
 
 class SmokeFailure(Exception):
@@ -394,9 +433,10 @@ GC = GcPauses()
 # --------------------------------------------------------------------------
 
 def make_corpus(rng, n_docs: int, vocab: int, max_unique: int,
-                chunk: int = 1_000_000):
-    lens = np.clip(rng.lognormal(np.log(50.0), 0.45, n_docs),
-                   10, 224).astype(np.int32)
+                chunk: int = 1_000_000, median: float = 50.0,
+                min_len: int = 10, max_len: int = 224):
+    lens = np.clip(rng.lognormal(np.log(median), 0.45, n_docs),
+                   min_len, max_len).astype(np.int32)
     L = int(lens.max())
     U = max_unique
     tokens = np.empty((n_docs, L), np.int32)
@@ -599,7 +639,7 @@ def phase_build():
                                           K10_SOURCE, K11_SOURCE, K12_SOURCE,
                                           K13_SOURCE, K14_SOURCE,
                                           K16_SOURCE, K17_SOURCE,
-                                          K18_SOURCE)]
+                                          K18_SOURCE, K19_SOURCE)]
     t0 = time.perf_counter()
     built = cuda_build.build_libraries(sources)
     BUILD_LOGS.update({src: info["log"] for src, info in built.items()})
@@ -649,7 +689,8 @@ def phase_build():
         "40,960 ids or fewer, else none; geo_points a query group's "
         "parameters and rings, up to 48 KiB (a longer ring is read from "
         "global memory); geo_shape the query's ring structure and a query "
-        "group's coordinates, up to 48 KiB (likewise)")
+        "group's coordinates, up to 48 KiB (likewise); nested_reduce none "
+        "(a thread a (query, parent))")
 
 
 def phrase_pairs(rng, tokens, lens, n):
@@ -769,8 +810,8 @@ def reader_bytes(reader) -> str:
     """The reader's device bytes, split into the text and live columns
     (what config 1 reads), the rank column, the position matrices, the
     vector columns' exists masks and token counts, the vector matrices
-    (f32 and int8), the impact lane's columns and block tables, and the
-    geo columns."""
+    (f32 and int8), the impact lane's columns and block tables, the geo
+    columns and the nested child blocks."""
     total = reader.device_bytes()
     rank = sum(nbytes(c.hi) + nbytes(c.lo) + nbytes(c.exists)
                for s in reader.segments for c in s.numeric.values())
@@ -790,12 +831,16 @@ def reader_bytes(reader) -> str:
               for c in list(s.geo.values()) + list(s.shape.values())
               for t in vars(c).values()
               if t is not None and hasattr(t, "element_size"))
+    nested = sum(reader._segment_bytes(blk.child) + nbytes(blk.parent)
+                 + nbytes(blk.offsets) for s in reader.segments
+                 for blk in s.nested.values())
+    rest = total - rank - tokens - masks - f32 - int8 - impacts - geo - \
+        nested
     return (f"reader device bytes {total} (text and live columns "
-            f"{total - rank - tokens - masks - f32 - int8 - impacts - geo}, "
-            f"rank column {rank}, position matrices {tokens}, vector "
+            f"{rest}, rank column {rank}, position matrices {tokens}, vector "
             f"exists/lens {masks}, vector matrices f32 {f32}, int8 {int8}, "
             f"impact columns and block tables {impacts}, geo_point and "
-            f"geo_shape columns {geo})")
+            f"geo_shape columns {geo}, nested child blocks {nested})")
 
 
 def smi_sample() -> str:
@@ -1014,8 +1059,8 @@ def path_kernels():
     """The launch counter of every hand kernel, by its name in the kernels
     line (K5's f32 and int8 instantiations have one each)."""
     from elasticsearch_tpu_torch.ops import (
-        aggs_ops, blockmax, filters, geoshape, lexical, maxsim, percolate,
-        phrase, script_ops, spans, topk, vector)
+        aggs_ops, blockmax, filters, geoshape, lexical, maxsim, nested,
+        percolate, phrase, script_ops, spans, topk, vector)
     return {"bm25_scan": lexical.BM25_SCAN, "stable_topk": topk.TOPK,
             "phrase_scan": phrase.PHRASE_SCAN,
             "sloppy_phrase_scan": phrase.SLOPPY_PHRASE_SCAN,
@@ -1032,7 +1077,8 @@ def path_kernels():
             "sim_scan": lexical.SIM_SCAN,
             "term_set_scan": lexical.TERM_SET_SCAN,
             "geo_point_filter": filters.GEO_POINT_FILTER,
-            "shape_relation": geoshape.SHAPE_RELATION}
+            "shape_relation": geoshape.SHAPE_RELATION,
+            "nested_reduce": nested.NESTED_REDUCE}
 
 
 def drive(torch, searcher, batches):
@@ -1465,6 +1511,7 @@ def profile_batch(torch, label, run, plan_ms, plan_gc, size,
                  "K16": ("term_set_scan_kernel",),
                  "K17": ("geo_points_kernel",),
                  "K18": ("geo_shape_kernel",),
+                 "K19": ("nested_reduce_kernel",),
                  "cuBLAS": ("gemm", "xmma", "cutlass")}
     parts = {}
     for kname, keys in by_kernel.items():
@@ -5038,8 +5085,9 @@ def phase_multi_term_paths(torch, args, data, f64, name, smi_line) -> dict:
     """Phase 43: bool with config 1's match as must and, as filter, a
     prefix (100 terms), a wildcard (1,000 terms) or a fuzzy
     term (fuzziness 1) (K16, K1, K2), each request with its own pattern
-    drawn from its first sampled term, one batch each (FUZZY_BATCH
-    requests for fuzzy), against float64 BM25 over the must and the
+    drawn from its first sampled term, one batch each (MULTI_TERM_BATCH
+    requests, FUZZY_BATCH for fuzzy), against float64 BM25 over the must
+    and the
     expanded sets counted with numpy. The resolver expands each request's
     pattern on each segment: a host scan of the dictionary."""
     names = data["term_names"]
@@ -5048,9 +5096,9 @@ def phase_multi_term_paths(torch, args, data, f64, name, smi_line) -> dict:
     out = {}
     for label, make, ids_of, n in (
             ("prefix100", lambda s: {"prefix": {"body": s[:w - 2]}},
-             lambda s: prefix_ids(s[:w - 2], vocab), args.batch),
+             lambda s: prefix_ids(s[:w - 2], vocab), MULTI_TERM_BATCH),
             ("wildcard", lambda s: {"wildcard": {"body": f"{s[:3]}?{s[4]}*"}},
-             lambda s: wildcard_ids(s, names), args.batch),
+             lambda s: wildcard_ids(s, names), MULTI_TERM_BATCH),
             ("fuzzy", lambda s: {"fuzzy": {"body": {"value": s,
                                                     "fuzziness": 1}}},
              lambda s: fuzzy1_ids(s, vocab), FUZZY_BATCH)):
@@ -6742,6 +6790,659 @@ def phase_geo_percolate(torch, args, data, name, smi_line) -> dict:
             "serial_ms": serial_ms}
 
 
+# --------------------------------------------------------------------------
+# nested documents (phases 52-53): answers under config 1's questions (K19)
+# --------------------------------------------------------------------------
+
+NESTED_PATH = "answers"
+#: answers a question: negative binomial (shape 0.6, mean 1.5): 47% of the
+#: questions have none, sd 2.3, a geometric tail into the dozens
+NESTED_NB_SHAPE = 0.6
+NESTED_MEAN = 1.5
+#: answers.user: Zipf 1.1 over 100,000 users; answers.date uniform over
+#: 2008-2016 (epoch ms); answers.body 1-16 words (log-normal, median 8)
+#: from the smoke's vocabulary and its Zipf
+NESTED_USERS = 100_000
+NESTED_ZIPF = 1.1
+NESTED_DATES = (1_199_145_600_000, 1_483_228_800_000)
+NESTED_BODY_MEDIAN = 8.0
+NESTED_BODY_MAX = 16
+NESTED_DAY_MS = 86_400_000
+NESTED_KINDS = ("rally", "match_avg", "match_sum", "bool_filter")
+#: batches of each nested path (Float64 holds the postings of the terms of
+#: this many batches' requests, and of LEAF_BATCHES')
+NESTED_BATCHES = 2
+NESTED_AGG_REQUESTS = 2
+NESTED_REGS = 1000
+NESTED_PROBES = 12
+NESTED_PERC_WORDS = [f"nw{i:03d}" for i in range(200)]
+NESTED_PERC_USERS = [f"pu{i:02d}" for i in range(50)]
+
+
+def nested_mapping() -> dict:
+    return {"properties": {NESTED_PATH: {"type": "nested", "properties": {
+        "user": {"type": "keyword"}, "date": {"type": "date"},
+        "body": {"type": "text", "analyzer": "whitespace"}}}}}
+
+
+def phase_nested_setup(torch, args, data) -> dict:
+    """Phase 52's set-up: a nested path ``answers`` on config 1's segments,
+    shaped after Rally's ``nested`` track (StackOverflow questions and
+    their answers): the answers of each question drawn from the seed,
+    built into child blocks with index/carry.nested_block_from_arrays
+    (no per-object mapper pass) and packed onto the card with their
+    parents' live masks; the host keeps its own copy of every child column
+    for the float64 checks."""
+    from elasticsearch_tpu_torch.index.carry import nested_block_from_arrays
+    from elasticsearch_tpu_torch.index.segment import doc_count_bucket
+    rng = np.random.default_rng([args.seed, 52])
+    t0 = time.perf_counter()
+    p = NESTED_NB_SHAPE / (NESTED_NB_SHAPE + NESTED_MEAN)
+    counts = rng.negative_binomial(NESTED_NB_SHAPE, p, args.docs).astype(
+        np.int64)
+    nc = int(counts.sum())
+    parent_of = np.repeat(np.arange(args.docs), counts)
+    w = np.arange(1, NESTED_USERS + 1, dtype=np.float64) ** -NESTED_ZIPF
+    user = np.searchsorted(np.cumsum(w / w.sum()), rng.random(nc)).astype(
+        np.int32)
+    user = np.minimum(user, NESTED_USERS - 1)
+    date = rng.integers(*NESTED_DATES, nc).astype(np.float64)
+    uterms, utf, lens, df, _ = make_corpus(
+        rng, nc, args.vocab, NESTED_BODY_MAX, median=NESTED_BODY_MEDIAN,
+        min_len=1, max_len=NESTED_BODY_MAX)
+    build_s = time.perf_counter() - t0
+    reader = data["reader"]
+    data["mapper"].merge("_doc", nested_mapping())
+    users = [f"u{i:06d}" for i in range(NESTED_USERS)]
+    t0 = time.perf_counter()
+    for dseg in reader.segments:
+        seg = dseg.seg
+        lo = int(seg.ids[0])
+        c_lo, c_hi = (int(x) for x in np.searchsorted(
+            parent_of, [lo, lo + seg.num_docs]))
+        n_ch = c_hi - c_lo
+        padded = doc_count_bucket(n_ch)
+
+        def pad(a, fill=0):
+            out = np.full((padded,) + a.shape[1:], fill, a.dtype)
+            out[:n_ch] = a[c_lo:c_hi]
+            return out
+        ut = uterms[c_lo:c_hi]
+        seg_df = np.bincount(ut[ut >= 0], minlength=args.vocab)
+        parent = np.full(padded, -1, np.int32)
+        parent[:n_ch] = parent_of[c_lo:c_hi] - lo
+        blk = nested_block_from_arrays(
+            parent, f"{NESTED_PATH}.body", terms=data["term_names"],
+            uterms=pad(uterms, -1), utf=pad(utf, 0.0), doc_len=pad(lens),
+            df=seg_df, num_children=n_ch,
+            keyword={f"{NESTED_PATH}.user": (users, pad(user[:, None], -1))},
+            numeric={f"{NESTED_PATH}.date": (
+                pad(date), np.arange(padded) < n_ch)})
+        seg.nested_blocks[NESTED_PATH] = blk
+        dseg.nested[NESTED_PATH] = reader.pack_nested(
+            blk, dseg.live.cpu().numpy())
+        reader._collect_seg_stats(blk.segment)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    blocks = [s.nested[NESTED_PATH] for s in reader.segments]
+    on_card = sum(reader._segment_bytes(b.child) + nbytes(b.parent)
+                  + nbytes(b.offsets) for b in blocks)
+    log(f"nested set-up: {nc} answers under {args.docs} questions "
+        f"(negative binomial shape {NESTED_NB_SHAPE}, mean {NESTED_MEAN}: "
+        f"{counts.mean():.4f} a question, {100 * (counts == 0).mean():.2f}% "
+        f"with none, max {counts.max()}); answers.user Zipf "
+        f"{NESTED_ZIPF} over {NESTED_USERS} users "
+        f"({len(np.unique(user))} used), answers.date uniform 2008-2016, "
+        f"answers.body {lens.mean():.3f} words a mean (1-"
+        f"{NESTED_BODY_MAX}, U = {uterms.shape[1]}); child rows a segment "
+        f"{[b.column.segment.num_docs for b in blocks]} padded to "
+        f"{[b.child.padded_docs for b in blocks]}; built on the host in "
+        f"{build_s:.1f} s, carried and uploaded in {up_s:.1f} s; the child "
+        f"blocks {on_card} B on the card "
+        f"({on_card / max(sum(b.child.padded_docs for b in blocks), 1):.1f} "
+        f"B a padded child row: uterms and utf, doc_len, the user ordinal, "
+        f"the date's hi/lo/exists, live, parent, and the offsets); "
+        f"{reader_bytes(reader)}")
+    n = len(lens)
+    return {"counts": counts, "parent_of": parent_of, "user": user,
+            "date": date, "uterms": uterms, "utf": utf, "lens": lens,
+            "df": df, "users": users, "n": n,
+            "term_index": {t: j for j, t in enumerate(data["term_names"])},
+            "avgdl": float(lens.sum()) / n,
+            "norm": 1.2 * (0.25 + 0.75 * lens.astype(np.float64)
+                           / (float(lens.sum()) / n))}
+
+
+def nested_request_rows(args, nd, n, salt):
+    """The sampled child row behind each of n requests: a request asks for
+    what this answer holds, so each matches at least one question."""
+    rng = np.random.default_rng([args.seed, 53, salt])
+    return rng.integers(0, nd["n"], n)
+
+
+def nested_bodies(args, data, nd, kind, n):
+    """n requests of one nested path, each with its own sampled user, date
+    range or terms."""
+    rows = nested_request_rows(args, nd, n, NESTED_KINDS.index(kind))
+    out = []
+    for i, r in enumerate(rows):
+        if kind == "rally":
+            # Rally's randomized nested query: an answer by this user within
+            # a window of 30 to 120 days around one of their answers
+            rng = np.random.default_rng([args.seed, 54, i])
+            span = int(rng.integers(30, 121)) * NESTED_DAY_MS
+            d0 = int(nd["date"][r]) - int(rng.integers(0, span))
+            q = {"nested": {"path": NESTED_PATH, "score_mode": "none",
+                            "query": {"bool": {"must": [
+                                {"term": {f"{NESTED_PATH}.user":
+                                          nd["users"][nd["user"][r]]}},
+                                {"range": {f"{NESTED_PATH}.date": {
+                                    "gte": d0, "lt": d0 + span}}}]}}}}
+            size = 10
+        elif kind in ("match_avg", "match_sum"):
+            terms = nd["uterms"][r][nd["uterms"][r] >= 0][:2]
+            q = {"nested": {"path": NESTED_PATH,
+                            "score_mode": kind.split("_")[1],
+                            "query": {"match": {
+                                f"{NESTED_PATH}.body": " ".join(
+                                    data["term_names"][t] for t in terms)}}}}
+            size = 10
+        else:
+            # a two-year window, from the 365-day step of 2008-01-01 that
+            # holds the sampled answer's date
+            start = NESTED_DATES[0] + int(nd["date"][r] - NESTED_DATES[0]) \
+                // (365 * NESTED_DAY_MS) * 365 * NESTED_DAY_MS
+            q = {"bool": {"must": [{"match": {"body": data["texts"][i]}}],
+                          "filter": [{"nested": {
+                              "path": NESTED_PATH, "score_mode": "none",
+                              "query": {"range": {f"{NESTED_PATH}.date": {
+                                  "gte": start,
+                                  "lt": start + 730 * NESTED_DAY_MS}}}}}]}}
+            size = 100
+        out.append({"query": q, "size": size})
+    return out
+
+
+def nested_score64(data, nd, f64, kind, body, i):
+    """float64 recompute of one nested request from the host's rows →
+    (score of every question, its match mask)."""
+    nq = len(nd["counts"])
+    if kind == "bool_filter":
+        rng_ = body["query"]["bool"]["filter"][0]["nested"]["query"][
+            "range"][f"{NESTED_PATH}.date"]
+        ok = (nd["date"] >= rng_["gte"]) & (nd["date"] < rng_["lt"])
+        has = np.bincount(nd["parent_of"][ok], minlength=nq) > 0
+        s, cnt = f64.bm25(data["qtids"][i])
+        m = (cnt > 0) & has
+        return np.where(m, s, 0.0), m
+    q = body["query"]["nested"]
+    if kind == "rally":
+        must = q["query"]["bool"]["must"]
+        user = nd["users"].index(must[0]["term"][f"{NESTED_PATH}.user"])
+        r = must[1]["range"][f"{NESTED_PATH}.date"]
+        ok = (nd["user"] == user) & (nd["date"] >= r["gte"]) & \
+            (nd["date"] < r["lt"])
+        m = np.bincount(nd["parent_of"][ok], minlength=nq) > 0
+        return m.astype(np.float64), m
+    names = q["query"]["match"][f"{NESTED_PATH}.body"].split()
+    index = nd["term_index"]
+    child = np.zeros(nd["n"], np.float64)
+    hit = np.zeros(nd["n"], bool)
+    post = postings(nd["uterms"], nd["utf"],
+                    np.asarray([index[t] for t in names]))
+    for t in names:
+        d, f = post[index[t]]
+        child[d] += cpu_idf(nd["df"], index[t], nd["n"]) * f * 2.2 / \
+            (f + nd["norm"][d])
+        hit[d] = True
+    par = nd["parent_of"][hit]
+    ssum = np.bincount(par, weights=child[hit], minlength=nq)
+    cnt = np.bincount(par, minlength=nq)
+    m = cnt > 0
+    s = ssum / np.maximum(cnt, 1) if q["score_mode"] == "avg" else ssum
+    return np.where(m, s, 0.0), m
+
+
+def plain_nested_kernels():
+    """A context in which the wrappers of K1 and K19 run their plain
+    versions also on CUDA tensors. Launches made there count nowhere."""
+    import contextlib
+    from elasticsearch_tpu_torch.ops import lexical, nested
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (lexical.bm25_match_batch, nested.nested_reduce)
+        lexical.bm25_match_batch = (
+            lambda *a, trailing_pad=False, want_nmatch=True:
+            lexical.bm25_match_batch_plain(*a, want_nmatch=want_nmatch))
+        nested.nested_reduce = nested.nested_reduce_plain
+        try:
+            yield
+        finally:
+            lexical.bm25_match_batch, nested.nested_reduce = saved
+    return ctx()
+
+
+def k19_bytes(c_mask, child_live, offsets, mode) -> int:
+    """K19's least bytes for this run's data: each real child's mask byte
+    a query and its live byte once, the scores of the counted children
+    (none for score_mode none), the offsets and boosts once, and the
+    [B, N] scores and matched bytes written."""
+    b = c_mask.shape[0]
+    n = offsets.shape[0] - 1
+    real = int(offsets[-1])
+    counted = int((c_mask[:, :real] & child_live[None, :real]).sum()) \
+        if mode != "none" else 0
+    return b * real + real + 4 * counted + 4 * (n + 1) + 4 * b + 5 * b * n
+
+
+def phase_nested_kernels(torch, args, data, nd) -> dict:
+    """Phase 52: K19 in every score_mode against its plain version, bit for
+    bit, on the inputs the nested match path gives it on segment 0 (B = 64,
+    N = 2^20, its answers; captured from one batch of that path) and at odd
+    shapes (N = 100,003 with parents without children and one with 1,000,
+    a deleted parent's children dead, every child dead, NaN and ±0.0
+    scores, B = 65); timed beside the plain version, scatter_reduce_ and
+    the bound."""
+    from elasticsearch_tpu_torch.ops import nested
+    searcher, reader = data["searcher"], data["reader"]
+    seg = reader.segments[0]
+    blk = seg.nested[NESTED_PATH]
+    b = args.batch
+    captured = []
+    wrapper = nested.nested_reduce
+
+    def capture(*a):
+        captured.append(a)
+        return wrapper(*a)
+    nested.nested_reduce = capture
+    try:
+        batch = batches_of(args, nested_bodies(args, data, nd, "match_avg",
+                                               b))[0]
+        check(searcher.query_phase_batch(batch) is not None,
+              "nested: the captured batch was declined")
+    finally:
+        nested.nested_reduce = wrapper
+    c_scores, c_mask, live, offsets, boost, _ = captured[0]
+    check(c_scores.shape == (b, blk.child.padded_docs) and
+          offsets.shape == (seg.padded_docs + 1,),
+          f"nested: captured shapes {tuple(c_scores.shape)}, "
+          f"{tuple(offsets.shape)}")
+    dev = c_scores.device
+    n = seg.padded_docs
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        check(torch.equal(got[1], want[1]) and torch.equal(
+            got[0].view(torch.int32), want[0].view(torch.int32)),
+            f"K19 {what} is not bit-identical to its plain version")
+
+    ok = c_mask & live[None, :]
+    idx = blk.parent.long().clamp(min=0)[None, :].expand(b, -1).contiguous()
+    lib_src = {"amax": torch.where(ok, c_scores, float("-inf")),
+               "amin": torch.where(ok, c_scores, float("inf")),
+               "sum": torch.where(ok, c_scores, 0.0)}
+    lib_src["mean"] = lib_src["sum"]
+    lib_out = torch.zeros((b, n), dtype=torch.float32, device=dev)
+    modes = {}
+    for mode, lib_reduce in (("none", None), ("max", "amax"),
+                             ("min", "amin"), ("sum", "sum"),
+                             ("avg", "mean")):
+        args_m = (c_scores, c_mask, live, offsets, boost, mode)
+        got = nested.nested_reduce(*args_m)
+        want = nested.nested_reduce_plain(*args_m)
+        same(got, want, f"{mode} (B={b}, N={n}, Nc={c_scores.shape[1]})")
+        check(bool(got[1].any()), f"K19 {mode}: nothing matched")
+        ms = timed(torch, f"K19 {mode}", lambda: nested.nested_reduce(
+            *args_m), reps=20)
+        plain = timed(torch, f"K19 {mode} plain",
+                      lambda: nested.nested_reduce_plain(*args_m), reps=2)
+        lib = None
+        if lib_reduce is not None:
+            src = lib_src[lib_reduce]
+            lib = timed(torch, f"scatter_reduce_ {lib_reduce}",
+                        lambda: lib_out.scatter_reduce_(
+                            1, idx, src, lib_reduce, include_self=False),
+                        reps=5)
+        bms, by = bound(k19_bytes(c_mask, live, offsets, mode), 0)
+        modes[mode] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": bms, "bound_by": by,
+                       "matched": int(got[1].sum())}
+    del lib_src, lib_out, idx, ok
+    # ---- odd shapes ---------------------------------------------------------
+    rng = np.random.default_rng([args.seed, 55])
+    n_odd, b_odd = 100_003, 65
+    counts = rng.negative_binomial(NESTED_NB_SHAPE, NESTED_NB_SHAPE / (
+        NESTED_NB_SHAPE + NESTED_MEAN), n_odd)
+    counts[7] = 1000
+    off_np = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    nc = int(off_np[-1]) + 5
+    scores = rng.uniform(-3, 5, (b_odd, nc)).astype(np.float32)
+    scores[:, ::7] = 0.0
+    scores[:, 3::11] = -0.0
+    scores[:, 5::13] = np.nan
+    live_np = rng.random(nc) < 0.95
+    live_np[off_np[11]:off_np[12]] = False      # a deleted parent
+    live_np[-5:] = False
+    o_scores, o_mask, o_live, o_off, o_boost = (
+        torch.from_numpy(a).to(dev) for a in (
+            scores, rng.random((b_odd, nc)) < 0.7, live_np, off_np,
+            rng.uniform(0.5, 3, b_odd).astype(np.float32)))
+    dead = torch.zeros_like(o_live)
+    for mode in ("none", "max", "min", "sum", "avg"):
+        a = (o_scores, o_mask, o_live, o_off, o_boost, mode)
+        got = nested.nested_reduce(*a)
+        same(got, nested.nested_reduce_plain(*a),
+             f"{mode} at the odd shape N={n_odd}, B={b_odd}")
+        check(not bool(got[1][:, counts == 0].any()) and
+              not bool(got[1][:, 11].any()) and bool(got[1][:, 7].all()),
+              f"K19 {mode}: parents without live children matched")
+        if mode in ("max", "min", "sum", "avg"):
+            check(bool(torch.isnan(got[0]).any()),
+                  f"K19 {mode}: no NaN came through")
+        a = (o_scores, o_mask, dead, o_off, o_boost, mode)
+        got = nested.nested_reduce(*a)
+        same(got, nested.nested_reduce_plain(*a),
+             f"{mode} with every child dead")
+        check(not bool(got[1].any()), f"K19 {mode}: a dead child matched")
+    log(f"K19 nested_reduce: bit-identical to plain in every score_mode at "
+        f"the odd shape N={n_odd}, B={b_odd} (parents without children, "
+        f"one with 1,000, a deleted parent, NaN and ±0.0 scores) and with "
+        f"every child dead; at the path's shape: "
+        + "; ".join(f"{m} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f}, "
+                    f"scatter_reduce_ {v['library_ms']}, bound "
+                    f"{v['bound_ms']:.4f} ms by {v['bound_by']})"
+                    for m, v in modes.items()))
+    main = modes["avg"]
+    return {"name": "nested_reduce", "route": "cuda", "source": K19_SOURCE,
+            "replaces": K19_REPLACES, "launches": 0, "max_abs_err": 0.0,
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "library_call": "torch.Tensor.scatter_reduce_(1, parent, src, "
+                            "'mean', include_self=False)",
+            "modes": modes,
+            "shape": {"B": b, "N": n, "Nc": int(c_scores.shape[1]),
+                      "children": int(offsets[-1])}}
+
+
+def check_nested_batch(label, args, data, nd, f64, kind, reqs, res_b,
+                       bodies, first):
+    """The first and the last request of a nested batch: against the plain
+    versions on the card's tensors (total exact, the hits' scores bit for
+    bit), then against the float64 recompute from the host's rows (the
+    same questions matched, scores within 1e-5, tie-tolerant recall@k
+    1.0)."""
+    from elasticsearch_tpu_torch.search import segment_exec
+    searcher = data["searcher"]
+    orig_of = gid_to_orig(searcher.reader)
+    totals = []
+    for j in checked_requests(len(reqs)):
+        req, res = reqs[j], res_b[j]
+        scores, masks = [], []
+        with plain_nested_kernels():
+            for seg in searcher.reader.segments:
+                s, m = segment_exec.execute(seg, searcher.ctx, req.query)
+                nr = seg.seg.num_docs
+                scores.append(s[:nr].cpu().numpy())
+                masks.append(m[:nr].cpu().numpy())
+        p_s, p_m = np.concatenate(scores), np.concatenate(masks)
+        orig = orig_of[np.asarray(res.doc_ids, np.int64)]
+        check(res.total == int(p_m.sum()),
+              f"{label} request {j}: total {res.total} != the plain "
+              f"versions' {int(p_m.sum())}")
+        check(np.array_equal(np.asarray(res.scores, np.float32), p_s[orig]),
+              f"{label} request {j}: the hits' scores differ from the plain "
+              f"versions'")
+        s64, m64 = nested_score64(data, nd, f64, kind, bodies[first + j],
+                                  first + j)
+        check(np.array_equal(m64, p_m), f"{label} request {j}: the float64 "
+              f"recompute matches other questions than the plain versions")
+        check_vs_cpu(label, args, [res], [s64], [m64], orig_of, k=req.size)
+        totals.append(res.total)
+    return totals
+
+
+def phase_nested_paths(torch, args, data, nd, f64, name, smi_line) -> dict:
+    """Phase 53 (queries): NESTED_BATCHES batches of 64 of each nested path
+    through query_phase_batch — Rally's randomized nested query (a term
+    and a date range in one answer, score_mode none), a nested match on
+    answers.body in avg and in sum, and config 1's match with a nested
+    date-range filter — each checked by check_nested_batch; one batch of
+    each under torch.profiler."""
+    out = {}
+    totals = {}
+    for kind in NESTED_KINDS:
+        bodies = nested_bodies(args, data, nd, kind,
+                               NESTED_BATCHES * args.batch)
+        batches = batches_of(args, bodies)
+        results, per_batch, wall, launches, peak = drive(
+            torch, data["searcher"], batches)
+        needed = ("nested_reduce", "stable_topk") + (
+            ("bm25_scan",) if kind != "rally" else ())
+        out[kind] = report(f"nested {kind}", args, data, batches, per_batch,
+                           wall, launches, peak, name, smi_line, needed)
+        totals[kind] = []
+        for bi, (reqs, res_b) in enumerate(zip(batches, results)):
+            totals[kind] += check_nested_batch(
+                f"nested {kind}", args, data, nd, f64, kind, reqs, res_b,
+                bodies, bi * args.batch)
+        prof = phase_profile(torch, args, data, f"nested {kind}", bodies)
+        out[kind]["busy_share"] = None if not prof.get("busy_ms") else \
+            prof["busy_ms"] / prof["wall_ms"]
+    log(f"nested paths: the first and the last request of each batch equal "
+        f"to the plain versions on the card (totals, scores bit for bit) "
+        f"and to the float64 recompute (the same questions, scores within "
+        f"1e-5, tie-tolerant recall 1.0); totals {totals}; p50 a batch of "
+        f"{args.batch}: "
+        + ", ".join(f"{k} {v['p50_ms']:.3f} ms (busy "
+                    + (f"{100 * v['busy_share']:.1f}%)" if v["busy_share"]
+                       is not None else "not measured)")
+                    for k, v in out.items()))
+    return out
+
+
+def phase_nested_aggs(torch, args, data, nd, name, smi_line) -> dict:
+    """Phase 53 (aggregations): NESTED_AGG_REQUESTS requests of config 1's
+    match with nested → date_histogram (answers.date, yearly) →
+    reverse_nested → terms (answers.user), and nested → reverse_nested →
+    stats (rank), through query_phase and controller.merge_responses;
+    against numpy over the card's match mask. A reverse_nested below a
+    bucket under nested is the identity over the answers (the JAX
+    package's semantics, which the port keeps): only one directly under
+    nested maps the answers back to their questions."""
+    from elasticsearch_tpu_torch.search import controller, segment_exec
+    from elasticsearch_tpu_torch.search.phase import parse_search_request
+    searcher = data["searcher"]
+    aggs = {"answers": {"nested": {"path": NESTED_PATH}, "aggs": {
+        "per_year": {"date_histogram": {"field": f"{NESTED_PATH}.date",
+                                        "interval": "year"}, "aggs": {
+            "back": {"reverse_nested": {}, "aggs": {"users": {"terms": {
+                "field": f"{NESTED_PATH}.user", "size": 5}}}}}},
+        "questions": {"reverse_nested": {}, "aggs": {
+            "rank": {"stats": {"field": "rank"}}}}}}}
+    ms_q, ms_m = [], []
+    counters = reset_launches()
+    for i in range(NESTED_AGG_REQUESTS):
+        req = parse_search_request({"query": {"match": {
+            "body": data["texts"][i]}}, "size": 10, "aggs": aggs})
+        t0 = time.perf_counter()
+        res = searcher.query_phase(req)
+        ms_q.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        merged = controller.merge_responses("nested", req, [res],
+                                            [searcher], 0.0, req.aggs)
+        ms_m.append((time.perf_counter() - t0) * 1e3)
+        mask = np.concatenate([
+            segment_exec.match_mask(s, searcher.ctx, req.query).cpu()
+            .numpy()[:s.seg.num_docs] for s in searcher.reader.segments])
+        check(int(mask.sum()) == res.total, "nested aggs: the mask's count")
+        child = mask[nd["parent_of"]]
+        got = merged["aggregations"]["answers"]
+        check(got["doc_count"] == int(child.sum()),
+              f"nested aggs: doc_count {got['doc_count']} != numpy "
+              f"{int(child.sum())}")
+        years = (nd["date"][child].astype("datetime64[ms]")
+                 .astype("datetime64[Y]").astype(int) + 1970)
+        ys, yc = np.unique(years, return_counts=True)
+        buckets = got["per_year"]["buckets"]
+        check([b["doc_count"] for b in buckets] == yc.tolist() and
+              [int(np.datetime64(int(b["key"]), "ms").astype(
+                  "datetime64[Y]").astype(int)) + 1970 for b in buckets] ==
+              ys.tolist(), "nested aggs: the yearly buckets")
+        for bkt, y in zip(buckets, ys):
+            sel = nd["user"][child][years == y]
+            cnt = np.bincount(sel, minlength=NESTED_USERS)
+            back = bkt["back"]
+            check(back["doc_count"] == len(sel),
+                  f"nested aggs: reverse_nested in {y}")
+            tops = back["users"]["buckets"]
+            got_c = [t["doc_count"] for t in tops]
+            want_c = sorted(cnt.tolist(), reverse=True)[:len(tops)]
+            check(got_c == want_c and all(
+                cnt[nd["users"].index(t["key"])] == t["doc_count"]
+                for t in tops), f"nested aggs: the top users of {y}")
+        has = np.bincount(nd["parent_of"][child],
+                          minlength=len(mask)) > 0
+        q = got["questions"]
+        rank = data["rank"][has]
+        check(q["doc_count"] == int(has.sum()) and
+              q["rank"]["count"] == int(has.sum()) and
+              q["rank"]["min"] == rank.min() and
+              q["rank"]["max"] == rank.max() and
+              np.isclose(q["rank"]["sum"], rank.sum(), rtol=1e-9),
+              "nested aggs: reverse_nested's questions and their rank")
+    launches = read_launches(counters)
+    check(launches["bm25_scan"] > 0, f"nested aggs: launches {launches}")
+    log(f"nested aggs: {NESTED_AGG_REQUESTS} requests (config 1's match, "
+        f"nested > date_histogram yearly > reverse_nested > terms, nested > "
+        f"reverse_nested > stats) equal to numpy over the card's match mask; "
+        f"query_phase {', '.join(f'{x:.1f}' for x in ms_q)} ms (the nested "
+        f"collectors are numpy on the host, as in the JAX package), merge "
+        f"{', '.join(f'{x:.1f}' for x in ms_m)} ms; launches "
+        f"{dict((k, v) for k, v in launches.items() if v)} — on {name} "
+        f"({smi_line})")
+    return {"launches": launches, "query_ms": ms_q, "merge_ms": ms_m,
+            "p50_ms": statistics.median(ms_q)}
+
+
+def nested_perc_registry(seed):
+    """NESTED_REGS registrations on answers: half a nested term on
+    answers.user (score_mode none), half a nested match of one word on
+    answers.body (score_mode max); NESTED_PROBES probe questions with 1-6
+    answers each."""
+    rng = np.random.default_rng([seed, 56])
+    regs = {}
+    for i in range(NESTED_REGS):
+        if i % 2:
+            q = {"term": {f"{NESTED_PATH}.user": str(rng.choice(
+                NESTED_PERC_USERS))}}
+            mode = "none"
+        else:
+            q = {"match": {f"{NESTED_PATH}.body": str(rng.choice(
+                NESTED_PERC_WORDS))}}
+            mode = "max"
+        regs[f"n{i}"] = {"query": {"nested": {
+            "path": NESTED_PATH, "score_mode": mode, "query": q}}}
+    probes = []
+    for _ in range(NESTED_PROBES):
+        probes.append({"title": "q", NESTED_PATH: [
+            {"user": str(rng.choice(NESTED_PERC_USERS)),
+             "body": " ".join(rng.choice(NESTED_PERC_WORDS,
+                                         int(rng.integers(3, 12))))}
+            for _ in range(int(rng.integers(1, 7)))]})
+    return regs, probes
+
+
+def nested_perc_oracle(regs, doc, k1=1.2, b=0.75) -> dict:
+    """float64 recompute of every registration against one probe: over the
+    probe's answers (the one-doc segment's child rows) a user term scores
+    1.0; a word's BM25 in each answer that holds it (N = the answers, df
+    = those holding it, avgdl = their mean length), the max over them. →
+    {qid: score} of the matches."""
+    answers = doc[NESTED_PATH]
+    toks = [a["body"].split() for a in answers]
+    n = len(answers)
+    avgdl = sum(len(t) for t in toks) / n
+    out = {}
+    for qid, reg in regs.items():
+        q = reg["query"]["nested"]["query"]
+        if "term" in q:
+            if any(a["user"] == q["term"][f"{NESTED_PATH}.user"]
+                   for a in answers):
+                out[qid] = 1.0
+            continue
+        w = q["match"][f"{NESTED_PATH}.body"]
+        df = sum(w in t for t in toks)
+        if not df:
+            continue
+        idf = np.log1p((n - df + 0.5) / (df + 0.5))
+        out[qid] = max(idf * t.count(w) * (k1 + 1.0) / (
+            t.count(w) + k1 * (1 - b + b * len(t) / avgdl))
+            for t in toks if w in t)
+    return out
+
+
+def phase_nested_percolate(torch, args, data, name, smi_line) -> dict:
+    """Phase 53 (percolate): NESTED_REGS nested registrations, a percolate
+    per probe and one percolate_many of the NESTED_PROBES probes; every
+    registration's flag and score against the float64 recompute, probe 0
+    against percolate_serial, each item of percolate_many equal to its own
+    percolate call."""
+    from elasticsearch_tpu_torch.search import percolator
+    dev = data["reader"].device
+    regs, probes = nested_perc_registry(args.seed)
+    meta = perc_meta("smoke_nested_perc", {"_doc": {"properties": {
+        "title": {"type": "keyword"}, **nested_mapping()["properties"]}}},
+        regs)
+    t0 = time.perf_counter()
+    reg = percolator.registry_for(meta, dev)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: 0 for k in path_kernels()}
+    recs, outs = [], []
+    for pi, d in enumerate(probes):
+        out, rec = perc_call(torch, lambda d=d: percolator.percolate(
+            meta, d, score=True, device=dev))
+        for k_, v in rec["launches"].items():
+            launches[k_] += v
+        recs.append(rec)
+        outs.append(out)
+        want = nested_perc_oracle(regs, d)
+        got = {m["_id"]: m["_score"] for m in out["matches"]}
+        check(set(got) == set(want), f"nested percolate probe {pi}: "
+              f"{len(set(got) ^ set(want))} registrations differ from the "
+              f"float64 recompute")
+        check(all(abs(got[q] - want[q]) <= 1e-5 * max(1.0, abs(want[q]))
+                  for q in got), f"nested percolate probe {pi}: a score "
+              f"differs from the float64 recompute")
+    t0 = time.perf_counter()
+    ser = percolator.percolate_serial(meta, probes[0], score=True,
+                                      device=dev)
+    serial_ms = (time.perf_counter() - t0) * 1e3
+    check([m["_id"] for m in ser["matches"]] ==
+          [m["_id"] for m in outs[0]["matches"]],
+          "nested percolate: probe 0 differs from percolate_serial")
+    many, mrec = perc_call(torch, lambda: percolator.percolate_many(
+        meta, [{"doc": d, "score": True} for d in probes], device=dev))
+    for k_, v in mrec["launches"].items():
+        launches[k_] += v
+    check(many == outs, "nested percolate_many: an item differs from its "
+          "own percolate call")
+    for k_ in ("nested_reduce", "percolate_reduce"):
+        check(launches[k_] > 0, f"nested percolate: {k_} was not launched")
+    p50 = statistics.median(r["wall_ms"] for r in recs)
+    log(f"nested percolate: {NESTED_REGS} registrations (registry built in "
+        f"{build_ms:.1f} ms, {reg.stats_dict()['shape_buckets']} shape "
+        f"buckets), {len(probes)} probes: p50 {p50:.3f} ms a call; matches a "
+        f"probe {[o['total'] for o in outs]}, every flag and score equal to "
+        f"the float64 recompute (scores within 1e-5); probe 0 equal to "
+        f"percolate_serial ({serial_ms:.1f} ms); percolate_many "
+        f"{perc_line(mrec)}, each item equal to its percolate call — on "
+        f"{name} ({smi_line})")
+    return {"launches": launches, "p50_ms": p50, "many_ms": mrec["wall_ms"],
+            "serial_ms": serial_ms}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1 << 21,
@@ -6913,7 +7614,7 @@ def main(argv=None) -> int:
                                         LEAF_BATCHES * args.batch)
         k13, k14, k15, k16 = phase_leaf_kernels(torch, args, data)
         kernels.extend((k13, k14, k15, k16))
-        f64 = Float64(data, LEAF_BATCHES * args.batch)
+        f64 = Float64(data, max(LEAF_BATCHES, NESTED_BATCHES) * args.batch)
         leaf_paths = {}
         for kind, st in phase_span_paths(torch, args, data, f64, name,
                                          smi_line).items():
@@ -6968,6 +7669,28 @@ def main(argv=None) -> int:
                       geo_bodies(args, data, "intersects/circle",
                                  args.batch))
         log(f"geo: phases 47-51 in {time.perf_counter() - t_geo:.1f} s")
+        # nested documents
+        t_nested = time.perf_counter()
+        nd = phase_nested_setup(torch, args, data)
+        k19 = phase_nested_kernels(torch, args, data, nd)
+        kernels.append(k19)
+        nested_paths = {f"nested-{kind.replace('_', '-')}": st
+                        for kind, st in phase_nested_paths(
+                            torch, args, data, nd, f64, name,
+                            smi_line).items()}
+        nested_paths["nested-aggs"] = phase_nested_aggs(
+            torch, args, data, nd, name, smi_line)
+        nested_paths["nested-percolate"] = phase_nested_percolate(
+            torch, args, data, name, smi_line)
+        by_config.update(nested_paths)
+        for kern in kernels:
+            kern["launches_by_config"] = {
+                cfg: st["launches"][kern["name"]]
+                for cfg, st in by_config.items()}
+        k19["launches"] = sum(st["launches"]["nested_reduce"]
+                              for st in nested_paths.values())
+        log(f"nested: phases 52-53 in "
+            f"{time.perf_counter() - t_nested:.1f} s")
     except Exception as e:                  # noqa: BLE001 — report, then fail
         traceback.print_exc()
         print(f"[chip_smoke] FAILED: {type(e).__name__}: {e}",

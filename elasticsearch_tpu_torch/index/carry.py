@@ -12,6 +12,9 @@ index.
 impact lane's quantized impacts and block maxima), and
 :func:`install_impact_column` puts one in a port segment's impact cache, so
 both packages' impact lanes can run on the very same column.
+:func:`nested_block_from_arrays` builds a nested path's child block (its
+child segment and the child → parent join) from arrays the same way, with
+no per-object mapper pass.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import numpy as np
 
 from elasticsearch_tpu_torch.index.segment import (
     GeoFieldColumn, ImpactColumn, KeywordFieldColumn, MultiVectorFieldColumn,
-    NumericFieldColumn, Segment, ShapeFieldColumn, VectorFieldColumn)
+    NestedBlock, NumericFieldColumn, Segment, ShapeFieldColumn,
+    VectorFieldColumn)
 
 
 def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
@@ -98,6 +102,39 @@ def segment_from_arrays(field: str, *, terms: list[str], uterms: np.ndarray,
             rid=_rows(rid, np.int32, padded, name),
             area=_rows(area, bool, padded, name))
     return seg, live.copy()
+
+
+def nested_block_from_arrays(parent: np.ndarray, field: str, *,
+                             terms: list[str], uterms: np.ndarray,
+                             utf: np.ndarray, doc_len: np.ndarray,
+                             df: np.ndarray, num_children: int,
+                             total_tokens: int | None = None,
+                             tokens: np.ndarray | None = None,
+                             keyword: dict | None = None,
+                             numeric: dict | None = None,
+                             geo: dict | None = None) -> NestedBlock:
+    """→ a nested path's NestedBlock: a child segment with the text field
+    ``field`` (and the ``keyword`` / ``numeric`` / ``geo`` columns, as
+    :func:`segment_from_arrays` takes them), every column [padded] rows,
+    and ``parent`` [padded] int32: the parent row of each of the first
+    ``num_children`` rows, non-decreasing (a parent's objects are adjacent
+    rows, in the parents' order, as indexing appends them), then -1. Field
+    names carry the path (``answers.body``), as the mapper names them."""
+    padded = int(uterms.shape[0])
+    parent = _rows(parent, np.int32, padded, "parent")
+    head = parent[:num_children]
+    if (head < 0).any() or (np.diff(head) < 0).any() or \
+            (parent[num_children:] != -1).any():
+        raise ValueError("nested block: parent must hold the first "
+                         "num_children rows' parents in non-decreasing order "
+                         "and -1 after")
+    seg, _ = segment_from_arrays(
+        field, terms=terms, uterms=uterms, utf=utf, doc_len=doc_len, df=df,
+        ids=[""] * padded, sources=[{}] * padded,
+        live=np.arange(padded) < num_children, num_docs=num_children,
+        total_tokens=total_tokens, tokens=tokens, keyword=keyword,
+        numeric=numeric, geo=geo)
+    return NestedBlock(segment=seg, parent=parent)
 
 
 def impact_column_from_arrays(*, qimp: np.ndarray,

@@ -29,8 +29,14 @@ column (the vertex rings ``lats`` / ``lons`` [N, V] f32, ``rid`` [N, V] i32,
 ``area`` [N, V] bool, ``nv`` [N] i32 and exists) go to the device the same
 way, at the first plan that reads the field (:meth:`DeviceReader.fetch_geo`,
 :meth:`DeviceReader.fetch_shape`, called by the geo resolvers), one copy per
-(segment, field). Nested columns stay host-side on the segment
-(``DeviceSegment.seg``): no query this port serves reads them yet.
+(segment, field). A nested path's child rows (``NestedBlock``) are packed
+with the segment as a segment of their own (:class:`DeviceNestedBlock`: the
+child :class:`DeviceSegment`, whose live mask folds in the parent's, the
+child → parent join ``parent`` [Nc] i32 and its CSR view ``offsets`` [N+1]
+i32, each parent's children in child order); the child's lazy columns go
+to the device at first use on the child's own DeviceSegment, as the
+parent's do. Every child block is built with ``seg_id`` 0, so nothing here
+keys a cache by ``seg_id``.
 
 Also aggregates per-field corpus statistics across segments host-side
 (doc counts, Σ field length, per-term df on demand) — what Lucene exposes as
@@ -163,6 +169,37 @@ class DeviceImpacts:
 
 
 @dataclass
+class DeviceNestedBlock:
+    """A nested path's child rows on the device: the child segment packed
+    like any segment (its ``live`` folds the parent's live mask in, so the
+    children of a deleted parent never match), the child → parent join
+    ``parent`` [Nc] i32 (-1 pad) and its CSR view ``offsets`` [N+1] i32
+    (parent p's children are rows offsets[p] .. offsets[p+1], in child
+    order: indexing appends them in parent order, so ``parent`` is
+    non-decreasing over the real rows). ``column`` is the host block."""
+    child: "DeviceSegment"
+    parent: torch.Tensor            # [Nc] i32, -1 pad
+    offsets: torch.Tensor           # [N + 1] i32
+    column: Any                     # host NestedBlock
+
+
+def nested_offsets(parent: np.ndarray, n_parents: int) -> np.ndarray:
+    """The CSR offsets [n_parents + 1] i32 of a child → parent join whose
+    real rows (parent >= 0) come first, in non-decreasing parent order."""
+    parent = np.asarray(parent)
+    real = int((parent >= 0).sum())
+    head = parent[:real]
+    if (head < 0).any() or (np.diff(head) < 0).any():
+        raise ValueError("nested block: the child rows are not grouped by "
+                         "parent in parent order")
+    if real and int(head[-1]) >= n_parents:
+        raise ValueError(f"nested block: parent row {int(head[-1])} past "
+                         f"the segment's {n_parents} rows")
+    return np.searchsorted(head, np.arange(n_parents + 1),
+                           side="left").astype(np.int32)
+
+
+@dataclass
 class DeviceSegment:
     seg: Segment
     live: torch.Tensor              # [Np] bool (padding & deletes False)
@@ -180,6 +217,8 @@ class DeviceSegment:
     # first use (DeviceReader.fetch_geo / fetch_shape)
     geo: dict[str, DeviceGeoField] = field(default_factory=dict)
     shape: dict[str, DeviceShapeField] = field(default_factory=dict)
+    # nested path → its child rows (packed with the segment)
+    nested: dict[str, DeviceNestedBlock] = field(default_factory=dict)
 
     @property
     def padded_docs(self) -> int:
@@ -254,7 +293,26 @@ class DeviceReader:
             geo={name: DeviceGeoField(column=c)
                  for name, c in seg.geo_fields.items()},
             shape={name: DeviceShapeField(column=c)
-                   for name, c in seg.shape_fields.items()})
+                   for name, c in seg.shape_fields.items()},
+            nested={path: self.pack_nested(blk, live)
+                    for path, blk in seg.nested_blocks.items()})
+
+    def pack_nested(self, blk, live: np.ndarray) -> DeviceNestedBlock:
+        """Pack one host NestedBlock of a segment whose live mask is
+        ``live``: the child rows as a segment of their own (doc_base 0),
+        their live mask the parent's at each real row (children of deleted
+        parents never match, as Lucene deletes a parent's hidden nested docs
+        with it), ``parent`` and its CSR offsets."""
+        live = np.asarray(live, dtype=bool)
+        parent = np.asarray(blk.parent, dtype=np.int32)
+        valid = parent >= 0
+        child_live = np.zeros(blk.segment.padded_docs, bool)
+        child_live[valid] = live[parent[valid]]
+        return DeviceNestedBlock(
+            child=self._pack_segment(blk.segment, child_live, 0),
+            parent=self._put(parent),
+            offsets=self._put(nested_offsets(parent, len(live))),
+            column=blk)
 
     def fetch_tokens(self, seg: DeviceSegment, field: str) -> None:
         """Put ``field``'s position matrix of ``seg`` (and each row's
@@ -346,32 +404,38 @@ class DeviceReader:
         return col
 
     def device_bytes(self) -> int:
-        """Bytes of the tensors this reader placed on its device."""
-        total = 0
-        for s in self.segments:
-            tensors = [s.live]
-            for c in s.text.values():
-                tensors += [c.uterms, c.utf, c.doc_len]
-                if c.tokens is not None:
-                    tensors += [c.tokens, c.tok_extent]
-            tensors += [c.ords for c in s.keyword.values()]
-            for c in s.numeric.values():
-                tensors += [c.hi, c.lo, c.exists]
-            for c in s.vector.values():
-                tensors += [t for t in (c.exists, c.vecs, c.qvecs)
-                            if t is not None]
-            for c in s.mvector.values():
-                tensors += [t for t in (c.lens, c.exists, c.vecs, c.qvecs)
-                            if t is not None]
-            for c in s.impacts.values():
-                tensors += [t for t in (c.qimp, c.block_max) if t is not None]
-            for c in s.geo.values():
-                tensors += [t for t in (c.lat, c.lon, c.exists)
-                            if t is not None]
-            for c in s.shape.values():
-                tensors += [t for t in (c.lats, c.lons, c.rid, c.area, c.nv,
-                                        c.exists) if t is not None]
-            total += sum(t.numel() * t.element_size() for t in tensors)
+        """Bytes of the tensors this reader placed on its device (nested
+        child blocks included)."""
+        return sum(self._segment_bytes(s) for s in self.segments)
+
+    def _segment_bytes(self, s: DeviceSegment) -> int:
+        total = sum(self._segment_bytes(blk.child)
+                    for blk in s.nested.values())
+        tensors = [s.live]
+        for blk in s.nested.values():
+            tensors += [blk.parent, blk.offsets]
+        for c in s.text.values():
+            tensors += [c.uterms, c.utf, c.doc_len]
+            if c.tokens is not None:
+                tensors += [c.tokens, c.tok_extent]
+        tensors += [c.ords for c in s.keyword.values()]
+        for c in s.numeric.values():
+            tensors += [c.hi, c.lo, c.exists]
+        for c in s.vector.values():
+            tensors += [t for t in (c.exists, c.vecs, c.qvecs)
+                        if t is not None]
+        for c in s.mvector.values():
+            tensors += [t for t in (c.lens, c.exists, c.vecs, c.qvecs)
+                        if t is not None]
+        for c in s.impacts.values():
+            tensors += [t for t in (c.qimp, c.block_max) if t is not None]
+        for c in s.geo.values():
+            tensors += [t for t in (c.lat, c.lon, c.exists)
+                        if t is not None]
+        for c in s.shape.values():
+            tensors += [t for t in (c.lats, c.lons, c.rid, c.area, c.nv,
+                                    c.exists) if t is not None]
+        total += sum(t.numel() * t.element_size() for t in tensors)
         return total
 
     def _collect_stats(self, view: SearcherView) -> None:

@@ -38,15 +38,21 @@ each bucket's values on the host first. A top_hits takes ``highlight`` and
 ``script_fields`` and renders neither, as the JAX package's collector does.
 The geo aggregations are numpy collectors over the host's float64 geo
 columns, as in the JAX package (geohash_grid encodes each matching point's
-cell in a Python loop). Refused at parse time with :class:`NotPortedError`
-until the module each needs is ported: nested, reverse_nested and children
-(the nested and join queries).
+cell in a Python loop). The nested and reverse_nested aggregations are
+numpy collectors too, as in the JAX package: a nested agg's sub-aggregations
+run over the path's child rows of the matching parents (a ``filter`` under
+it evaluates its query over the child segments through
+``segment_exec.match_mask``), and a reverse_nested directly under it maps
+the child rows back to their parents. Refused at parse time with
+:class:`NotPortedError` until the module it needs is ported: children (the
+join queries).
 """
 
 from __future__ import annotations
 
 import math
 import threading
+import types
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -59,6 +65,7 @@ from elasticsearch_tpu_torch.common.settings import parse_time_value
 from elasticsearch_tpu_torch.index.device_reader import dd_split
 from elasticsearch_tpu_torch.mapping.mapper import parse_date
 from elasticsearch_tpu_torch.ops import aggs_ops
+from elasticsearch_tpu_torch.search import segment_exec
 from elasticsearch_tpu_torch.utils.geohash import (
     geohash_encode, precision_to_length)
 
@@ -118,9 +125,7 @@ def parse_aggs(body: dict | None) -> list[AggNode]:
 
 
 #: aggregation type → the module it waits for
-_NOT_PORTED = {
-    "nested": "the nested queries", "reverse_nested": "the nested queries",
-    "children": "the join queries"}
+_NOT_PORTED = {"children": "the join queries"}
 
 
 def _refuse_not_ported(name: str, atype: str) -> None:
@@ -401,10 +406,13 @@ def _d_range(node: AggNode, fname: str, state: DeviceAggState,
 class ShardAggContext:
     """Host views of one shard's reader for aggregation collection."""
 
-    def __init__(self, reader, execute_filter, scores=None):
+    def __init__(self, reader, execute_filter, scores=None, exec_ctx=None):
         self.reader = reader
         self.execute_filter = execute_filter  # (Query) → [N] np mask
         self.scores = scores                  # [N] query scores (top_hits)
+        # the query ExecutionContext, when the caller has one: a filter
+        # under a nested agg runs its query over the child segments with it
+        self.exec_ctx = exec_ctx
 
     def live_mask(self) -> np.ndarray:
         """Concatenated live mask over the reader (significant_terms'
@@ -793,6 +801,93 @@ def _c_sampler(node, mask, ctx):
     return out
 
 
+class _NestedCtx(ShardAggContext):
+    """The child-row view of a nested agg: its segments are the path's
+    child segments (segments without the path are skipped), each kept with
+    its host ``parent`` column and its parent segment's first row in the
+    parent context's concatenated row space."""
+
+    def __init__(self, parent_ctx: ShardAggContext, path: str):
+        self.exec_ctx = parent_ctx.exec_ctx
+        # a filter under a nested agg evaluates in CHILD-row space: the
+        # parent's execute_filter would mask the wrong rows
+        self.execute_filter = self._child_filter
+        self.scores = None
+        self._blocks: list = []      # (child DeviceSegment, parent, base)
+        base = 0
+        for s in parent_ctx.reader.segments:
+            blk = s.nested.get(path)
+            if blk is not None:
+                self._blocks.append((blk.child, np.asarray(
+                    blk.column.parent, np.int64), base))
+            base += s.padded_docs
+        self._parent_rows = base
+        self.reader = types.SimpleNamespace(
+            segments=[c for c, _, _ in self._blocks])
+
+    def _child_filter(self, query) -> np.ndarray:
+        if self.exec_ctx is None:
+            raise QueryParsingError(
+                "filter aggregations under [nested] need the query "
+                "execution context")
+        masks = [segment_exec.match_mask(seg, self.exec_ctx, query)
+                 .cpu().numpy() for seg in self.reader.segments]
+        return np.concatenate(masks) if masks else np.zeros(0, bool)
+
+    def child_mask(self, parent_mask: np.ndarray) -> np.ndarray:
+        """Parent-space mask → the concatenated child-row mask (live
+        children of matching parents)."""
+        outs = []
+        for seg, parents, base in self._blocks:
+            m = np.zeros(seg.padded_docs, bool)
+            idx = np.nonzero(parents >= 0)[0]
+            m[idx] = parent_mask[base + parents[idx]]
+            outs.append(m & seg.live.cpu().numpy())
+        return np.concatenate(outs) if outs else np.zeros(0, bool)
+
+    def parent_mask(self, child_mask: np.ndarray) -> np.ndarray:
+        """Child-row mask → parent-space mask (reverse_nested)."""
+        out = np.zeros(self._parent_rows, bool)
+        off = 0
+        for seg, parents, base in self._blocks:
+            n = seg.padded_docs
+            idx = np.nonzero(child_mask[off:off + n] & (parents[:n] >= 0))[0]
+            out[base + parents[idx]] = True
+            off += n
+        return out
+
+
+def _c_nested(node, mask, ctx):
+    """nested (ref: bucket/nested/NestedAggregator): the sub-aggregations
+    run over the path's child rows of the matching parents; a
+    reverse_nested directly under it maps those rows back to their
+    parents."""
+    nctx = _NestedCtx(ctx, node.params.get("path"))
+    cmask = nctx.child_mask(mask)
+    out = {"doc_count": int(cmask.sum())}
+    if node.subs:
+        out["subs"] = {}
+        for sub in node.subs:
+            if sub.type == "reverse_nested":
+                pmask = nctx.parent_mask(cmask) & mask
+                r = {"doc_count": int(pmask.sum())}
+                if sub.subs:
+                    r["subs"] = _collect_subs(sub, pmask, ctx)
+                out["subs"][sub.name] = r
+            else:
+                out["subs"][sub.name] = collect(sub, cmask, nctx)
+    return out
+
+
+def _c_reverse_nested(node, mask, ctx):
+    """reverse_nested anywhere but directly under a nested agg (which
+    maps it itself): the identity bucket over the rows it is given, as in
+    the JAX package."""
+    out = {"doc_count": int(mask.sum())}
+    if node.subs:
+        out["subs"] = _collect_subs(node, mask, ctx)
+    return out
+
 
 def _c_geohash_grid(node, mask, ctx):
     """geohash_grid (ref: bucket/geogrid/): one bucket a cell of the
@@ -1075,6 +1170,7 @@ _COLLECTORS = {
     "significant_terms": _c_significant_terms,
     "geohash_grid": _c_geohash_grid, "geo_distance": _c_geo_distance,
     "geo_bounds": _c_geo_bounds, "geo_centroid": _c_geo_centroid,
+    "nested": _c_nested, "reverse_nested": _c_reverse_nested,
 }
 
 # ---------------------------------------------------------------------------
@@ -1425,7 +1521,7 @@ def _reduce_node(node: AggNode, parts: list[dict], device=None) -> dict:
         buckets = [{"key": k, **_final_bucket(merged[k])} for k in order
                    if k in merged]
         return {"buckets": buckets}
-    if t == "sampler":
+    if t in ("sampler", "nested", "reverse_nested"):
         total = sum(p.get("doc_count", 0) for p in parts)
         out = {"doc_count": total}
         if node.subs:

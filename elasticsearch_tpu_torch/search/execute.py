@@ -36,8 +36,10 @@ geoshape.shape_relation``), ``exists`` on a geo_point field, and
 numeric/date/geo decay (the geo distance from K17) and script_score
 functions, and the ``script_score`` query (the script lowered by
 ``search/scripts.py`` and run by kernel K12, ``ops/script_ops.script_eval``;
-``cosineSimilarity`` / ``dotProduct`` one ``torch.matmul`` a segment). Every
-other query type (nested, parent/child) is refused with
+``cosineSimilarity`` / ``dotProduct`` one ``torch.matmul`` a segment), and
+``nested`` (the inner query over the path's child segment, reduced onto the
+parents by kernel K19, ``ops/nested.nested_reduce``). Every other query
+type (the parent/child joins) is refused with
 ``QueryParsingError("no executor for query type [...]")``, as the reference
 refuses an unknown type — never a fallback.
 """
@@ -64,6 +66,7 @@ from elasticsearch_tpu_torch.ops import filters as filter_ops
 from elasticsearch_tpu_torch.ops import functionscore as fs_ops
 from elasticsearch_tpu_torch.ops import geoshape as shape_ops
 from elasticsearch_tpu_torch.ops import lexical
+from elasticsearch_tpu_torch.ops import nested as nested_ops
 from elasticsearch_tpu_torch.ops import phrase as phrase_ops
 from elasticsearch_tpu_torch.ops import script_ops
 from elasticsearch_tpu_torch.ops import spans as span_ops
@@ -1053,6 +1056,33 @@ class SegmentResolver:
                 c.lats, c.lons, c.nv, c.exists, c.rid, c.area,
                 em.get(r_lats), em.get(r_lons), qrid_np, qarea_np, relation)
         return self._constant_mask_emit(mask_emit, query.boost)
+
+    # --------------------------------------------------------------- nested
+
+    def _res_NestedQuery(self, query: q.NestedQuery) -> Emit:
+        """The inner query resolves against the path's CHILD segment (its
+        constants join this plan's table, its signature this plan's); the
+        emit reduces the child rows onto the parent rows by ``score_mode``
+        (kernel K19, ``ops/nested.nested_reduce``). A segment without the
+        path matches nothing."""
+        path = query.path
+        block = self.seg.nested.get(path)
+        if block is None:
+            return self._zeros()
+        score_mode = query.score_mode
+        self.sig("nested", path, score_mode)
+        inner = SegmentResolver(block.child, self.ctx, self.ct).resolve(
+            query.query or q.MatchAllQuery())
+        r_boost = self.c(query.boost, np.float32)
+
+        def emit(em):
+            blk = em.seg.nested[path]
+            c_scores, c_mask = inner(EmitCtx(blk.child, em.consts,
+                                             em.batch))
+            return nested_ops.nested_reduce(
+                c_scores, c_mask, blk.child.live, blk.offsets,
+                em.get(r_boost), score_mode)
+        return emit
 
     # ------------------------------------------------------------- compound
 

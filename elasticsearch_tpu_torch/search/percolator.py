@@ -30,10 +30,12 @@ percolation runs against a scratch one-doc segment on the card.
   probe's one-doc segment carries its geo column (K17). This routes shapes
   by type; it is not a fallback from a device error, which propagates.
 
-A registration the port cannot serve (a query type with no executor yet —
-``has_child``, ``has_parent``, ``nested`` — or an unported feature) raises
-from ``sync`` with ``NotPortedError``, as the reference's registration
-raises on a parse error; it is never dropped. Not ported: the plane
+Registrations with a ``nested`` query ride the fused lanes: the probe's
+one-doc segment carries its nested objects as a child block (K19 reduces
+them onto the probe row). A registration the port cannot serve (a query
+type with no executor yet — ``has_child``, ``has_parent`` — or an unported
+feature) raises from ``sync`` with ``NotPortedError``, as the reference's
+registration raises on a parse error; it is never dropped. Not ported: the plane
 breaker and the device-error rescue of the fused lane, and the latency
 histograms.
 
@@ -365,7 +367,8 @@ class PercolatorRegistry:
         for i, qid in enumerate(ids):
             if qid in matched_qids:
                 mask[i] = True
-        ctx = ShardAggContext(searcher.reader, searcher._filter_masks_np)
+        ctx = ShardAggContext(searcher.reader, searcher._filter_masks_np,
+                              exec_ctx=searcher.ctx)
         partials = {n.name: collect(n, mask, ctx) for n in nodes
                     if n.type not in PIPELINE_AGGS}
         return reduce_aggs(nodes, [partials], device=self.device)

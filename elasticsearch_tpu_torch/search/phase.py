@@ -650,7 +650,7 @@ class ShardSearcher:
                 if np_ctx is None:
                     np_ctx = ShardAggContext(
                         self.reader, self._filter_masks_np,
-                        scores=state.np_scores())
+                        scores=state.np_scores(), exec_ctx=self.ctx)
                 partial = collect(node, state.np_mask(), np_ctx)
             out[node.name] = partial
         return out

@@ -92,11 +92,15 @@ def _plan(seg: DeviceSegment, ctx: ExecutionContext, query, post_filter,
 def _fetch_lazy(seg: DeviceSegment, reader, positions, vectors) -> None:
     """Put the position matrices and normalized vector matrices a plan
     reads (its ConstTable's ``positions_needed`` and ``vectors_needed``) on
-    the device (a no-op once the reader holds them)."""
+    the device (a no-op once the reader holds them). A nested path's fields
+    live in its child segment (their names carry the path, so they never
+    collide with the parent's): each child block takes those it holds."""
     for field in sorted(positions):
         reader.fetch_tokens(seg, field)
     for field in sorted(vectors):
         reader.fetch_vectors(seg, field, "f32")
+    for blk in seg.nested.values():
+        _fetch_lazy(blk.child, reader, positions, vectors)
 
 
 def _build(view: DeviceSegment, consts, emit_q, emit_pf, refs, k: int,

@@ -19,7 +19,9 @@ classic and LM-Dirichlet instantiations of K1's scan, K1's own BM25 results
 unchanged beside them); K16 (term-set membership) must give equal masks.
 K17 (the geo_point filters, every mode, and the decay's distances) and K18
 (geo_shape relations, each relation) must equal their plain versions bit
-for bit.
+for bit, and so must K19 (the nested query's child → parent reduce, every
+score_mode, NaN and ±0.0 among the child scores), which launches once a
+nested clause a segment.
 These tests need
 an NVIDIA GPU and nvcc (the kernels have no CPU mode) and skip elsewhere.
 On a machine with a card, run them without the JAX test bootstrap:
@@ -1981,3 +1983,120 @@ def test_geo_kernels_refuse_what_they_do_not_take(cuda):
         geoshape.shape_relation(*doc, ql.double(), qo, qr, qa, "within")
     with pytest.raises(ValueError):
         geoshape.shape_relation(*doc, ql, qo, qr, qa, "touches")
+
+
+def _nested_inputs(rng, counts, b, dev, nan=False):
+    """Child scores and mask [b, Nc] (a padding tail of 3 rows), live [Nc]
+    and the CSR offsets of ``counts`` children a parent."""
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    nc = int(offsets[-1]) + 3
+    scores = rng.uniform(-3, 5, (b, nc)).astype(np.float32)
+    scores[:, ::7] = 0.0
+    scores[:, 3::11] = -0.0
+    if nan:
+        scores[:, 5::13] = np.nan
+    mask = rng.random((b, nc)) < 0.7
+    live = rng.random(nc) < 0.9
+    live[-3:] = False
+    boost = rng.uniform(0.5, 3, b).astype(np.float32)
+    boost[0] = 1.0
+    return [torch.from_numpy(a).to(dev) for a in (scores, mask, live,
+                                                    offsets, boost)]
+
+
+@pytest.mark.parametrize("mode", ["none", "max", "min", "sum", "avg"])
+@pytest.mark.parametrize("n,b,shape", [(1, 1, "one"), (5000, 65, "ragged"),
+                                       (3001, 3, "heavy"),
+                                       (4099, 7, "dead")])
+def test_nested_reduce_bit_identical_to_plain(cuda, mode, n, b, shape):
+    from elasticsearch_tpu_torch.ops import nested
+    rng = np.random.default_rng(n + b)
+    counts = rng.choice([0, 0, 1, 1, 2, 3, 9], n)
+    if shape == "heavy":
+        counts[n // 2] = 1000              # one parent with 1,000 children
+    args = _nested_inputs(rng, counts, b, cuda, nan=shape != "one")
+    if shape == "dead":
+        args[2][:] = False                 # every child dead
+    before = nested.NESTED_REDUCE.launches
+    got = nested.nested_reduce(*args, mode)
+    want = nested.nested_reduce_plain(*args, mode)
+    torch.cuda.synchronize()
+    assert nested.NESTED_REDUCE.launches == before + 1
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    if shape == "dead":
+        assert not bool(got[1].any())
+    else:
+        assert bool(got[1].any())
+
+
+def test_nested_reduce_refuses_what_it_does_not_take(cuda):
+    from elasticsearch_tpu_torch.ops import nested
+    rng = np.random.default_rng(2)
+    s, m, live, off, boost = _nested_inputs(rng, np.ones(10, int), 2, cuda)
+    with pytest.raises(TypeError):
+        nested.nested_reduce(s.double(), m, live, off, boost, "sum")
+    with pytest.raises(TypeError):
+        nested.nested_reduce(s, m, live, off.long(), boost, "sum")
+    with pytest.raises(ValueError):
+        nested.nested_reduce(s, m[:1], live, off, boost, "sum")
+    with pytest.raises(ValueError):
+        nested.nested_reduce(s, m, live, off, boost, "total")
+    e = nested.nested_reduce(s[:0], m[:0], live, off, boost[:0], "max")
+    assert e[0].shape == (0, 10) and e[1].shape == (0, 10)
+
+
+def test_nested_query_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """A nested query through query_phase_batch on the card: one K19 launch
+    a nested clause a segment holding the path (a segment without it
+    launches none), the same ids and totals as the CPU, scores within
+    1e-6."""
+    from elasticsearch_tpu_torch.index.device_reader import device_reader_for
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.ops import nested
+    from elasticsearch_tpu_torch.search.phase import (
+        ShardSearcher, parse_search_request)
+    rng = np.random.default_rng(9)
+    words = [f"w{i}" for i in range(12)]
+    ms = MapperService()
+    ms.merge("_doc", {"properties": {
+        "body": {"type": "text", "analyzer": "whitespace"},
+        "a": {"type": "nested", "properties": {
+            "u": {"type": "keyword"},
+            "t": {"type": "text", "analyzer": "whitespace"}}}}})
+    eng = Engine(tmp_path / "e", ms)
+    for i in range(300):
+        d = {"body": " ".join(rng.choice(words, 4))}
+        if i >= 40:                  # the first segment holds no objects
+            d["a"] = [{"u": f"u{int(rng.integers(0, 5))}",
+                       "t": " ".join(rng.choice(words, 3))}
+                      for _ in range(int(rng.integers(0, 5)))]
+        eng.index(str(i), d)
+        if i in (39, 150):
+            eng.refresh()
+    eng.refresh()
+    eng.delete("160")
+    eng.refresh()
+    bodies = [{"query": {"bool": {
+        "must": [{"match": {"body": words[i]}}],
+        "should": [{"nested": {"path": "a", "score_mode": mode, "query": {
+            "match": {"a.t": f"{words[i + 1]} {words[i + 2]}"}}}}],
+        "filter": [{"nested": {"path": "a", "score_mode": "none",
+                               "query": {"term": {"a.u": "u1"}}}}]}},
+        "size": 50} for i, mode in enumerate(["max", "sum", "avg", "min"])]
+    host = ShardSearcher(0, device_reader_for(eng, device="cpu"), ms)
+    card = ShardSearcher(0, device_reader_for(eng, device=cuda), ms)
+    assert [bool(s.nested) for s in card.reader.segments] == \
+        [False, True, True]
+    for body in bodies:
+        req = parse_search_request(body)
+        want = host.query_phase_batch([req])[0]
+        before = nested.NESTED_REDUCE.launches
+        got = card.query_phase_batch([req])[0]
+        torch.cuda.synchronize()
+        # two nested clauses on each of the two segments with the path
+        assert nested.NESTED_REDUCE.launches == before + 4
+        assert got.total == want.total > 0
+        np.testing.assert_array_equal(got.doc_ids, want.doc_ids)
+        np.testing.assert_allclose(got.scores, want.scores, rtol=1e-6)

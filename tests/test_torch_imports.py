@@ -4,8 +4,9 @@ a hybrid and a rank_vectors MaxSim, on the impact lane the eager, pruned
 and rescore arms, aggregations reduced by the coordinator's merge, the
 percolator's registry, _mpercolate and serial paths, scripts: a
 script_score query and function, script_fields, the template query, the
-script aggregations and a script_score registration, and geo: a
-geo_distance and a geo_shape query) loads neither JAX nor
+script aggregations and a script_score registration, geo: a
+geo_distance and a geo_shape query, and nested: a nested query, a nested /
+reverse_nested aggregation and a nested registration) loads neither JAX nor
 the JAX package, its entry points
 never fall back to the CPU on their own, and its CUDA sources include no
 header of torch or of the JAX package's native code."""
@@ -173,6 +174,39 @@ smeta = types.SimpleNamespace(
         "script": {"source": "_score * 2"}}}}})
 script_perc = [m["_id"] for m in percolator.percolate(
     smeta, {"body": "quick brown fox"}, device="cpu")["matches"]]
+nms = MapperService()
+nms.merge("_doc", {"properties": {
+    "title": {"type": "keyword"},
+    "c": {"type": "nested", "properties": {
+        "who": {"type": "keyword"}, "text": {"type": "text"}}}}})
+neng = Engine(Path(tempfile.mkdtemp()), nms)
+for i, objs in enumerate([[{"who": "a", "text": "red"},
+                           {"who": "b", "text": "blue"}],
+                          [{"who": "a", "text": "blue"}], []]):
+    neng.index(str(i), {"title": f"t{i}", "c": objs})
+neng.refresh()
+nsearcher = ShardSearcher(0, device_reader_for(neng, device="cpu"), nms)
+nested_ids = ids_of({"query": {"nested": {"path": "c", "query": {
+    "bool": {"must": [{"term": {"c.who": "a"}},
+                      {"match": {"c.text": "blue"}}]}}}}}, nsearcher)
+na_req = parse_search_request({"query": {"match_all": {}}, "size": 0,
+    "aggs": {"n": {"nested": {"path": "c"}, "aggs": {
+        "w": {"terms": {"field": "c.who"}},
+        "r": {"reverse_nested": {}, "aggs": {
+            "t": {"terms": {"field": "title"}}}}}}}})
+na = merge_responses("idx", na_req, [nsearcher.query_phase(na_req)],
+                     [nsearcher], 0.0, na_req.aggs)["aggregations"]["n"]
+nested_aggs = [na["doc_count"],
+               [(b["key"], b["doc_count"]) for b in na["w"]["buckets"]],
+               na["r"]["doc_count"]]
+nmeta = types.SimpleNamespace(
+    name="nidx", uuid="u", settings={}, version=1,
+    mappings={"_doc": {"properties": {"c": {"type": "nested", "properties": {
+        "who": {"type": "keyword"}}}}}},
+    percolators={"n": {"query": {"nested": {"path": "c", "query": {
+        "term": {"c.who": "a"}}}}}})
+nested_perc = [m["_id"] for m in percolator.percolate(
+    nmeta, {"c": [{"who": "b"}, {"who": "a"}]}, device="cpu")["matches"]]
 try:
     DeviceReader(eng.acquire_searcher())
     refused = False
@@ -191,6 +225,7 @@ print(json.dumps({
     "agg_out": agg_out, "perc_out": perc_out,
     "script_ids": script_ids, "script_fields": script_fields,
     "script_aggs": script_aggs, "script_perc": script_perc,
+    "nested": [nested_ids, nested_aggs, nested_perc],
     "leaked": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "elasticsearch_tpu")),
@@ -225,6 +260,9 @@ def test_port_serves_without_jax_or_the_jax_package(tmp_path):
                                     {"e": [20.0], "g": [10.0]}]
     assert got["script_aggs"] == [120.0, 3, 1.386294]
     assert got["script_perc"] == ["s"]
+    # a nested query (no leak across objects), a nested / reverse_nested
+    # aggregation and a nested registration
+    assert got["nested"] == [["1"], [3, [["a", 2], ["b", 1]], 2], ["n"]]
     assert got["leaked"] == []
     assert got["no_card_refused"]
 
@@ -264,7 +302,7 @@ def test_cuda_sources_have_a_plain_c_interface():
                                          "script_eval.cu",
                                          "span_program.cu", "span_near.cu",
                                          "term_set_scan.cu", "geo_points.cu",
-                                         "geo_shape.cu"}
+                                         "geo_shape.cu", "nested_reduce.cu"}
     sources += sorted((REPO / "elasticsearch_tpu_torch" / "csrc").glob(
         "*.cuh"))
     bad = []

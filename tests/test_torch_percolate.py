@@ -269,11 +269,38 @@ def test_register_unregister_touches_exactly_one_bucket(setup):
                                      "query": {"match_all": {}}}}]}},
 ])
 def test_unported_registrations_raise(query):
+    """A has_child or has_parent registration (alone or inside a bool)
+    raises NotPortedError; a nested one is served and percolates as in the
+    JAX package, over probes with and without nested objects."""
     percs = {"ok": {"query": {"match": {"body": "pw001"}}},
              "bad": {"query": query}}
-    _, pmeta = _metas(percs, name="perc_bad")
-    with pytest.raises(NotPortedError):
-        percolator.percolate(pmeta, {"body": "pw001"}, device="cpu")
+    if "nested" not in repr(query):
+        _, pmeta = _metas(percs, name="perc_bad")
+        with pytest.raises(NotPortedError):
+            percolator.percolate(pmeta, {"body": "pw001"}, device="cpu")
+        return
+    props = dict(MAPPINGS["_doc"]["properties"], items={
+        "type": "nested", "properties": {"name": {"type": "keyword"}}})
+    jmeta, pmeta = _metas(percs, name="perc_nested",
+                          mappings={"_doc": {"properties": props}})
+    jax_perc.clear_registries()
+    percolator.clear_registries()
+    try:
+        for d in ({"body": "pw001 pw002", "items": [{"name": "x"},
+                                                    {"name": "y"}]},
+                  {"body": "pw003", "items": [{"name": "z"}]},
+                  {"body": "pw001"}):
+            _assert_same(percolator.percolate(pmeta, d, score=True,
+                                              device="cpu"),
+                         jax_perc.percolate(jmeta, d, score=True))
+        ids = [[m["_id"] for m in r["matches"]]
+               for r in percolator.percolate_many(pmeta, [
+                   {"doc": {"body": "pw001", "items": [{"name": "x"}]}},
+                   {"doc": {"body": "pw009"}}], device="cpu")]
+        assert ids == [["ok", "bad"], []]
+    finally:
+        jax_perc.clear_registries()
+        percolator.clear_registries()
 
 
 def test_stats_keys(setup):

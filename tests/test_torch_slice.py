@@ -193,10 +193,19 @@ def test_carried_segment_scores_like_jax(tmp_path):
      NotPortedError),
 ])
 def test_unported_request_is_refused(tmp_path, body, error):
-    """What the slice does not serve is refused with a typed error, never
-    served some other way."""
-    _, eng, _, ms = _engines(tmp_path, _docs(n=20), "index")
+    """What the port does not serve is refused with a typed error, never
+    served some other way. The nested query is served since the nested
+    slice: over this index, which maps no nested path, it matches nothing,
+    as in the JAX package."""
+    jeng, eng, jms, ms = _engines(tmp_path, _docs(n=20), "index")
     ps = ShardSearcher(0, device_reader_for(eng, device="cpu"), ms)
+    if "nested" in body["query"]:
+        js = JaxShardSearcher(0, jax_device_reader_for(jeng), jms)
+        want = js.query_phase(jax_parse_search_request(body))
+        got = ps.query_phase(parse_search_request(body))
+        assert got.total == want.total == 0
+        _assert_same(got, want)
+        return
     with pytest.raises(error):
         ps.query_phase(parse_search_request(body))
 
