@@ -262,6 +262,33 @@ no result line:
             percolate per probe and one percolate_many of 12 probes,
             against a float64 recompute and percolate_serial.
 
+54. plane kernels — config 5's 8 engines (phase 21's) behind the
+            collective plane on a mesh of the one card (a NCCL group of one
+            rank, 8 shards on it); K20 (the field-sort selection) against
+            its plain version bit for bit on the inputs the plane gives it
+            (B = 64 x 2^18 rows with 3 and 5 key rows, the per-doc columns
+            at stride 0, at k = 1,024 and 32,768; the local merge, 64 x 8
+            x 1,024 entries of per-(row, entry) keys) and at odd shapes
+            (M = 100,003, ±0.0, NaN, ±inf, an all-tie column, k > M, an
+            empty mask, a cursor); the row-batched K8 (ordinal, histogram)
+            and K9 against 64 one-row launches and their plain versions on
+            shard 0's [64, 2^18] agg mask; each timed beside its plain
+            version and its bound.
+55. collective plane — batches of 64 through MeshEngineSearcher.
+            search_batch, launch counters set to 0 just before and read just
+            after: (a) score order from 500, size 500, per-shard statistics,
+            bit-identical to phase 23's fan-out; (b) the same with the DFS
+            round, against float64 BM25 with global statistics; (c) sort by
+            rank desc, size 100; (d) cat asc, rank desc; (e) (c)'s next page
+            by search_after; (f) post_filter + min_score; (g) size 10 with
+            terms, stats and histogram (against numpy and phase 24's merge);
+            (h) an untimed deep field-sort page at from 20,000; (c)-(h) held
+            against a numpy recompute in float64; p50 a batch of (a), (c),
+            (g); one batch of (a) and of (c) under torch.profiler.
+56. DistributedBM25 — config 5's 8 shards' text columns on the same mesh,
+            one batch at k = 1,000 against float64 BM25 with global
+            statistics; then the plane's blocks and group are released.
+
 The last lines are one JSON object of per-kernel numbers, the nvidia-smi
 line, and ``{"ok": true, "device": {...}}``.
 """
@@ -639,7 +666,8 @@ def phase_build():
                                           K10_SOURCE, K11_SOURCE, K12_SOURCE,
                                           K13_SOURCE, K14_SOURCE,
                                           K16_SOURCE, K17_SOURCE,
-                                          K18_SOURCE, K19_SOURCE)]
+                                          K18_SOURCE, K19_SOURCE,
+                                          K20_SOURCE)]
     t0 = time.perf_counter()
     built = cuda_build.build_libraries(sources)
     BUILD_LOGS.update({src: info["log"] for src, info in built.items()})
@@ -690,7 +718,9 @@ def phase_build():
         "parameters and rings, up to 48 KiB (a longer ring is read from "
         "global memory); geo_shape the query's ring structure and a query "
         "group's coordinates, up to 48 KiB (likewise); nested_reduce none "
-        "(a thread a (query, parent))")
+        "(a thread a (query, parent)); sort_select a tile's composite keys, "
+        "(key rows + 1) words an entry, and a 2-byte index an entry (54 KiB "
+        "at 2,048 entries and 5 key rows)")
 
 
 def phrase_pairs(rng, tokens, lens, n):
@@ -1071,6 +1101,9 @@ def path_kernels():
             "blockmax_sweep": blockmax.BLOCKMAX_SWEEP,
             "agg_counts": aggs_ops.AGG_COUNTS,
             "agg_stats": aggs_ops.AGG_STATS,
+            "agg_counts_rows": aggs_ops.AGG_COUNTS_ROWS,
+            "agg_stats_rows": aggs_ops.AGG_STATS_ROWS,
+            "sort_select": topk.SORT_SELECT,
             "script_eval": script_ops.SCRIPT_EVAL,
             "span_program": spans.SPAN_PROGRAM,
             "span_near_scan": phrase.SPAN_NEAR_SCAN,
@@ -1512,6 +1545,7 @@ def profile_batch(torch, label, run, plan_ms, plan_gc, size,
                  "K17": ("geo_points_kernel",),
                  "K18": ("geo_shape_kernel",),
                  "K19": ("nested_reduce_kernel",),
+                 "K20": ("select_tile_kernel", "select_merge_kernel"),
                  "cuBLAS": ("gemm", "xmma", "cutlass")}
     parts = {}
     for kname, keys in by_kernel.items():
@@ -2786,7 +2820,7 @@ def phase_config5_setup(torch, args, data) -> dict:
         f"{torch.cuda.memory_allocated()} B allocated on the card; float64 "
         f"per-shard scoring of {C5_CHECK} requests in "
         f"{time.perf_counter() - t0:.1f} s")
-    return {"shards": shards, "per_shard": per_shard, "cat": cat,
+    return {"shards": shards, "per_shard": per_shard, "cat": cat, "ms": ms,
             "pool": ThreadPoolExecutor(C5_SHARDS),
             # per checked request, per shard: (float64 scores, matched)
             "cpu": [[(c[qi], c[qi] > 0) for c in cpu]
@@ -3161,8 +3195,10 @@ def phase_config5(torch, args, data, c5, name, smi_line) -> dict:
                              C5_SIZE, C5_FROM + C5_SIZE)
                for qi in range(C5_CHECK)]
     n = len(reqs)
+    # the first batch's pages: phase 55 holds the collective plane to them
     stats = {"qps": n / wall, "p50_ms": statistics.median(per_batch),
-             "merge_ms_per_request": sum(merge_ms) / n, "launches": launches}
+             "merge_ms_per_request": sum(merge_ms) / n, "launches": launches,
+             "responses": results[0]}
     log(f"config 5 (8 shards, from {C5_FROM}, size {C5_SIZE}): launches "
         f"{launches}; {stats['qps']:.2f} queries/s, p50 "
         f"{stats['p50_ms']:.3f} ms per batch of {args.batch} (batches: "
@@ -3315,7 +3351,8 @@ def phase_config5_aggs(torch, args, data, c5, name, smi_line) -> dict:
         check_c5_page("config 5 + aggs", c5, results[0][qi], qi, 0, 10, 10)
     stats = {"qps": n / wall, "p50_ms": statistics.median(per_batch),
              "syncs_per_request": syncs.count / len(batches[0]),
-             "merge_ms_per_request": sum(merge_ms) / n, "launches": launches}
+             "merge_ms_per_request": sum(merge_ms) / n, "launches": launches,
+             "responses": results[0]}
     log(f"config 5 + aggs (8 shards, size 10, {len(C5_AGGS)} aggs): launches "
         f"{launches}; {stats['qps']:.2f} queries/s, p50 "
         f"{stats['p50_ms']:.3f} ms per batch of {args.batch} (batches: "
@@ -7443,6 +7480,700 @@ def phase_nested_percolate(torch, args, data, name, smi_line) -> dict:
             "serial_ms": serial_ms}
 
 
+# --------------------------------------------------------------------------
+# the collective plane (phases 54-56)
+# --------------------------------------------------------------------------
+
+K20_SOURCE = "elasticsearch_tpu_torch/csrc/sort_select.cu"
+K20_REPLACES = "elasticsearch_tpu/parallel/mesh_engine.py:823"
+K8_ROWS_REPLACES = "elasticsearch_tpu/parallel/mesh_engine.py:1569"
+K9_ROWS_REPLACES = "elasticsearch_tpu/parallel/mesh_engine.py:1523"
+# timed batches of the plane's score-order (a), field-sort (c) and aggs (g)
+# requests; the requests of each shape held against float64 (the first of
+# config 5's checked requests)
+PLANE_BATCHES, PLANE_CHECK = 4, 4
+PLANE_AGGS = {"by_cat": {"terms": {"field": "cat", "size": 8}},
+              "st": {"stats": {"field": "rank"}},
+              "hi": {"histogram": {"field": "rank", "interval": 5}}}
+PLANE_SORT_C = [{"rank": "desc"}]
+PLANE_SORT_D = [{"cat": "asc"}, {"rank": "desc"}]
+PLANE_SIZE = 100
+
+
+def plane_bodies(data, lo, n, **body):
+    return [{"query": {"match": {"body": t}}, **body}
+            for t in data["texts"][lo:lo + n]]
+
+
+def phase_plane_setup(torch, c5) -> dict:
+    """The collective plane over config 5's 8 engines (phase 21's) on a
+    mesh of the one card: a NCCL group of one rank, spd = 8."""
+    from elasticsearch_tpu_torch.parallel import make_mesh
+    from elasticsearch_tpu_torch.parallel import mesh_engine as me
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    plane = me.MeshEngineSearcher(mesh, [sh["engine"] for sh in c5["shards"]],
+                                  c5["ms"])
+    torch.cuda.synchronize()
+    log(f"collective plane: make_mesh() {mesh.shape}, {mesh.backend} group "
+        f"of {mesh.group.size()} rank, spd {plane.spd}, {plane.n_slots} "
+        f"slot of {plane.shard_stride} rows a shard; blocks uploaded "
+        f"{plane.data_layer['bytes_uploaded']} B ({plane.device_bytes()} B "
+        f"on the card beside the fan-out's readers) in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated()} B allocated on the card")
+    return {"mesh": mesh, "plane": plane}
+
+
+def record_sort_select(run) -> list:
+    """Run ``run`` with K20's wrapper recording a copy of every call's
+    inputs → [(keys, k, mask, cursor, neg, rows)]."""
+    from elasticsearch_tpu_torch.ops import topk
+    calls = []
+    orig = topk.sort_select
+
+    def recorded(keys, k, mask=None, cursor=None, neg=(), rows=None):
+        calls.append(([x.clone() for x in keys], k,
+                      None if mask is None else mask.clone(),
+                      None if cursor is None else cursor.clone(),
+                      tuple(neg), rows))
+        return orig(keys, k, mask=mask, cursor=cursor, neg=neg, rows=rows)
+    topk.sort_select = recorded
+    try:
+        run()
+    finally:
+        topk.sort_select = orig
+    return calls
+
+
+def k20_bytes(keys, mask, cursor, rows, kk) -> int:
+    """Bytes K20 must move: the mask and every key row read once (a column
+    once for every row), the cursor, kk positions a row written."""
+    return (0 if mask is None else nbytes(mask)) + sum(
+        nbytes(x) for x in keys) + (0 if cursor is None else
+                                     nbytes(cursor)) + rows * kk * 4
+
+
+def check_k20(torch, topk, keys, k, mask, cursor, neg, rows, what) -> None:
+    got = topk.sort_select(keys, k, mask=mask, cursor=cursor, neg=neg,
+                           rows=rows)
+    want = topk.sort_select_plain(keys, k, mask=mask, cursor=cursor, neg=neg,
+                                  rows=rows)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"K20 positions differ from the plain "
+          f"version ({what})")
+
+
+def time_k20(torch, topk, label, keys, k, mask, cursor, neg, rows) -> dict:
+    b = rows if rows is not None else mask.shape[0]
+    m = mask.shape[1]
+    out = {"shape": {"B": b, "M": m, "key_rows": 1 + len(keys), "k": k},
+           "ms": timed(torch, f"K20 {label}", lambda: topk.sort_select(
+               keys, k, mask=mask, cursor=cursor, neg=neg, rows=rows),
+               reps=10),
+           "plain_ms": timed(torch, f"K20 {label} plain",
+                             lambda: topk.sort_select_plain(
+                                 keys, k, mask=mask, cursor=cursor, neg=neg,
+                                 rows=rows), reps=3),
+           "library_ms": None}
+    out["bound_ms"], out["bound_by"] = bound(
+        k20_bytes(keys, mask, cursor, b, min(k, m)), 0)
+    return out
+
+
+def k20_odd(torch, topk, dev, seed) -> None:
+    """K20 against its plain version at odd shapes: M = 100,003, columns
+    holding ±0.0, NaN and ±inf, an all-tie column, per-(row, entry) keys,
+    k above M, an empty mask row and a cursor."""
+    rng = np.random.default_rng(seed)
+    b, m = 16, 100_003
+    special = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 2.5], np.float32)
+
+    def col(shape):
+        v = rng.integers(0, 50, shape).astype(np.float32)
+        pick = rng.random(shape) < 0.25
+        return torch.from_numpy(np.where(
+            pick, rng.choice(special, shape), v).astype(np.float32)).to(dev)
+    keys = [col((m,)), torch.full((m,), 7.0, device=dev), col((b, m)),
+            col((b, m))]
+    mask = torch.from_numpy(rng.random((b, m)) < 0.6).to(dev)
+    mask[3] = False
+    cursor = torch.stack([torch.stack([
+        (-x[bi, 777] if i == 2 else (x[bi, 777] if x.dim() == 2
+                                     else x[777]))
+        for i, x in enumerate(keys)]) for bi in range(b)]).contiguous()
+    for k in (1, 1024, 70_000, 200_000):
+        check_k20(torch, topk, keys, k, mask, None, (2,), None,
+                  f"M = {m}, k = {k}")
+        check_k20(torch, topk, keys, k, mask, cursor, (2,), None,
+                  f"M = {m}, k = {k}, a cursor")
+    check_k20(torch, topk, keys[:2], 50, torch.zeros_like(mask), None, (),
+              None, "an empty mask")
+    check_k20(torch, topk, [keys[1]], 64, None, None, (), 5,
+              "an all-tie column, no mask")
+
+
+def agg_rows_inputs(torch, plane, bodies) -> dict:
+    """Shard 0's columns and the batch's [B, N] agg mask, as the plane's
+    terms, histogram and metric lanes get them."""
+    from elasticsearch_tpu_torch.parallel import mesh_engine as me
+    from elasticsearch_tpu_torch.search.phase import parse_search_request
+    from elasticsearch_tpu_torch.search.segment_exec import _build
+    reqs = [parse_search_request(b) for b in bodies]
+    plans = plane._plan_slots(reqs, dict(me._FLAGS), False, None)
+    tpl, consts, emit_q, emit_pf, refs = plans[(0, 0)]
+    outs = _build(tpl, consts, emit_q, emit_pf, refs, 16, len(reqs),
+                  want_arrays=True)
+    lo_v, _ = plane._field_extrema["rank"]
+    first = np.floor(lo_v / 5.0)
+    bhi, blo = dd_split_f64(first * 5.0)
+    hi_v = plane._field_extrema["rank"][1]
+    nb = int(np.floor(hi_v / 5.0) - first + 1)
+    col = tpl.numeric["rank"]
+    return {"ords": tpl.keyword["cat"].ords, "mask": outs["agg_mask"],
+            "hi": col.hi, "lo": col.lo, "exists": col.exists,
+            "hist": (bhi, blo, 5.0, nb),
+            "vocab": plane._layouts[0].kw_vocab["cat"]}
+
+
+def dd_split_f64(v):
+    from elasticsearch_tpu_torch.index.device_reader import dd_split
+    hi, lo = dd_split(np.float64(v))
+    return float(hi), float(lo)
+
+
+def phase_plane_kernels(torch, args, data, c5, pl) -> list[dict]:
+    """K20 against its plain version at the plane's shapes (the inputs the
+    plane gives it on a batch of (c) and (d) at size 1,000: B = 64 x M =
+    2^18 with 3 and 5 key rows, per-doc columns; the local merge B = 64 x
+    8 x 1,024 of per-(row, entry) keys) at k = 1,024 and 32,768, and at odd
+    shapes; the row-batched K8 (ordinal, histogram) and K9 against 64
+    one-row launches and their plain versions on shard 0's agg mask of a
+    batch of (g). Each timed beside its plain version and its bound."""
+    from elasticsearch_tpu_torch.ops import aggs_ops, topk
+    plane = pl["plane"]
+    dev = plane.device
+    b = args.batch
+    out = {}
+    for label, sort in (("3 key rows", PLANE_SORT_C),
+                        ("5 key rows", PLANE_SORT_D)):
+        calls = record_sort_select(lambda sort=sort: plane.search_batch(
+            plane_bodies(data, 0, b, size=1000, sort=sort),
+            global_stats=False))
+        # one call a shard, the local merge of the 8 shards' 1,024
+        # candidates, the merge of the group's gather
+        shard_calls, merges = calls[:C5_SHARDS], calls[C5_SHARDS:-1]
+        check(len(calls) == C5_SHARDS + 2 and all(
+            c[2].shape[1] == plane.shard_stride for c in shard_calls) and
+            merges[0][2].shape[1] == C5_SHARDS * 1024,
+            f"K20 calls on the plane's path: "
+            f"{[tuple(c[2].shape) for c in calls if c[2] is not None]}")
+        keys, _, mask, cursor, neg, rows = shard_calls[0]
+        check(all(x.dim() == 1 for x in keys),
+              "K20's field keys on the path are not per-doc columns")
+        for k in (1024, 32_768):
+            check_k20(torch, topk, keys, k, mask, cursor, neg, rows,
+                      f"shard 0, {label}, k = {k}")
+            out[(label, k)] = time_k20(torch, topk, f"[{b}, "
+                                       f"{mask.shape[1]}] {label} k = {k}",
+                                       keys, k, mask, cursor, neg, rows)
+        mkeys, mk, mmask, mcur, mneg, mrows = merges[0]
+        check_k20(torch, topk, mkeys, mk, mmask, mcur, mneg, mrows,
+                  f"the local merge, {label}")
+        out[("merge", label)] = time_k20(
+            torch, topk, f"merge [{b}, {mmask.shape[1]}] {label}", mkeys, mk,
+            mmask, mcur, mneg, mrows)
+    k20_odd(torch, topk, dev, args.seed + 20)
+    main = out[("5 key rows", 1024)]
+    null_why = ("no single torch call selects by several keys with ties by "
+                "position (torch.sort and torch.topk take one key)")
+    k20 = {"name": "sort_select", "route": "cuda", "source": K20_SOURCE,
+           "replaces": K20_REPLACES, "launches": 0, "max_abs_err": 0.0,
+           **main, "library_null": null_why,
+           "shapes": {f"{a} k={k_}" if isinstance(k_, int) else f"{a} {k_}":
+                      v for (a, k_), v in out.items()}}
+    for (a, k_), v in out.items():
+        log(f"K20 sort_select {v['shape']}: bit-identical to plain; "
+            f"kernel_ms={v['ms']:.4f} plain_ms={v['plain_ms']:.4f} bound_ms="
+            f"{v['bound_ms']:.6f} ({v['bound_by']}) library_ms=null ("
+            f"{null_why})")
+    # ---- the row-batched K8 and K9 ------------------------------------------
+    inp = agg_rows_inputs(torch, plane, plane_bodies(data, 0, b, size=10,
+                                                     aggs=PLANE_AGGS))
+    ords, mask, hi, lo, exists = (inp[x] for x in ("ords", "mask", "hi",
+                                                   "lo", "exists"))
+    vocab, h_args = inp["vocab"], inp["hist"]
+    rows, n = mask.shape
+    got = aggs_ops.ord_counts_rows(ords, mask, vocab)
+    got_h = aggs_ops.dd_histogram_counts_rows(hi, lo, exists, mask, *h_args)
+    got_s = aggs_ops.dd_stats_rows(hi, lo, exists, mask)
+    per_row = [(aggs_ops.ord_counts(ords, mask[r], vocab),
+                aggs_ops.dd_histogram_counts(hi, lo, exists, mask[r],
+                                             *h_args),
+                aggs_ops.dd_stats(hi, lo, exists, mask[r]))
+               for r in range(rows)]
+    want_s = aggs_ops.dd_stats_rows_plain(hi, lo, exists, mask)
+    one_row_plain = [aggs_ops.dd_stats_plain(hi, lo, exists, mask[r])
+                     for r in range(rows)]
+    torch.cuda.synchronize()
+    for r, (o, h, s_) in enumerate(per_row):
+        check(torch.equal(got[r], o) and torch.equal(got_h[r], h) and
+              torch.equal(got_s[r], s_), f"row-batched K8 / K9 row {r} "
+              f"differs from its one-row launch")
+    check(torch.equal(got, aggs_ops.ord_counts_rows_plain(ords, mask,
+                                                          vocab)),
+          "row-batched K8 ordinal differs from its plain version")
+    check(torch.equal(got_h, aggs_ops.histogram_counts_dd_rows_plain(
+        hi, lo, exists, mask, *h_args)),
+        "row-batched K8 histogram differs from its plain version")
+    check(torch.equal(got_s, want_s), "row-batched K9 differs from its "
+          "plain version (its sums added in the kernel's order)")
+    # beside K9's one-row plain version (torch's own sum order): count and
+    # extrema equal, the f32 sums within 1e-6 of their magnitudes
+    one_row = torch.stack(one_row_plain)
+    m64 = (mask & exists[None, :]).double()
+    mags = torch.stack([m64 @ hi.double().abs(), m64 @ lo.double().abs(),
+                        m64 @ (hi.double() ** 2)], dim=1)
+    k9_err = float((got_s[:, 5:] - one_row[:, 5:]).abs().max())
+    check(torch.equal(got_s[:, :5], one_row[:, :5]) and bool(
+        ((got_s[:, 5:] - one_row[:, 5:]).abs() <= 1e-6 * mags).all()),
+        "row-batched K9 beyond 1e-6 of the one-row plain version's sums")
+    n_mask = int(mask.sum())
+    flat = (torch.arange(rows, device=dev)[:, None] * vocab +
+            ords[:, 0][None, :].long())[mask & (ords[:, 0] >= 0)[None, :]]
+
+    def loop(fn):
+        return lambda: [fn(r) for r in range(rows)]
+    k8r = {
+        "ms": timed(torch, "K8 rows ordinal", lambda: aggs_ops.ord_counts_rows(
+            ords, mask, vocab), reps=20),
+        "per_row_ms": timed(torch, f"K8 ordinal, {rows} one-row launches", loop(
+            lambda r: aggs_ops.ord_counts(ords, mask[r], vocab)), reps=5),
+        "plain_ms": timed(torch, "K8 rows ordinal plain",
+                          lambda: aggs_ops.ord_counts_rows_plain(
+                              ords, mask, vocab), reps=5),
+        "library_ms": timed(torch, "K8 rows ordinal torch.bincount (flat "
+                            "ords masked beforehand)", lambda: torch.bincount(
+                                flat, minlength=rows * vocab), reps=20)}
+    k8r["bound_ms"], k8r["bound_by"] = bound(
+        nbytes(mask) + nbytes(ords) + rows * vocab * 4, n_mask)
+    hist = {
+        "ms": timed(torch, "K8 rows histogram",
+                    lambda: aggs_ops.dd_histogram_counts_rows(
+                        hi, lo, exists, mask, *h_args), reps=20),
+        "per_row_ms": timed(torch, f"K8 histogram, {rows} one-row launches",
+                            loop(
+            lambda r: aggs_ops.dd_histogram_counts(hi, lo, exists, mask[r],
+                                                   *h_args)), reps=5),
+        "plain_ms": timed(torch, "K8 rows histogram plain",
+                          lambda: aggs_ops.histogram_counts_dd_rows_plain(
+                              hi, lo, exists, mask, *h_args), reps=5),
+        "library_ms": None, "library_null": "no single torch call: "
+        "torch.histc buckets f32 values, not the double-double index"}
+    hist["bound_ms"], hist["bound_by"] = bound(
+        nbytes(mask) + nbytes(hi) + nbytes(lo) + nbytes(exists) +
+        rows * h_args[3] * 4, 4 * n_mask)
+    k9r = {
+        "ms": timed(torch, "K9 rows", lambda: aggs_ops.dd_stats_rows(
+            hi, lo, exists, mask), reps=20),
+        "per_row_ms": timed(torch, f"K9, {rows} one-row launches", loop(
+            lambda r: aggs_ops.dd_stats(hi, lo, exists, mask[r])), reps=5),
+        "plain_ms": timed(torch, "K9 rows plain",
+                          lambda: aggs_ops.dd_stats_rows_plain(
+                              hi, lo, exists, mask), reps=3)}
+    k9r["bound_ms"], k9r["bound_by"] = bound(
+        nbytes(mask) + nbytes(hi) + nbytes(lo) + nbytes(exists) + rows * 64,
+        6 * n_mask)
+    log(f"row-batched K8 agg_counts [{rows}, {n}] ({n_mask} mask bits): each "
+        f"row equal to its one-row launch and to plain; ordinal over "
+        f"{vocab} cat ords: kernel_ms={k8r['ms']:.4f} ({rows} one-row launches "
+        f"{k8r['per_row_ms']:.4f}) plain_ms={k8r['plain_ms']:.4f} "
+        f"library_ms={k8r['library_ms']:.4f} (torch.bincount on flat ords "
+        f"masked beforehand) bound_ms={k8r['bound_ms']:.6f}; histogram "
+        f"rank / 5, {h_args[3]} buckets: kernel_ms={hist['ms']:.4f} ({rows} "
+        f"one-row launches {hist['per_row_ms']:.4f}) plain_ms="
+        f"{hist['plain_ms']:.4f} bound_ms={hist['bound_ms']:.6f}")
+    log(f"row-batched K9 agg_stats [{rows}, {n}]: each row the bits of its "
+        f"one-row launch and of its plain version (sums added in the "
+        f"kernel's order); the one-row plain version's sums (torch's order) "
+        f"within {k9_err:.3e} (1e-6 of their magnitudes); kernel_ms="
+        f"{k9r['ms']:.4f} ({rows} one-row launches {k9r['per_row_ms']:.4f}) "
+        f"plain_ms={k9r['plain_ms']:.4f} bound_ms={k9r['bound_ms']:.6f} "
+        f"library_ms=null")
+    k8_rows = {"name": "agg_counts_rows", "route": "cuda",
+               "source": K8_SOURCE, "replaces": K8_ROWS_REPLACES,
+               "launches": 0, "max_abs_err": 0.0, **k8r,
+               "shape": {"B": rows, "N": n, "ords": vocab},
+               "modes": {"ordinal": k8r, "histogram": hist}}
+    k9_rows = {"name": "agg_stats_rows", "route": "cuda",
+               "source": K9_SOURCE, "replaces": K9_ROWS_REPLACES,
+               "launches": 0, "max_abs_err": 0.0, **k9r,
+               "library_ms": None, "library_null": "no single torch call "
+               "gives the count, the double-double extrema and the sums",
+               "shape": {"B": rows, "N": n}}
+    return [k20, k8_rows, k9_rows]
+
+
+def plane_rows(c5, qi):
+    """Request ``qi``'s matched corpus rows (float64 scoring's matches),
+    shard-major, and their per-shard float64 scores."""
+    rows, s64 = [], []
+    for sh, (s, m) in zip(c5["shards"], c5["cpu"][qi]):
+        idx = np.nonzero(m)[0]
+        rows.append(sh["lo"] + idx)
+        s64.append(s[idx])
+    return np.concatenate(rows), np.concatenate(s64)
+
+
+def rank_dd(c5, rows):
+    return c5["rank_hi"][rows].astype(np.float64) + c5["rank_lo"][rows]
+
+
+def check_plane_sorted(label, c5, plane, res, qi, order_key, frm, size,
+                       values) -> None:
+    """A field-sorted page against numpy: the matched rows ordered by
+    ``order_key(rows)`` (a lexsort key list, most significant last), ties by
+    corpus row — (shard, position) — then [frm, frm + size); ids and sort
+    values exact, the total the match count."""
+    rows, _ = plane_rows(c5, qi)
+    check(res["total"] == len(rows), f"{label} request {qi}: total "
+          f"{res['total']} != float64 matches {len(rows)}")
+    page = rows[np.lexsort([rows] + order_key(rows))][frm:frm + size]
+    got = [int(plane.doc_id(int(d))) for d in res["doc_ids"][frm:frm + size]]
+    check(got == page.tolist(), f"{label} request {qi}: ids differ from the "
+          f"numpy order")
+    want_v = [values(r) for r in page]
+    check(res["sort_values"][frm:frm + size] == want_v,
+          f"{label} request {qi}: sort values differ from numpy")
+
+
+def check_plane_scored(label, c5, plane, res, qi, frm, size, s64_rows=None,
+                       keep=None, tol=1e-5) -> float:
+    """A score-ordered page against float64: the matched rows (those
+    ``keep`` admits) ranked by (score desc, corpus row); the total exact
+    (``keep`` may return a (lo, hi) band for boundary rows), every hit's
+    score within ``tol``, tie-tolerant recall 1.0 → recall."""
+    rows, s64 = plane_rows(c5, qi) if s64_rows is None else s64_rows
+    total_lo = total_hi = len(rows)
+    if keep is not None:
+        sure, maybe = keep(rows, s64)
+        total_lo, total_hi = int(sure.sum()), int((sure | maybe).sum())
+        rows, s64 = rows[sure | maybe], s64[sure | maybe]
+    check(total_lo <= res["total"] <= total_hi, f"{label} request {qi}: "
+          f"total {res['total']} outside [{total_lo}, {total_hi}]")
+    order = np.lexsort((rows, -s64))
+    want = s64[order][frm:frm + size]
+    page_rows = set(rows[order][frm:frm + size].tolist())
+    got_rows = [int(plane.doc_id(int(d))) for d in res["doc_ids"][frm:frm +
+                                                                 size]]
+    got_s = np.asarray(res["scores"][frm:frm + size], np.float64)
+    check(len(got_rows) == len(want), f"{label} request {qi}: "
+          f"{len(got_rows)} hits, float64 {len(want)}")
+    if not got_rows:
+        return 1.0
+    score_of = dict(zip(rows.tolist(), s64.tolist()))
+    check(all(abs(score_of[r] - s) <= tol + tol * abs(s)
+              for r, s in zip(got_rows, got_s)),
+          f"{label} request {qi}: a hit's score is not its float64 score")
+    check(np.allclose(got_s, want, rtol=tol, atol=tol),
+          f"{label} request {qi}: page scores disagree with float64")
+    ok = sum(r in page_rows or abs(score_of[r] - want.min()) <= tol or
+             abs(score_of[r] - want.max()) <= tol for r in got_rows)
+    recall = ok / len(got_rows)
+    check(recall == 1.0, f"{label} request {qi}: tie-tolerant recall "
+          f"{recall}")
+    return recall
+
+
+def check_plane_aggs(label, c5, res, qi, fanout) -> None:
+    """(g)'s aggregations against numpy over the matched rows (terms and
+    histogram buckets, count, min, max exact; sum and avg within 1e-5) and
+    against phase 24's merged aggregations of the same request where they
+    overlap (terms, histogram: equal; stats' count, min and max equal, sum
+    and avg within 1e-6)."""
+    from elasticsearch_tpu_torch.index.device_reader import dd_split
+    rows, _ = plane_rows(c5, qi)
+    aggs = res["aggregations"]
+    hi, lo = c5["rank_hi"][rows], c5["rank_lo"][rows]
+    v = hi.astype(np.float64) + lo
+    true = c5["rank"][rows]
+    cats = np.bincount(c5["cat"][rows], minlength=len(C5_CATS))
+    order = sorted(range(len(C5_CATS)), key=lambda i: (-cats[i], C5_CATS[i]))
+    want_terms = [(C5_CATS[i], int(cats[i])) for i in order if cats[i]][:8]
+    check([(x["key"], x["doc_count"]) for x in aggs["by_cat"]["buckets"]]
+          == want_terms, f"{label} request {qi}: terms buckets differ")
+    st = aggs["st"]
+    check((st["count"], st["min"], st["max"]) == (len(rows), v.min(),
+                                                  v.max()),
+          f"{label} request {qi}: count / min / max differ from numpy")
+    for key, want in (("sum", true.sum()), ("avg", true.mean())):
+        check(abs(st[key] - want) <= 1e-5 * abs(want),
+              f"{label} request {qi}: {key} {st[key]} vs float64 {want}")
+    first = np.floor(v.min() / 5.0)
+    bhi, blo = dd_split(np.float64(first * 5.0))
+    rel = (hi - np.float32(bhi)) + (lo - np.float32(blo))
+    counts = np.bincount(np.floor(rel / np.float32(5.0)).astype(np.int64))
+    want_h = [(float(first * 5.0 + 5.0 * i), int(c))
+              for i, c in enumerate(counts) if c]
+    check([(x["key"], x["doc_count"]) for x in aggs["hi"]["buckets"]] ==
+          want_h, f"{label} request {qi}: histogram buckets differ")
+    fa = fanout["aggregations"]
+    check(aggs["by_cat"] == fa["by_cat"] and aggs["hi"] == fa["hi"],
+          f"{label} request {qi}: terms / histogram differ from phase 24's")
+    check(all(st[x] == fa["st"][x] for x in ("count", "min", "max")) and
+          all(abs(st[x] - fa["st"][x]) <= 1e-6 * abs(fa["st"][x])
+              for x in ("sum", "avg")),
+          f"{label} request {qi}: stats differ from phase 24's")
+
+
+def phase_plane(torch, args, data, c5, pl, stats5, stats5a, name,
+                smi_line) -> dict:
+    """BASELINE config 5 through the collective plane: (a) score order from
+    500, size 500, per-shard statistics; (b) the same with the DFS round;
+    (c) sort by rank desc, size 100; (d) cat asc, rank desc; (e) (c)'s next
+    page by search_after; (f) post_filter + min_score; (g) size 10 with
+    terms, stats and histogram; (h) an untimed deep field-sort page at from
+    20,000. Launch counters set to 0 just before the batches, read just
+    after; (a) bit-identical to phase 23's fan-out, (b)-(h) against float64
+    / numpy, (g) also against phase 24's merged aggregations; p50 a batch
+    for (a), (c), (g)."""
+    plane = pl["plane"]
+    b = args.batch
+    a_batches = [plane_bodies(data, i * b, b, **{"from": C5_FROM,
+                                                 "size": C5_SIZE})
+                 for i in range(PLANE_BATCHES)]
+    c_batches = [plane_bodies(data, i * b, b, size=PLANE_SIZE,
+                              sort=PLANE_SORT_C)
+                 for i in range(PLANE_BATCHES)]
+    g_batches = [plane_bodies(data, i * b, b, size=10, aggs=PLANE_AGGS)
+                 for i in range(PLANE_BATCHES)]
+    r0, s0 = plane_rows(c5, 0)
+    min_score = float(np.quantile(s0, 0.9))
+    f_batch = plane_bodies(data, 0, b, size=PLANE_SIZE, min_score=min_score,
+                           post_filter={"range": {"rank": {"lt": 50}}})
+    counters = path_kernels()
+    torch.cuda.synchronize()
+    GC.take()
+    for kern in counters.values():
+        kern.launches = 0
+    ms_of: dict = {}
+
+    def run(label, batches, gs=False):
+        out = []
+        for bodies in batches:
+            t0 = time.perf_counter()
+            out.append(plane.search_batch(bodies, global_stats=gs))
+            ms_of.setdefault(label, []).append(
+                (time.perf_counter() - t0) * 1e3)
+        return out
+    t_all = time.perf_counter()
+    res_a = run("a", a_batches)
+    res_b = run("b", a_batches[:1], gs=True)
+    res_c = run("c", c_batches)
+    res_d = run("d", [plane_bodies(data, 0, b, size=PLANE_SIZE,
+                                   sort=PLANE_SORT_D)])
+    check(all(len(r["doc_ids"]) for r in res_c[0]),
+          "(c): a request without hits has no cursor for (e)")
+    e_batch = [dict(body, search_after=r["sort_values"][-1])
+               for body, r in zip(c_batches[0], res_c[0])]
+    res_e = run("e", [e_batch])
+    res_f = run("f", [f_batch])
+    res_g = run("g", g_batches)
+    wall = time.perf_counter() - t_all
+    torch.cuda.synchronize()
+    launches = {kn: kern.launches for kn, kern in counters.items()}
+    for kn in ("bm25_scan", "stable_topk", "sort_select", "agg_counts_rows",
+               "agg_stats_rows"):
+        check(launches[kn] > 0, f"collective plane: kernel {kn} was not "
+              f"launched on its path")
+    # (a) against phase 23's fan-out: totals, scores and _id order equal
+    for qi, (res, resp) in enumerate(zip(res_a[0], stats5["responses"])):
+        hits = resp["hits"]["hits"]
+        ids = [plane.doc_id(int(d)) for d in res["doc_ids"][C5_FROM:]]
+        check(res["total"] == resp["hits"]["total"] and
+              ids == [h["_id"] for h in hits] and
+              [float(s) for s in res["scores"][C5_FROM:]] ==
+              [h["_score"] for h in hits],
+              f"(a) request {qi}: not bit-identical to phase 23's fan-out")
+    recalls = []
+    for qi in range(PLANE_CHECK):
+        recalls.append(check_plane_scored("(a)", c5, plane, res_a[0][qi], qi,
+                                          C5_FROM, C5_SIZE))
+    # (b): DFS statistics against float64 BM25 with global statistics
+    glob = cpu_scores(data["uterms"], data["utf"], data["lens"], data["df"],
+                      data["qtids"][:PLANE_CHECK])
+    for qi in range(PLANE_CHECK):
+        rows = np.nonzero(glob[qi] > 0)[0]
+        recalls.append(check_plane_scored(
+            "(b)", c5, plane, res_b[0][qi], qi, C5_FROM, C5_SIZE,
+            s64_rows=(rows, glob[qi][rows])))
+    for qi in range(PLANE_CHECK):
+        check_plane_sorted("(c)", c5, plane, res_c[0][qi], qi,
+                           lambda rows: [-rank_dd(c5, rows)], 0, PLANE_SIZE,
+                           lambda r: [phase_sort_value(rank_dd(c5, r))])
+        check_plane_sorted("(d)", c5, plane, res_d[0][qi], qi,
+                           lambda rows: [-rank_dd(c5, rows),
+                                         c5["cat"][rows]], 0, PLANE_SIZE,
+                           lambda r: [C5_CATS[c5["cat"][r]],
+                                      phase_sort_value(rank_dd(c5, r))])
+        # (e) continues (c): the next PLANE_SIZE of the same order
+        check_plane_sorted("(e)", c5, plane, {**res_e[0][qi], "doc_ids": [
+            -1] * PLANE_SIZE + list(res_e[0][qi]["doc_ids"]),
+            "sort_values": [None] * PLANE_SIZE +
+            res_e[0][qi]["sort_values"]}, qi,
+            lambda rows: [-rank_dd(c5, rows)], PLANE_SIZE, PLANE_SIZE,
+            lambda r: [phase_sort_value(rank_dd(c5, r))])
+
+        def keep(rows, s64, tol=1e-5):
+            low = c5["rank_hi"][rows] < 50.0
+            return (low & (s64 >= min_score + tol),
+                    low & (np.abs(s64 - min_score) < tol))
+        recalls.append(check_plane_scored("(f)", c5, plane, res_f[0][qi],
+                                          qi, 0, PLANE_SIZE, keep=keep))
+        check_plane_aggs("(g)", c5, res_g[0][qi], qi,
+                         stats5a["responses"][qi])
+        check_plane_scored("(g)", c5, plane, res_g[0][qi], qi, 0, 10)
+        fan = stats5a["responses"][qi]["hits"]["hits"]
+        check([plane.doc_id(int(d)) for d in res_g[0][qi]["doc_ids"]] ==
+              [h["_id"] for h in fan], f"(g) request {qi}: hits differ from "
+              f"phase 24's")
+    # (h) an untimed deep field-sort page
+    h_body = plane_bodies(data, 0, 1, sort=PLANE_SORT_C,
+                          **{"from": DEEP_FROM, "size": DEEP_SIZE})
+    res_h = plane.search_batch(h_body, global_stats=False)[0]
+    check_plane_sorted("(h)", c5, plane, res_h, 0,
+                       lambda rows: [-rank_dd(c5, rows)], DEEP_FROM,
+                       DEEP_SIZE, lambda r: [phase_sort_value(rank_dd(c5,
+                                                                      r))])
+    stats = {"p50_ms": {x: statistics.median(ms_of[x]) for x in ms_of},
+             "batches_ms": ms_of, "launches": launches,
+             "qps": sum(len(bb) for bb in a_batches + c_batches + g_batches)
+             / (sum(ms_of["a"]) + sum(ms_of["c"]) + sum(ms_of["g"])) * 1e3}
+    log(f"collective plane, config 5 ({C5_SHARDS} shards on one card, "
+        f"batches of {b}): launches {launches}; p50 ms a batch: (a) score "
+        f"order, from {C5_FROM}, size {C5_SIZE}: {stats['p50_ms']['a']:.3f}; "
+        f"(c) rank desc, size {PLANE_SIZE}: {stats['p50_ms']['c']:.3f}; (g) "
+        f"terms + stats + histogram, size 10: {stats['p50_ms']['g']:.3f}; "
+        f"one batch each: (b) DFS {ms_of['b'][0]:.3f}, (d) cat, rank "
+        f"{ms_of['d'][0]:.3f}, (e) search_after {ms_of['e'][0]:.3f}, (f) "
+        f"post_filter + min_score {min_score:.4f} {ms_of['f'][0]:.3f} ms; "
+        f"wall {wall:.1f} s. (a) bit-identical to phase 23's fan-out on all "
+        f"{b} requests (totals, scores, _id order); requests 0-"
+        f"{PLANE_CHECK - 1} of (a), (b) (DFS, global float64), (f) vs "
+        f"float64: totals exact, scores within 1e-5, tie-tolerant recall "
+        f"{min(recalls)}; (c), (d), (e), (h) (from {DEEP_FROM}) ids and sort "
+        f"values equal to numpy; (g) buckets, count, min, max equal to "
+        f"numpy and to phase 24's merge, sums within 1e-5 / 1e-6; last "
+        f"batch's host phases {plane.last_phases}; {GC.take()} — on {name} "
+        f"({smi_line})")
+    return stats
+
+
+def phase_sort_value(v):
+    from elasticsearch_tpu_torch.search.phase import _sort_value_out
+    return _sort_value_out(np.float64(v))
+
+
+def phase_plane_profile(torch, args, data, pl, label, bodies, gs) -> dict:
+    """One plane batch under torch.profiler (one recorded run: phase 55
+    ran the batch): device busy, hand-kernel launches, the host planning of
+    the batch alone and the DFS round alone."""
+    from elasticsearch_tpu_torch.parallel import mesh_engine as me
+    from elasticsearch_tpu_torch.search.phase import parse_search_request
+    plane = pl["plane"]
+    reqs = [parse_search_request(x) for x in bodies]
+    GC.take()
+    t0 = time.perf_counter()
+    plane._global_dfs([r.query for r in reqs])
+    dfs_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plane._plan_slots(reqs, dict(me._FLAGS), False, None)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    return profile_batch(
+        torch, label, lambda: plane.search_batch(bodies, global_stats=gs),
+        plan_ms, GC.take(), len(bodies), warmup=False,
+        extra=lambda: f"; the DFS round alone {dfs_ms:.3f} ms (this batch "
+        f"{'runs' if gs else 'skips'} it); the plane's host phases "
+        f"{plane.last_phases}")
+
+
+def phase_distributed(torch, args, data, c5, pl, name, smi_line) -> dict:
+    """DistributedBM25 over config 5's 8 shards' text columns on the
+    plane's mesh: one batch of config 5's queries at k = 1,000 (K1 with
+    its match counts and K2 a shard, the group's psum and all_gather, K2
+    over the gathered candidates), against float64 BM25 with global
+    statistics."""
+    from elasticsearch_tpu_torch.analysis.analyzers import BUILTIN_ANALYZERS
+    from elasticsearch_tpu_torch.models.bm25 import PackedTextIndex
+    from elasticsearch_tpu_torch.parallel import DistributedBM25
+    terms = {t: i for i, t in enumerate(data["term_names"])}
+    shards = [PackedTextIndex(
+        terms=terms, uterms=data["uterms"][sh["lo"]:sh["hi"]],
+        utf=data["utf"][sh["lo"]:sh["hi"]],
+        doc_len=data["lens"][sh["lo"]:sh["hi"]],
+        live=np.ones(sh["hi"] - sh["lo"], bool), df=sh["df"],
+        num_docs=sh["hi"] - sh["lo"],
+        total_tokens=int(data["lens"][sh["lo"]:sh["hi"]].sum()))
+        for sh in c5["shards"]]
+    t0 = time.perf_counter()
+    dist = DistributedBM25(pl["mesh"], shards,
+                           analyzer=BUILTIN_ANALYZERS["whitespace"])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    k = C5_FROM + C5_SIZE
+    queries = data["texts"][:args.batch]
+    counters = path_kernels()
+    for kern in counters.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    scores, docs, totals = dist.search(queries, k=k)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {kn: kern.launches for kn, kern in counters.items()}
+    for kn in ("bm25_scan", "stable_topk"):
+        check(launches[kn] > 0, f"DistributedBM25: kernel {kn} was not "
+              f"launched on its path")
+    glob = cpu_scores(data["uterms"], data["utf"], data["lens"], data["df"],
+                      data["qtids"][:PLANE_CHECK])
+    recalls = []
+    for qi in range(PLANE_CHECK):
+        s64 = glob[qi]
+        check(int(totals[qi]) == int((s64 > 0).sum()),
+              f"DistributedBM25 query {qi}: total {totals[qi]} != float64 "
+              f"matches {(s64 > 0).sum()}")
+        valid = docs[qi] >= 0
+        orig = np.asarray([c5["shards"][si]["lo"] + row for si, row in
+                           (dist.resolve(int(d)) for d in docs[qi][valid])],
+                          np.int64)
+        check(len(orig) == min(k, int((s64 > 0).sum())),
+              f"DistributedBM25 query {qi}: {len(orig)} hits")
+        check(np.allclose(scores[qi][valid], s64[orig], rtol=1e-5,
+                          atol=1e-5), f"DistributedBM25 query {qi}: scores "
+              f"disagree with float64")
+        recalls.append(tie_tolerant_recall(s64, orig, k, tol=1e-4))
+    check(min(recalls) == 1.0, f"DistributedBM25: recall {min(recalls)}")
+    log(f"DistributedBM25 ({C5_SHARDS} shards of {c5['per_shard']} docs on "
+        f"one card, {dist.device_bytes()} B of shard columns, packed in "
+        f"{setup_s:.1f} s): one batch of {len(queries)} at k = {k} in "
+        f"{wall_ms:.3f} ms (the first call: analysis and the query upload "
+        f"included); launches {launches}; queries 0-{PLANE_CHECK - 1} vs "
+        f"float64 BM25 with global statistics: totals exact, scores within "
+        f"1e-5, tie-tolerant recall {min(recalls)} — on {name} ({smi_line})")
+    del dist
+    return {"launches": launches, "ms": wall_ms}
+
+
+def release_plane(torch, pl) -> None:
+    from elasticsearch_tpu_torch.parallel import mesh_engine as me
+    pl.pop("plane", None)
+    me.clear_block_cache()
+    gc.collect()
+    pl["mesh"].close()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"released the plane's blocks and its group: "
+        f"{torch.cuda.memory_allocated()} B allocated on the card")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--docs", type=int, default=1 << 21,
@@ -7691,6 +8422,34 @@ def main(argv=None) -> int:
                               for st in nested_paths.values())
         log(f"nested: phases 52-53 in "
             f"{time.perf_counter() - t_nested:.1f} s")
+        # the collective plane and DistributedBM25
+        t_plane = time.perf_counter()
+        pl = phase_plane_setup(torch, c5)
+        k20, k8r, k9r = phase_plane_kernels(torch, args, data, c5, pl)
+        kernels.extend((k20, k8r, k9r))
+        stats_pl = phase_plane(torch, args, data, c5, pl, stats5, stats5a,
+                               name, smi_line)
+        phase_plane_profile(torch, args, data, pl, "plane (a): score order, "
+                            f"from {C5_FROM}, size {C5_SIZE}", plane_bodies(
+                                data, 0, args.batch, **{
+                                    "from": C5_FROM, "size": C5_SIZE}),
+                            False)
+        phase_plane_profile(torch, args, data, pl, "plane (c): rank desc, "
+                            f"size {PLANE_SIZE}", plane_bodies(
+                                data, 0, args.batch, size=PLANE_SIZE,
+                                sort=PLANE_SORT_C), False)
+        stats_db = phase_distributed(torch, args, data, c5, pl, name,
+                                     smi_line)
+        release_plane(torch, pl)
+        by_config.update({"plane": stats_pl, "distributed-bm25": stats_db})
+        for kern in kernels:
+            kern["launches_by_config"] = {
+                cfg: st["launches"][kern["name"]]
+                for cfg, st in by_config.items()}
+        for kern in (k20, k8r, k9r):
+            kern["launches"] = stats_pl["launches"][kern["name"]]
+        log(f"collective plane: phases 54-56 in "
+            f"{time.perf_counter() - t_plane:.1f} s")
     except Exception as e:                  # noqa: BLE001 — report, then fail
         traceback.print_exc()
         print(f"[chip_smoke] FAILED: {type(e).__name__}: {e}",

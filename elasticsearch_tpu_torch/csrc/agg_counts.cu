@@ -15,6 +15,12 @@
 // A row counts only where mask (and, for the numeric modes, exists) is set.
 // Output: int32 counts[nb], exact, so the order of the atomics is free.
 //
+// Row-batched entry (agg_counts_rows_launch): the collective plane's terms
+// and histogram lanes (elasticsearch_tpu/parallel/mesh_engine.py:1569-1589,
+// a jax.vmap of ord_value_counts / histogram_counts_dd over the batch's
+// masks) count a [B, N] mask into [B, nb] counts in one launch: grid.y is
+// the mask row, each row cut over as many blocks as a one-row launch uses.
+//
 // What bounds it on an H100: device-memory bytes — mask, exists, hi, lo (or
 // the [N, K] ordinals) read once, nb counts written once: 1-3 MB at a
 // 262,144-row segment, a bound near 1 us, so a launch's own latency sets
@@ -86,6 +92,8 @@ agg_counts_kernel(int mode, int64_t n, const uint8_t* __restrict__ mask,
                   float base_lo, float interval, Ranges ranges, int nb,
                   int32_t* __restrict__ counts) {
   extern __shared__ uint32_t shist[];
+  mask += (int64_t)blockIdx.y * n;        // the row-batched entry's row
+  counts += (int64_t)blockIdx.y * nb;
   if (SHARED) {
     for (int i = threadIdx.x; i < nb; i += kThreads) shist[i] = 0u;
     __syncthreads();
@@ -127,40 +135,55 @@ agg_counts_kernel(int mode, int64_t n, const uint8_t* __restrict__ mask,
 
 // mode 0: ords [n, k] int32 (exists, hi, lo unused); mode 1: hi, lo, exists
 // with base_hi, base_lo, interval; mode 2: hi, lo, exists with `bounds`
-// [nb, 4] f32 and `strict` [nb] u8 on the device. counts: [nb] int32,
-// zeroed here on the stream before the launch.
-extern "C" int agg_counts_launch(int mode, long long n, const void* mask,
-                                 const void* exists, const void* hi,
-                                 const void* lo, const void* ords, int k,
-                                 float base_hi, float base_lo, float interval,
-                                 const void* bounds, const void* strict,
-                                 int nb, void* counts, void* stream) {
-  if (mode < kOrdinal || mode > kRanges || n < 0 || nb < 0 ||
+// [nb, 4] f32 and `strict` [nb] u8 on the device. mask: [rows, n] u8;
+// counts: [rows, nb] int32, zeroed here on the stream before the launch.
+extern "C" int agg_counts_rows_launch(int mode, int rows, long long n,
+                                      const void* mask, const void* exists,
+                                      const void* hi, const void* lo,
+                                      const void* ords, int k, float base_hi,
+                                      float base_lo, float interval,
+                                      const void* bounds, const void* strict,
+                                      int nb, void* counts, void* stream) {
+  if (mode < kOrdinal || mode > kRanges || rows < 0 || rows > 65535 ||
+      n < 0 || nb < 0 ||
       (mode == kOrdinal && (ords == nullptr || k < 1)) ||
       (mode != kOrdinal && (hi == nullptr || lo == nullptr ||
                             exists == nullptr)) ||
       (mode == kRanges && (bounds == nullptr || strict == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err =
-      cudaMemsetAsync(counts, 0, (size_t)nb * sizeof(int32_t), s);
-  if (err != cudaSuccess || n == 0 || nb == 0) return (int)err;
+  cudaError_t err = cudaMemsetAsync(
+      counts, 0, (size_t)rows * (size_t)nb * sizeof(int32_t), s);
+  if (err != cudaSuccess || n == 0 || nb == 0 || rows == 0) return (int)err;
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  const dim3 grid((unsigned)blocks, (unsigned)rows);
   const Ranges r{(const float*)bounds, (const uint8_t*)strict};
   if (nb <= kSharedBins) {
-    agg_counts_kernel<true><<<(unsigned)blocks, kThreads,
-                              (size_t)nb * sizeof(uint32_t), s>>>(
+    agg_counts_kernel<true><<<grid, kThreads, (size_t)nb * sizeof(uint32_t),
+                              s>>>(
         mode, n, (const uint8_t*)mask, (const uint8_t*)exists,
         (const float*)hi, (const float*)lo, (const int32_t*)ords, k, base_hi,
         base_lo, interval, r, nb, (int32_t*)counts);
   } else {
-    agg_counts_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
+    agg_counts_kernel<false><<<grid, kThreads, 0, s>>>(
         mode, n, (const uint8_t*)mask, (const uint8_t*)exists,
         (const float*)hi, (const float*)lo, (const int32_t*)ords, k, base_hi,
         base_lo, interval, r, nb, (int32_t*)counts);
   }
   return (int)cudaGetLastError();
+}
+
+// One mask row: counts [nb].
+extern "C" int agg_counts_launch(int mode, long long n, const void* mask,
+                                 const void* exists, const void* hi,
+                                 const void* lo, const void* ords, int k,
+                                 float base_hi, float base_lo, float interval,
+                                 const void* bounds, const void* strict,
+                                 int nb, void* counts, void* stream) {
+  return agg_counts_rows_launch(mode, 1, n, mask, exists, hi, lo, ords, k,
+                                base_hi, base_lo, interval, bounds, strict,
+                                nb, counts, stream);
 }
 
 extern "C" const char* agg_counts_error_string(int code) {

@@ -23,6 +23,12 @@
 // block partials in block order: the same inputs give the same bits on
 // every run, so an aggregation's sum does not flicker between requests.
 //
+// Row-batched entry (agg_stats_rows_launch): the collective plane's metric
+// lane (elasticsearch_tpu/parallel/mesh_engine.py:1523-1560, the masked
+// partials of a [B, N] agg mask) takes every mask row in one launch: grid.y
+// is the row, each row cut over exactly the blocks a one-row launch uses,
+// so a row's eight values are the bits a one-row launch gives.
+//
 // What bounds it on an H100: device-memory bytes — hi, lo, exists and mask
 // read once (10 B a row, 2.6 MB at 262,144 rows: a bound under 1 us), so
 // the two launches' latency sets its time.
@@ -101,6 +107,8 @@ agg_stats_partial_kernel(int64_t n, const float* __restrict__ hi,
                          const uint8_t* __restrict__ mask,
                          Acc* __restrict__ partials) {
   __shared__ Acc warps[kThreads / 32];
+  mask += (int64_t)blockIdx.y * n;             // the row-batched entry's row
+  partials += (int64_t)blockIdx.y * gridDim.x;
   Acc a = empty_acc();
   const int64_t stride = (int64_t)gridDim.x * kThreads;
   for (int64_t row = (int64_t)blockIdx.x * kThreads + threadIdx.x; row < n;
@@ -145,6 +153,8 @@ __device__ __forceinline__ float canonical_zero(float v) {
 __global__ void agg_stats_final_kernel(int blocks,
                                        const Acc* __restrict__ partials,
                                        double* __restrict__ out) {
+  partials += (int64_t)blockIdx.x * blocks;    // one warp a row
+  out += (int64_t)blockIdx.x * 8;
   Acc a = empty_acc();
   for (int b = threadIdx.x; b < blocks; b += 32) fold(a, partials[b]);
   a = warp_fold(a);
@@ -167,25 +177,38 @@ __global__ void agg_stats_final_kernel(int blocks,
 
 }  // namespace
 
-// hi, lo: [n] f32 or both NULL (count only); exists, mask: [n] u8 (bool);
-// partials: scratch of kMaxBlocks x kRecordBytes bytes; out: [8] f64.
-extern "C" int agg_stats_launch(long long n, const void* hi, const void* lo,
-                                const void* exists, const void* mask,
-                                void* partials, void* out, void* stream) {
-  if (n < 0 || (hi == nullptr) != (lo == nullptr) || exists == nullptr ||
-      mask == nullptr || partials == nullptr || out == nullptr)
+// hi, lo: [n] f32 or both NULL (count only); exists: [n] u8; mask: [rows,
+// n] u8 (bool); partials: scratch of rows x kMaxBlocks x kRecordBytes
+// bytes; out: [rows, 8] f64.
+extern "C" int agg_stats_rows_launch(int rows, long long n, const void* hi,
+                                     const void* lo, const void* exists,
+                                     const void* mask, void* partials,
+                                     void* out, void* stream) {
+  if (rows < 0 || rows > 65535 || n < 0 || (hi == nullptr) != (lo == nullptr)
+      || exists == nullptr || mask == nullptr || partials == nullptr ||
+      out == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   long long blocks = (n + kThreads - 1) / kThreads;
   blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
-  agg_stats_partial_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
+  agg_stats_partial_kernel<<<dim3((unsigned)blocks, (unsigned)rows), kThreads,
+                             0, s>>>(
       n, (const float*)hi, (const float*)lo, (const uint8_t*)exists,
       (const uint8_t*)mask, (Acc*)partials);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  agg_stats_final_kernel<<<1, 32, 0, s>>>((int)blocks, (const Acc*)partials,
-                                          (double*)out);
+  agg_stats_final_kernel<<<(unsigned)rows, 32, 0, s>>>(
+      (int)blocks, (const Acc*)partials, (double*)out);
   return (int)cudaGetLastError();
+}
+
+// One mask row: partials of kMaxBlocks x kRecordBytes bytes; out: [8] f64.
+extern "C" int agg_stats_launch(long long n, const void* hi, const void* lo,
+                                const void* exists, const void* mask,
+                                void* partials, void* out, void* stream) {
+  return agg_stats_rows_launch(1, n, hi, lo, exists, mask, partials, out,
+                               stream);
 }
 
 extern "C" const char* agg_stats_error_string(int code) {

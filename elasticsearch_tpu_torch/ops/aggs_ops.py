@@ -22,6 +22,13 @@ CUDA tensors, one launch a segment and aggregation:
   squares (:func:`sum_of_squares`) in one pass, or the count alone
   (:func:`value_count`); plain version :func:`dd_stats_plain`.
 
+The collective plane (``parallel/mesh_engine.py``) takes the terms,
+histogram and metric lanes of a whole batch at once: the row-batched
+entries :func:`ord_counts_rows`, :func:`dd_histogram_counts_rows` (K8) and
+:func:`dd_stats_rows` (K9) count or reduce a ``[B, N]`` mask in one launch
+(the JAX plane ``jax.vmap``s the one-row bodies over the batch), each row's
+result the one a one-row launch gives.
+
 On CPU tensors each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. The other bodies (per-ordinal sums, the f32
 histogram and ranges, stats, cardinality, the sorted values) have no caller
@@ -58,6 +65,20 @@ AGG_STATS = cuda_build.CudaKernel(
     "agg_stats", "agg_stats.cu", "agg_stats_launch",
     [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+
+#: the row-batched entries of K8 and K9 (the collective plane's lanes),
+#: counted apart from the one-row launches
+AGG_COUNTS_ROWS = cuda_build.CudaKernel(
+    "agg_counts_rows", "agg_counts.cu", "agg_counts_rows_launch",
+    [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+
+AGG_STATS_ROWS = cuda_build.CudaKernel(
+    "agg_stats_rows", "agg_stats.cu", "agg_stats_rows_launch",
+    [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
 
 
 # ---------------------------------------------------------------------------
@@ -262,8 +283,10 @@ def dd_range_counts(hi, lo, exists, mask, bounds, strict):
 def _counts_cuda(mode: int, mask, counts, *, ords=None, hi=None, lo=None,
                  exists=None, consts=(0.0, 0.0, 1.0), bounds=None,
                  strict=None) -> None:
+    """K8 over a [N] mask into counts [nb], or (the row-batched entry)
+    over a [B, N] mask into counts [B, nb]."""
     dev = mask.device
-    n = mask.shape[0]
+    n = mask.shape[-1]
     cuda_build.check_dtype("agg_counts", "mask", mask, torch.bool)
     cuda_build.check_dtype("agg_counts", "exists", exists, torch.bool)
     cuda_build.check_dtype("agg_counts", "ords", ords, torch.int32)
@@ -282,10 +305,19 @@ def _counts_cuda(mode: int, mask, counts, *, ords=None, hi=None, lo=None,
                           hi=hi, lo=lo, ords=ords, bounds=bounds,
                           strict=strict, counts=counts)
     p = cuda_build.ptr
+    k = 1 if ords is None else ords.shape[1]
+    if mask.dim() == 2:
+        if counts.shape[0] != mask.shape[0]:
+            raise ValueError(f"agg_counts: counts rows {counts.shape[0]} != "
+                             f"mask rows {mask.shape[0]}")
+        AGG_COUNTS_ROWS.launch(dev, mode, mask.shape[0], n, p(mask),
+                               p(exists), p(hi), p(lo), p(ords), k, *consts,
+                               p(bounds), p(strict), counts.shape[-1],
+                               p(counts))
+        return
     AGG_COUNTS.launch(dev, mode, n, p(mask), p(exists), p(hi), p(lo),
-                      p(ords), 1 if ords is None else ords.shape[1],
-                      *consts, p(bounds), p(strict), counts.shape[0],
-                      p(counts))
+                      p(ords), k, *consts, p(bounds), p(strict),
+                      counts.shape[0], p(counts))
 
 
 # ---------------------------------------------------------------------------
@@ -341,6 +373,163 @@ def dd_stats(hi, lo, exists, mask):
     return out
 
 
-#: K9's scratch for its block partials: at most 264 blocks, a record of at
-#: most 64 bytes each (agg_stats.cu kMaxBlocks, kRecordBytes)
-_STATS_SCRATCH_BYTES = 264 * 64
+#: K9's launch shape (agg_stats.cu kThreads, kMaxBlocks) and its scratch
+#: for the block partials, a record of at most 64 bytes each
+#: (kRecordBytes), a mask row
+_STATS_THREADS, _STATS_MAX_BLOCKS = 256, 264
+_STATS_SCRATCH_BYTES = _STATS_MAX_BLOCKS * 64
+
+
+# ---------------------------------------------------------------------------
+# the row-batched entries (the collective plane's lanes)
+# ---------------------------------------------------------------------------
+
+def ord_counts_rows_plain(ords, mask, num_ords: int):
+    """The row-batched ordinal mode's plain version: :func:`ord_value_counts`
+    of every mask row → [B, num_ords] int32."""
+    b = mask.shape[0]
+    valid = (ords >= 0)[None] & (ords < num_ords)[None] & mask[:, :, None]
+    rows = torch.arange(b, device=ords.device)[:, None, None]
+    idx = torch.where(valid, rows * num_ords + ords[None].to(torch.int64),
+                      b * num_ords)
+    out = torch.zeros(b * num_ords + 1, dtype=torch.int32, device=ords.device)
+    out.index_add_(0, idx.reshape(-1), valid.reshape(-1).to(torch.int32))
+    return out[:b * num_ords].reshape(b, num_ords)
+
+
+def ord_counts_rows(ords, mask, num_ords: int):
+    """Per-ordinal counts of a keyword column under each row of a [B, N]
+    mask (K8's row-batched entry on CUDA) → [B, num_ords] int32."""
+    if ords.device.type == "cpu":
+        return ord_counts_rows_plain(ords, mask, num_ords)
+    counts = torch.empty((mask.shape[0], num_ords), dtype=torch.int32,
+                         device=ords.device)
+    _counts_cuda(_ORDINAL, mask, counts, ords=ords)
+    return counts
+
+
+def histogram_counts_dd_rows_plain(hi, lo, exists, mask, base_hi: float,
+                                   base_lo: float, interval: float,
+                                   num_buckets: int):
+    """The row-batched histogram mode's plain version:
+    :func:`histogram_counts_dd` of every mask row → [B, num_buckets]."""
+    dev = hi.device
+    b = mask.shape[0]
+    rel = (hi - _f32(base_hi, dev)) + (lo - _f32(base_lo, dev))
+    idx, valid = _bucket_of(rel / _f32(interval, dev), num_buckets,
+                            exists[None, :] & mask)
+    rows = torch.arange(b, device=dev)[:, None]
+    flat = torch.where(valid, rows * num_buckets + idx.to(torch.int64),
+                       b * num_buckets)
+    out = torch.zeros(b * num_buckets + 1, dtype=torch.int32, device=dev)
+    out.index_add_(0, flat.reshape(-1), valid.reshape(-1).to(torch.int32))
+    return out[:b * num_buckets].reshape(b, num_buckets)
+
+
+def dd_histogram_counts_rows(hi, lo, exists, mask, base_hi: float,
+                             base_lo: float, interval: float,
+                             num_buckets: int):
+    """Fixed-interval bucket counts of a double-double column under each
+    row of a [B, N] mask (K8's row-batched entry on CUDA) → [B,
+    num_buckets] int32."""
+    if hi.device.type == "cpu":
+        return histogram_counts_dd_rows_plain(hi, lo, exists, mask, base_hi,
+                                              base_lo, interval, num_buckets)
+    counts = torch.empty((mask.shape[0], num_buckets), dtype=torch.int32,
+                         device=hi.device)
+    _counts_cuda(_HISTOGRAM, mask, counts, hi=hi, lo=lo, exists=exists,
+                 consts=(float(np.float32(base_hi)),
+                         float(np.float32(base_lo)),
+                         float(np.float32(interval))))
+    return counts
+
+
+def _warp_fold(x):
+    """Lane 0 of a warp's shuffle-down tree over the last axis (32 lanes):
+    lane i adds lane i + 16, then i + 8, ..., 1 (agg_stats.cu warp_fold)."""
+    for half in (16, 8, 4, 2, 1):
+        x = x[..., :half] + x[..., half:2 * half]
+    return x[..., 0]
+
+
+def _k9_sum(vals):
+    """Row sums of [B, N] f32 ``vals`` (rows out of context as +0.0) in
+    K9's order: each of the launch's threads adds its rows in row order,
+    a warp folds its threads, a block its warps, then one warp the block
+    partials (agg_stats.cu). f32 throughout → [B] f32."""
+    b, n = vals.shape
+    blocks = min(max(-(-n // _STATS_THREADS), 1), _STATS_MAX_BLOCKS)
+    stride = blocks * _STATS_THREADS
+    per = max(-(-n // stride), 1)
+    x = torch.zeros((b, per * stride), dtype=torch.float32,
+                    device=vals.device)
+    x[:, :n] = vals
+    x = x.view(b, per, stride)
+    acc = torch.zeros((b, stride), dtype=torch.float32, device=vals.device)
+    for j in range(per):
+        acc = acc + x[:, j]
+    warps = _warp_fold(acc.view(b, blocks, _STATS_THREADS // 32, 32))
+    parts = _warp_fold(torch.nn.functional.pad(
+        warps, (0, 32 - warps.shape[-1])))                    # [B, blocks]
+    lanes = -(-blocks // 32) * 32
+    parts = torch.nn.functional.pad(parts, (0, lanes - blocks)).view(
+        b, lanes // 32, 32)
+    acc = torch.zeros((b, 32), dtype=torch.float32, device=vals.device)
+    for j in range(lanes // 32):
+        acc = acc + parts[:, j]
+    return _warp_fold(acc)
+
+
+def dd_stats_rows_plain(hi, lo, exists, mask):
+    """The row-batched K9's plain version → [B, 8] f64: the count and
+    :func:`dd_min_max`'s extrema of each mask row (a zero extremum as
+    +0.0), and the f32 sums of hi, lo and hi² added in K9's order
+    (:func:`_k9_sum`), so each row has the kernel's bits."""
+    b = mask.shape[0]
+    m = exists[None, :] & mask
+    out = torch.zeros((b, 8), dtype=torch.float64, device=mask.device)
+    out[:, 0] = m.sum(dim=1).to(torch.float64)
+    if hi is None or b == 0:
+        return out
+    for r in range(b):
+        _, mn_hi, mn_lo, mx_hi, mx_lo = dd_min_max(hi, lo, exists, mask[r])
+        out[r, 1:5] = torch.stack([mn_hi + 0.0, mn_lo, mx_hi + 0.0,
+                                   mx_lo]).to(torch.float64)
+    zero = torch.zeros((), dtype=torch.float32, device=mask.device)
+    for col, v in ((5, hi), (6, lo), (7, hi * hi)):
+        out[:, col] = _k9_sum(torch.where(m, v[None, :], zero)).to(
+            torch.float64)
+    return out
+
+
+def dd_stats_rows(hi, lo, exists, mask):
+    """Masked stats of one column under each row of a [B, N] mask (K9's
+    row-batched entry on CUDA) → [B, 8] f64 in the order of
+    :data:`STATS_FIELDS`, each row the bits of a one-row launch and of
+    :func:`dd_stats_rows_plain`."""
+    if mask.device.type == "cpu":
+        return dd_stats_rows_plain(hi, lo, exists, mask)
+    dev = mask.device
+    if mask.dim() != 2:
+        raise ValueError(f"agg_stats: mask must be [B, N], got "
+                         f"{tuple(mask.shape)}")
+    rows, n = mask.shape
+    if (hi is None) != (lo is None):
+        raise ValueError("agg_stats: hi and lo come together")
+    for name, t in (("exists", exists), ("mask", mask)):
+        cuda_build.check_dtype("agg_stats", name, t, torch.bool)
+    for name, t in (("hi", hi), ("lo", lo)):
+        cuda_build.check_dtype("agg_stats", name, t, torch.float32)
+    for name, t in (("hi", hi), ("lo", lo), ("exists", exists)):
+        if t is not None and t.shape != (n,):
+            raise ValueError(f"agg_stats: [{name}] shape {tuple(t.shape)} "
+                             f"!= mask rows ({n},)")
+    cuda_build.check_cuda("agg_stats", dev, hi=hi, lo=lo, exists=exists,
+                          mask=mask)
+    out = torch.empty((rows, 8), dtype=torch.float64, device=dev)
+    partials = torch.empty(max(rows, 1) * _STATS_SCRATCH_BYTES,
+                           dtype=torch.uint8, device=dev)
+    p = cuda_build.ptr
+    AGG_STATS_ROWS.launch(dev, rows, n, p(hi), p(lo), p(exists), p(mask),
+                          p(partials), p(out))
+    return out

@@ -16,6 +16,14 @@ split the candidates at the bin of the k-th key, one block resolves that
 bin), sorts it in :data:`TILE`-key tiles, a block a tile, and merges the
 tiles pairwise, so K2 takes any k, as ``lax.top_k`` does. Within a segment position order is doc order; across
 segments concatenated in segment order it is TopDocs.merge's order.
+
+K20 ``sort_select`` (``csrc/sort_select.cu``) is the collective plane's
+field-sort selection, the counterpart of ``parallel/mesh_engine.py``'s
+``_stable_order``: the first k entries of each row in ascending
+lexicographic order over several f32 key rows, ties by position, with the
+row's validity (a mask and a ``search_after`` cursor) as the most
+significant key. :func:`sort_select_plain` composes stable sorts from the
+least significant key up, as the reference does.
 """
 
 from __future__ import annotations
@@ -48,6 +56,19 @@ TOPK = cuda_build.CudaKernel(
      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_void_p])
+
+
+#: K20's key rows a call: (hi, lo) of up to 8 sort specs
+SORT_MAX_KEYS = 16
+#: entries a K20 block sorts in shared memory (csrc/sort_select.cu kMaxTile)
+SORT_TILE = 2048
+
+SORT_SELECT = cuda_build.CudaKernel(
+    "sort_select", "sort_select.cu", "sort_select_launch",
+    [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p])
 
 
 def select_top_k(scores, k: int, mask=None, ids=None):
@@ -206,3 +227,134 @@ def max_score(scores, mask):
     """The largest score under ``mask`` (−inf when none): the reference's
     ``ops/topk.py`` ``max_score``. A plain body; no path calls it."""
     return torch.where(mask, scores, NEG_INF).max()
+
+
+# --------------------------------------------------------------------------
+# K20: lexicographic selection over several key rows
+# --------------------------------------------------------------------------
+
+def _sort_shape(keys, mask, cursor, rows):
+    """(rows, M) of a K20 call: a key is [M] (one column for every row) or
+    [rows, M]."""
+    if not keys and mask is None:
+        raise ValueError("sort_select: needs a key row or a mask")
+    m = (mask if mask is not None else keys[0]).shape[-1]
+    for t in (*keys, mask):
+        if t is not None and t.dim() == 2:
+            rows = t.shape[0] if rows is None else rows
+    if cursor is not None:
+        rows = cursor.shape[0] if rows is None else rows
+    if rows is None:
+        raise ValueError("sort_select: every key is a column; give rows")
+    for i, key in enumerate(keys):
+        if key.shape not in ((m,), (rows, m)):
+            raise ValueError(f"sort_select: key {i} has shape "
+                             f"{tuple(key.shape)}, expected ({m},) or "
+                             f"({rows}, {m})")
+    if mask is not None and mask.shape != (rows, m):
+        raise ValueError(f"sort_select: mask shape {tuple(mask.shape)} != "
+                         f"({rows}, {m})")
+    if cursor is not None and cursor.shape != (rows, len(keys)):
+        raise ValueError(f"sort_select: cursor shape {tuple(cursor.shape)} "
+                         f"!= ({rows}, {len(keys)})")
+    return rows, m
+
+
+def sort_select(keys, k: int, mask=None, cursor=None, neg=(), rows=None):
+    """The first ``min(k, M)`` positions of each row in ascending
+    lexicographic order (K20 on CUDA tensors, its plain version on CPU).
+
+    Args:
+      keys:   f32 key rows, most significant first, each [M] (a per-entry
+              column shared by every row) or [R, M]
+      k:      positions a row (k ≥ 1; a row shorter than k gives M)
+      mask:   [R, M] bool or None (every entry valid)
+      cursor: [R, len(keys)] f32 or None — an entry stays valid only when
+              its (negated) keys are lexicographically > the cursor
+      neg:    indices of the keys to negate (a ``desc`` order)
+      rows:   R, when no argument has a row axis
+
+    An invalid entry sorts after every valid one, its keys read as +inf.
+    Keys compare as jnp.argsort does: -0.0 ties +0.0, NaNs after +inf and
+    tied; ties break by position. → positions [R, kk] int32.
+    """
+    if k < 1:
+        raise ValueError(f"sort_select: k must be at least 1, got {k}")
+    if len(keys) > SORT_MAX_KEYS:
+        raise ValueError(f"sort_select: at most {SORT_MAX_KEYS} key rows, "
+                         f"got {len(keys)}")
+    dev = (mask if mask is not None else keys[0]).device
+    if dev.type == "cpu":
+        return sort_select_plain(keys, k, mask, cursor, neg, rows)
+    rows, m = _sort_shape(keys, mask, cursor, rows)
+    kk = min(k, m)
+    out = torch.empty((rows, kk), dtype=torch.int32, device=dev)
+    if rows == 0 or kk == 0:
+        return out
+    if m >= (1 << 31) - 1 or rows > 65535:
+        raise ValueError(f"sort_select: [{rows}, {m}] is past the kernel's "
+                         f"int32 positions or grid")
+    for i, key in enumerate(keys):
+        cuda_build.check_dtype("sort_select", f"key {i}", key, torch.float32)
+    cuda_build.check_dtype("sort_select", "mask", mask, torch.bool)
+    cuda_build.check_dtype("sort_select", "cursor", cursor, torch.float32)
+    cuda_build.check_cuda("sort_select", dev, mask=mask, cursor=cursor,
+                          **{f"key{i}": key for i, key in enumerate(keys)})
+    n = len(keys)
+    tile = SORT_TILE if m >= SORT_TILE else max(64, 1 << (m - 1).bit_length())
+    tiles = -(-m // tile)
+    run_a = run_b = None
+    if tiles > 1:
+        # each tile's sorted run of composites (inval, keys, position),
+        # merged pairwise between the two buffers
+        words = rows * tiles * min(kk, tile) * (n + 2)
+        run_a = torch.empty(words, dtype=torch.int32, device=dev)
+        run_b = torch.empty(words, dtype=torch.int32, device=dev)
+    ptrs = (ctypes.c_longlong * max(n, 1))(*[k_.data_ptr() for k_ in keys])
+    strides = (ctypes.c_longlong * max(n, 1))(
+        *[0 if k_.dim() == 1 else m for k_ in keys])
+    neg_bits = 0
+    for i in neg:
+        neg_bits |= 1 << int(i)
+    p = cuda_build.ptr
+    SORT_SELECT.launch(dev, rows, m, kk, n, ctypes.addressof(ptrs),
+                       ctypes.addressof(strides), neg_bits, p(mask),
+                       p(cursor), tile, p(run_a), p(run_b), p(out))
+    return out
+
+
+def _sort_key(x):
+    """A key as jnp.argsort orders it: -0.0 folded onto +0.0, every NaN one
+    NaN (torch's sort puts NaNs last and keeps their order)."""
+    x = torch.where(x == 0, torch.zeros_like(x), x)
+    return torch.where(torch.isnan(x), torch.full_like(x, float("nan")), x)
+
+
+def sort_select_plain(keys, k: int, mask=None, cursor=None, neg=(),
+                      rows=None):
+    """K20's plain version: the key rows broadcast to [R, M], the cursor's
+    strictly-after compare folded into the mask, then stable sorts composed
+    from the least significant key up (mesh_engine.py's _stable_order)."""
+    rows, m = _sort_shape(keys, mask, cursor, rows)
+    dev = (mask if mask is not None else keys[0]).device
+    raw = [(-key if i in neg else key).expand(rows, m)
+           for i, key in enumerate(keys)]
+    valid = torch.ones((rows, m), dtype=torch.bool, device=dev) \
+        if mask is None else mask
+    if cursor is not None:
+        gt = torch.zeros_like(valid)
+        eq = torch.ones_like(valid)
+        for i, arr in enumerate(raw):
+            c = cursor[:, i:i + 1]
+            gt = gt | (eq & (arr > c))
+            eq = eq & (arr == c)
+        valid = valid & gt
+    inval = torch.where(valid, 0.0, 1.0).to(torch.float32)
+    ordered = [inval] + [torch.where(valid, _sort_key(arr), float("inf"))
+                         for arr in raw]
+    order = torch.arange(m, device=dev).expand(rows, m)
+    for key in ordered[::-1]:
+        cur = torch.gather(key, 1, order)
+        o2 = torch.sort(cur, dim=1, stable=True).indices
+        order = torch.gather(order, 1, o2)
+    return order[:, :min(k, m)].to(torch.int32).contiguous()

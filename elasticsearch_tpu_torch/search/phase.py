@@ -220,6 +220,21 @@ def _not_ported_features(req: ParsedSearchRequest) -> list[str]:
     ) if cond]
 
 
+def _sort_value_out(v):
+    """A sort key as hit["sort"] renders it: ±inf (a missing fill) as None,
+    an integral float as an int (the JAX package's phase._sort_value_out;
+    the collective plane renders its field sorts through it — the fan-out
+    still refuses field sort)."""
+    if v is None or isinstance(v, str):
+        return v
+    v = float(v)
+    if v in (np.inf, -np.inf):
+        return None
+    if v.is_integer():
+        return int(v)
+    return v
+
+
 def _top_k_window(reqs: list[ParsedSearchRequest], windows=()) -> int:
     """Hits a shard collects for the batch: the largest from + size (or
     rescore window)."""

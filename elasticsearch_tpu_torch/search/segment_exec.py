@@ -104,13 +104,15 @@ def _fetch_lazy(seg: DeviceSegment, reader, positions, vectors) -> None:
 
 
 def _build(view: DeviceSegment, consts, emit_q, emit_pf, refs, k: int,
-           batch: int, want_arrays: bool = False) -> dict:
+           batch: int, want_arrays: bool = False,
+           want_topk: bool = True) -> dict:
     """The batch body: emit + phase post-processing + top-k → {"count",
     "top_scores", "top_docs"}, each with a leading batch axis; top_docs are
     segment-local. ``want_arrays`` adds the aggregations' inputs: "scores",
     "mask" (after post_filter and the cursor) and "agg_mask" (after
     min_score, before post_filter — ES computes aggs on the main query's
-    result)."""
+    result). ``want_topk`` False skips the per-segment top-k (the
+    collective plane's sort mode selects over the arrays instead)."""
     em = EmitCtx(view, consts, batch)
     scores, mask = emit_q(em)
     mask = mask & view.live[None, :]
@@ -129,9 +131,10 @@ def _build(view: DeviceSegment, consts, emit_q, emit_pf, refs, k: int,
         cont = (scores < last_score) | ((scores == last_score) &
                                         (ids > last_doc))
         mask_post = mask_post & cont
-    ts, td = topk_ops.top_k(scores, mask_post, min(k, view.padded_docs), 0)
-    outs = {"count": topk_ops.count_matches(mask_post), "top_scores": ts,
-            "top_docs": td}
+    outs = {"count": topk_ops.count_matches(mask_post)}
+    if want_topk:
+        outs["top_scores"], outs["top_docs"] = topk_ops.top_k(
+            scores, mask_post, min(k, view.padded_docs), 0)
     if want_arrays:
         outs.update(scores=scores, mask=mask_post, agg_mask=mask)
     return outs

@@ -21,7 +21,13 @@ K17 (the geo_point filters, every mode, and the decay's distances) and K18
 (geo_shape relations, each relation) must equal their plain versions bit
 for bit, and so must K19 (the nested query's child → parent reduce, every
 score_mode, NaN and ±0.0 among the child scores), which launches once a
-nested clause a segment.
+nested clause a segment. K20 (the collective plane's lexicographic
+selection) must give its plain version's positions bit for bit (±0.0, NaN,
+±inf, ties, a cursor, k past M); the row-batched K8 and K9 entries must
+give each row the bits of a one-row launch and of their plain versions
+(the row-batched K9's plain version adds in the kernel's order); and the
+collective plane on a
+one-rank NCCL mesh must match the plane on the CPU.
 These tests need
 an NVIDIA GPU and nvcc (the kernels have no CPU mode) and skip elsewhere.
 On a machine with a card, run them without the JAX test bootstrap:
@@ -2100,3 +2106,193 @@ def test_nested_query_on_the_card_matches_the_cpu(cuda, tmp_path):
         assert got.total == want.total > 0
         np.testing.assert_array_equal(got.doc_ids, want.doc_ids)
         np.testing.assert_allclose(got.scores, want.scores, rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the collective plane: K20 sort_select, the row-batched K8 / K9, the plane
+# ---------------------------------------------------------------------------
+
+SORT_SPECIAL = np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1.0, -1.0],
+                        np.float32)
+
+
+def _sort_case(rng, b, m, n_keys, ties, wide):
+    """n_keys key rows (per-(row, entry) [B, M] when ``wide`` or on even
+    keys, else per-doc columns [M]) with ±0.0, NaN, ±inf and ties."""
+    keys = []
+    for i in range(n_keys):
+        shape = (b, m) if wide or i % 2 == 0 else (m,)
+        v = rng.integers(0, ties, shape).astype(np.float32) if ties \
+            else rng.standard_normal(shape).astype(np.float32)
+        pick = rng.random(shape) < 0.2
+        keys.append(np.where(pick, rng.choice(SORT_SPECIAL, shape),
+                             v).astype(np.float32))
+    return keys
+
+
+@pytest.mark.parametrize("b,m,n_keys,k,ties,wide,neg,density,cursor", [
+    (3, 100_003, 4, 1024, 0, False, (1, 2), 0.7, True),
+    (2, 5000, 2, 8000, 3, False, (), 0.5, False),        # k > M
+    (4, 2048, 2, 2048, 0, False, (0,), 0.9, False),      # one tile exactly
+    (65, 3000, 4, 100, 1, False, (), 0.3, True),         # an all-tie column
+    (1, 1, 2, 4, 0, False, (), 1.0, False),
+    (2, 70_000, 6, 40_000, 5, False, (3,), 0.8, True),   # deep k
+    (8, 8 * 1024, 4, 1024, 0, True, (), 0.6, False),     # the merge's shape
+    (3, 4100, 0, 50, 0, False, (), 0.4, False),          # the mask alone
+])
+def test_sort_select_bit_identical_to_plain(cuda, b, m, n_keys, k, ties,
+                                            wide, neg, density, cursor):
+    rng = np.random.default_rng(m + n_keys)
+    keys = [torch.from_numpy(x).to(cuda)
+            for x in _sort_case(rng, b, m, n_keys, ties, wide)]
+    mask = torch.from_numpy(rng.random((b, m)) < density).to(cuda)
+    mask[0, : m // 2] = False
+    if b > 2:
+        mask[2] = False                              # an empty row
+    cur = None
+    if cursor:
+        cur = torch.stack([torch.stack([
+            (-1 if i in neg else 1) * (key[bi, m // 3] if key.dim() == 2
+                                       else key[m // 3])
+            for i, key in enumerate(keys)]) for bi in range(b)]).contiguous()
+    before = topk.SORT_SELECT.launches
+    got = topk.sort_select(keys, k, mask=mask, cursor=cur, neg=neg)
+    want = topk.sort_select_plain(keys, k, mask=mask, cursor=cur, neg=neg)
+    torch.cuda.synchronize()
+    assert topk.SORT_SELECT.launches == before + 1
+    assert got.shape == (b, min(k, m)) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+def test_sort_select_refuses_what_it_does_not_take(cuda):
+    col = torch.zeros(100, device=cuda)
+    with pytest.raises(TypeError):
+        topk.sort_select([col.double()], 5, rows=2)
+    with pytest.raises(ValueError):
+        topk.sort_select([col, torch.zeros(3, 99, device=cuda)], 5)
+    with pytest.raises(ValueError):
+        topk.sort_select([col], 5, mask=torch.ones(2, 100, dtype=torch.bool,
+                                                     device=cuda)[:, ::1].t())
+    with pytest.raises(ValueError):
+        topk.sort_select([col] * 17, 5, rows=2)
+
+
+@pytest.mark.parametrize("n,b,vocab", [(262_144, 64, 16), (100_003, 5, 50_000),
+                                       (300, 1, 7)])
+def test_row_batched_agg_kernels_equal_per_row_launches(cuda, n, b, vocab):
+    """The row-batched K8 (ordinal, dd-histogram) and K9 entries: each row
+    the bits of a one-row launch and of the plain versions (K9's plain
+    version adds its f32 sums in the kernel's order)."""
+    rng = np.random.default_rng(n)
+    ords = torch.from_numpy(rng.integers(-1, vocab, (n, 2)).astype(
+        np.int32)).to(cuda)
+    mask = torch.from_numpy(rng.random((b, n)) < 0.4).to(cuda)
+    mask[-1] = False
+    vals = rng.uniform(-50.0, 150.0, n)
+    vals[:3] = [0.0, -0.0, 1e6 + 0.5]
+    from elasticsearch_tpu_torch.index.device_reader import dd_split
+    hi_np, lo_np = dd_split(vals)
+    hi, lo = torch.from_numpy(hi_np).to(cuda), torch.from_numpy(lo_np).to(cuda)
+    exists = torch.from_numpy(rng.random(n) < 0.9).to(cuda)
+    before = (aggs_ops.AGG_COUNTS_ROWS.launches,
+              aggs_ops.AGG_STATS_ROWS.launches)
+    got = aggs_ops.ord_counts_rows(ords, mask, vocab)
+    h_args = (-55.0, 0.0, 5.0, 32)
+    got_h = aggs_ops.dd_histogram_counts_rows(hi, lo, exists, mask, *h_args)
+    got_s = aggs_ops.dd_stats_rows(hi, lo, exists, mask)
+    torch.cuda.synchronize()
+    assert (aggs_ops.AGG_COUNTS_ROWS.launches,
+            aggs_ops.AGG_STATS_ROWS.launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    for r in range(b):
+        assert torch.equal(got[r], aggs_ops.ord_counts(ords, mask[r], vocab))
+        assert torch.equal(got_h[r], aggs_ops.dd_histogram_counts(
+            hi, lo, exists, mask[r], *h_args))
+        assert torch.equal(got_s[r], aggs_ops.dd_stats(hi, lo, exists,
+                                                       mask[r]))
+    assert torch.equal(got, aggs_ops.ord_counts_rows_plain(ords, mask, vocab))
+    assert torch.equal(got_h, aggs_ops.histogram_counts_dd_rows_plain(
+        hi, lo, exists, mask, *h_args))
+    # the plain version adds the sums in the kernel's order
+    assert torch.equal(got_s, aggs_ops.dd_stats_rows_plain(hi, lo, exists,
+                                                          mask))
+
+
+def test_collective_plane_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """MeshEngineSearcher on a mesh of one NCCL rank on the card against
+    the same searcher on a CPU mesh of one gloo rank: score order, a field
+    sort with a cursor, aggregations. Totals, ids and sort values equal,
+    scores within 1e-6; K20 and the row-batched K8 / K9 launched."""
+    from elasticsearch_tpu_torch.index.engine import Engine
+    from elasticsearch_tpu_torch.mapping import MapperService
+    from elasticsearch_tpu_torch.parallel import make_mesh
+    from elasticsearch_tpu_torch.parallel import mesh_engine as me
+    rng = np.random.default_rng(13)
+    ms = MapperService()
+    ms.merge("_doc", {"properties": {
+        "t": {"type": "text", "analyzer": "whitespace"},
+        "n": {"type": "long"}, "cat": {"type": "keyword"}}})
+    engines = [Engine(tmp_path / f"s{i}", ms) for i in range(4)]
+    for i in range(400):
+        d = {"t": " ".join(f"w{int(x)}" for x in rng.zipf(1.6, 6) if x < 25)
+             or "w1"}
+        if i % 7:
+            d["n"] = int(rng.integers(0, 60))
+        if i % 5:
+            d["cat"] = f"c{int(rng.integers(0, 9))}"
+        engines[i % 4].index(str(i), d)
+        if i == 250:
+            engines[0].refresh()
+    for i in (5, 77):
+        engines[i % 4].delete(str(i))
+    for e in engines:
+        e.refresh()
+    batches = [
+        [{"query": {"match": {"t": f"w{i} w{i + 2}"}}, "size": 30}
+         for i in range(4)],
+        [{"query": {"match": {"t": f"w{i}"}}, "size": 20,
+          "sort": [{"cat": "asc"}, {"n": {"order": "desc",
+                                          "missing": "_first"}}],
+          "search_after": ["c3", 30]} for i in range(4)],
+        [{"query": {"match": {"t": f"w{i} w1"}}, "size": 5, "aggs": {
+            "by": {"terms": {"field": "cat"}},
+            "h": {"histogram": {"field": "n", "interval": 7}},
+            "s": {"stats": {"field": "n"}}}} for i in range(4)],
+    ]
+    try:
+        host = me.MeshEngineSearcher(make_mesh(device="cpu"), engines, ms)
+        mesh = make_mesh(device=cuda)
+        card = me.MeshEngineSearcher(mesh, engines, ms)
+        before = (topk.SORT_SELECT.launches,
+                  aggs_ops.AGG_COUNTS_ROWS.launches,
+                  aggs_ops.AGG_STATS_ROWS.launches)
+        for bodies in batches:
+            for gs in (True, False):
+                want = host.search_batch(bodies, global_stats=gs)
+                got = card.search_batch(bodies, global_stats=gs)
+                for w, g in zip(want, got):
+                    assert g["total"] == w["total"]
+                    np.testing.assert_array_equal(g["shard_totals"],
+                                                  w["shard_totals"])
+                    np.testing.assert_array_equal(g["doc_ids"], w["doc_ids"])
+                    np.testing.assert_allclose(g["scores"], w["scores"],
+                                               rtol=1e-6)
+                    assert g.get("sort_values") == w.get("sort_values")
+                    if "aggregations" in w:
+                        ga, wa = g["aggregations"], w["aggregations"]
+                        assert ga["by"] == wa["by"] and ga["h"] == wa["h"]
+                        for key in ("count", "min", "max"):
+                            assert ga["s"][key] == wa["s"][key]
+                        assert ga["s"]["sum"] == pytest.approx(
+                            wa["s"]["sum"], rel=1e-6)
+        torch.cuda.synchronize()
+        after = (topk.SORT_SELECT.launches,
+                 aggs_ops.AGG_COUNTS_ROWS.launches,
+                 aggs_ops.AGG_STATS_ROWS.launches)
+        assert all(a > b_ for a, b_ in zip(after, before))
+        assert card.device_bytes() > 0
+        mesh.close()
+    finally:
+        for e in engines:
+            e.close()
+        me.clear_block_cache()

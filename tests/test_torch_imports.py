@@ -5,8 +5,10 @@ and rescore arms, aggregations reduced by the coordinator's merge, the
 percolator's registry, _mpercolate and serial paths, scripts: a
 script_score query and function, script_fields, the template query, the
 script aggregations and a script_score registration, geo: a
-geo_distance and a geo_shape query, and nested: a nested query, a nested /
-reverse_nested aggregation and a nested registration) loads neither JAX nor
+geo_distance and a geo_shape query, nested: a nested query, a nested /
+reverse_nested aggregation and a nested registration, and the collective
+plane: a score-ordered and a field-sorted search with aggregations over two
+shards on a mesh of one gloo rank, and DistributedBM25) loads neither JAX nor
 the JAX package, its entry points
 never fall back to the CPU on their own, and its CUDA sources include no
 header of torch or of the JAX package's native code."""
@@ -207,11 +209,44 @@ nmeta = types.SimpleNamespace(
         "term": {"c.who": "a"}}}}}})
 nested_perc = [m["_id"] for m in percolator.percolate(
     nmeta, {"c": [{"who": "b"}, {"who": "a"}]}, device="cpu")["matches"]]
+from elasticsearch_tpu_torch.models.bm25 import PackedTextIndex
+from elasticsearch_tpu_torch.parallel import DistributedBM25, make_mesh
+from elasticsearch_tpu_torch.parallel.mesh_engine import (
+    MeshEngineSearcher, clear_block_cache)
+pms = MapperService()
+pms.merge("_doc", {"properties": {"body": {"type": "text"},
+                                  "rank": {"type": "double"}}})
+peng = [Engine(Path(tempfile.mkdtemp()), pms) for _ in range(2)]
+for i, text in enumerate(["quick brown fox", "lazy dog", "quick dog",
+                          "quick quick fox"]):
+    peng[i // 3].index(str(i), {"body": text, "rank": 10.0 * (3 - i)})
+for e in peng:
+    e.refresh()
+mesh = make_mesh(device="cpu")
+plane = MeshEngineSearcher(mesh, peng, pms)
+p_score = plane.search_batch([{"query": {"match": {"body": "quick"}}}])[0]
+p_sort = plane.search_batch([{"query": {"match": {"body": "quick"}},
+                              "sort": [{"rank": "desc"}],
+                              "aggs": {"s": {"sum": {"field": "rank"}}}}])[0]
+dist = DistributedBM25(mesh, [PackedTextIndex.from_texts(
+    ["quick fox", "lazy dog"]), PackedTextIndex.from_texts(["quick dog"])])
+d_scores, d_docs, d_totals = dist.search(["quick"], k=2)
+plane_out = [[plane.doc_id(int(d)) for d in p_score["doc_ids"]],
+             [plane.doc_id(int(d)) for d in p_sort["doc_ids"]],
+             p_sort["sort_values"], p_sort["aggregations"]["s"]["value"],
+             [dist.resolve(int(d)) for d in d_docs[0]], int(d_totals[0])]
+clear_block_cache()
+mesh.close()
+try:
+    make_mesh()
+    mesh_refused = False
+except RuntimeError:
+    mesh_refused = True
 try:
     DeviceReader(eng.acquire_searcher())
     refused = False
 except RuntimeError:
-    refused = True
+    refused = mesh_refused
 try:
     percolator.percolate(pmeta, {"body": "fox"})
     refused = False
@@ -226,6 +261,7 @@ print(json.dumps({
     "script_ids": script_ids, "script_fields": script_fields,
     "script_aggs": script_aggs, "script_perc": script_perc,
     "nested": [nested_ids, nested_aggs, nested_perc],
+    "plane": plane_out,
     "leaked": sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",
                                             "elasticsearch_tpu")),
@@ -263,6 +299,9 @@ def test_port_serves_without_jax_or_the_jax_package(tmp_path):
     # a nested query (no leak across objects), a nested / reverse_nested
     # aggregation and a nested registration
     assert got["nested"] == [["1"], [3, [["a", 2], ["b", 1]], 2], ["n"]]
+    # the collective plane over two shards, and DistributedBM25
+    assert got["plane"] == [["3", "2", "0"], ["0", "2", "3"],
+                            [[30], [10], [0]], 40.0, [[0, 0], [1, 0]], 2]
     assert got["leaked"] == []
     assert got["no_card_refused"]
 
@@ -273,6 +312,8 @@ def test_no_port_source_imports_jax_or_the_jax_package():
     shares its prefix, so the match is on the exact top-level name)."""
     import ast
     files = sorted((REPO / "elasticsearch_tpu_torch").rglob("*.py"))
+    assert {"mesh.py", "distributed.py", "mesh_engine.py"} <= {
+        p.name for p in files if p.parent.name == "parallel"}
     files.append(REPO / "chip_smoke.py")
     bad = []
     for path in files:
@@ -302,7 +343,8 @@ def test_cuda_sources_have_a_plain_c_interface():
                                          "script_eval.cu",
                                          "span_program.cu", "span_near.cu",
                                          "term_set_scan.cu", "geo_points.cu",
-                                         "geo_shape.cu", "nested_reduce.cu"}
+                                         "geo_shape.cu", "nested_reduce.cu",
+                                         "sort_select.cu"}
     sources += sorted((REPO / "elasticsearch_tpu_torch" / "csrc").glob(
         "*.cuh"))
     bad = []
